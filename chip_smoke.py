@@ -6,31 +6,47 @@ GPU, from the root of a checkout:
 
 Phases, each of which exits non-zero on failure:
 
+Two main paths, each a model served at full width through its kernel:
+Qwen2.5-3B (prefill attention through ``flash_attention``) and
+Mamba2-2.7B (the SSD chunked scan through ``ssd_scan``). Phases, each of
+which exits non-zero on failure:
+
 1. Environment: the card's name and power limit, torch and CUDA versions;
    every kernel built from its source in the checkout (one nvcc each,
    started together), with its build time and ptxas report.
-2. Kernel check: ``flash_attention_bhsd`` against ``attention_ref`` on the
-   card over the CPU tests' sweep and the serving shape (B=4, Hq=16,
-   Hkv=2, S=512, D=128, causal, bf16), then the kernel's, the plain
-   version's and SDPA's (``library_ms``) device times at the serving
-   shape, each call back to back behind a spin kernel.
-3. Slice check: (a) reduced Qwen2.5-3B in float32 on the card, through
-   the kernel, against the same model on the CPU (plain path, which the
-   CPU tests hold to the JAX package); (b) Qwen2.5-3B at full width, bf16,
-   random weights from a seeded ``torch.Generator``: one prefill (B=4,
-   prompt 512) through the kernel against the same prefill with the
-   kernel's call site routed to ``attention_ref``.
-4. Serve (the main path): ``serve()`` at full width, 16 requests, prompt
-   512, 32 new tokens, batch 4, at concurrency 1, then 2, then 1 again,
-   with launch counts reset just before and read just after; then the
-   τ-vs-concurrency probe over c in {1, 2, 4}; then the retire-overlap
-   check: the real runtime over a stand-in engine whose steps take 10 ms
-   of host work and a 10 ms spin kernel must serve at c=2 at least 1.3×
-   its c=1 rate, which holds only if retire waits on its own slot alone.
+2. Kernel check: each kernel against its plain version on the card over
+   the CPU tests' sweep and its serving shape, then the kernel's, the
+   plain version's and (where one exists) a library call's device times
+   at the serving shape, each call back to back behind a spin kernel.
+   ``flash_attention_bhsd`` against ``attention_ref`` (B=4, Hq=16, Hkv=2,
+   S=512, D=128, causal, bf16; library: SDPA); ``ssd_scan`` against
+   ``ssd_ref`` in float32 and bfloat16, with a ragged tail and an initial
+   state (B=4, S=512, NH=80, hd=64, N=128, chunk 256, bf16; no library
+   call computes the scan).
+3. Slice check, per model: (a) the reduced model in float32 on the card,
+   through the kernel, against the same model on the CPU (plain path,
+   which the CPU tests hold to the JAX package); (b) the model at full
+   width, random weights from a seeded ``torch.Generator``: one prefill
+   (B=4, prompt 512) through the kernel against the same prefill with the
+   model's call site of the kernel routed to its plain version. For
+   Qwen2.5-3B in bf16, logits within 5e-2 × max|logit|. For Mamba2-2.7B,
+   in bf16 every SSD launch of the prefill is held to ``ssd_ref`` on its
+   own inputs and the logits are printed beside a control (the plain path
+   with half the chunk); in float32 the logits are held within
+   5e-2 × max|logit| (``ssm_full_width_check`` says why).
+4. Serve (the main paths): ``serve()`` at full width, 16 requests, prompt
+   512, 32 new tokens, batch 4, at concurrency 1, then 2, with launch
+   counts reset just before and read just after each model's runs; each
+   model's kernel must have launched (``ssd_scan`` 64 times per prefill).
+   For Qwen2.5-3B then the τ-vs-concurrency probe over c in {1, 2, 4} and
+   the retire-overlap check: the real runtime over a stand-in engine
+   whose steps take 10 ms of host work and a 10 ms spin kernel must serve
+   at c=2 at least 1.3× its c=1 rate, which holds only if retire waits on
+   its own slot alone.
 5. Profile (after the counts are read): where a full-width prefill
-   (B=4, prompt 512) and a decode step (B=4) spend their time — wall time,
-   device-busy time and kernel count from ``torch.profiler``, the idle
-   share, and the heaviest kernels.
+   (B=4, prompt 512) and a decode step (B=4) of each model spend their
+   time — wall time, device-busy time and kernel count from
+   ``torch.profiler``, the idle share, and the heaviest kernels.
 6. A ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
@@ -48,6 +64,7 @@ from unittest import mock
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 ARCH = "qwen2.5-3b"
+SSM_ARCH = "mamba2-2.7b"
 SERVE_SHAPE = dict(b=4, hq=16, hkv=2, s=512, d=128, dv=128, causal=True, window=None)
 SWEEP = [  # the CPU tests' sweep (tests/test_torch_flash_attention.py)
     dict(b=1, hq=2, hkv=2, s=64, d=32, dv=32, causal=True, window=None),
@@ -58,6 +75,22 @@ SWEEP = [  # the CPU tests' sweep (tests/test_torch_flash_attention.py)
     dict(b=1, hq=4, hkv=2, s=70, d=32, dv=32, causal=True, window=None),
     dict(b=2, hq=4, hkv=2, s=48, d=32, dv=64, causal=True, window=None),
 ]
+# (b, s, nh, hd, n, chunk, initial state): the CPU tests' sweep
+# (tests/test_torch_ssd_scan.py), a ragged tail, the reduced Mamba2, and
+# full-width heads (hd 64, N 128, the tensor-core body in bf16), ragged
+SSD_SWEEP = [
+    (1, 32, 2, 16, 8, 8, False),
+    (2, 64, 4, 16, 16, 16, False),
+    (1, 48, 1, 8, 4, 16, False),
+    (2, 45, 3, 16, 8, 16, False),
+    (1, 5, 2, 8, 4, 8, False),
+    (1, 32, 2, 16, 8, 8, True),
+    (2, 45, 3, 16, 8, 16, True),
+    (2, 93, 16, 16, 16, 8, True),
+    (1, 300, 4, 64, 128, 256, True),
+    (2, 200, 3, 64, 128, 64, False),
+]
+SSD_SERVE = (4, 512, 80, 64, 128, 256, False)  # Mamba2-2.7B prefill, B=4 x 512
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_BF16_FLOPS = 989e12
@@ -67,6 +100,8 @@ SPIN_MS_MIN = 30.0
 PREFILL_REL_TOL = 5e-2  # full-width bf16 logits, relative to max |logit|
 SLICE_FP32_TOL = 1e-4  # reduced fp32 logits, card vs CPU
 OVERLAP_MIN = 1.3  # tau(c=2) / tau(c=1) when host and card take 10 ms each
+SERVE = dict(requests=16, prompt_len=512, new_tokens=32, batch=4)
+SERVE_ORDER = (1, 2)  # concurrency of the successive serve() runs of each model
 
 
 def fail(msg: str) -> None:
@@ -138,7 +173,7 @@ def phase_environment(torch):
                 say(f"    {line.strip()}")
 
 
-def phase_kernel_check(torch):
+def phase_flash_check(torch):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention_bhsd
@@ -190,33 +225,132 @@ def phase_kernel_check(torch):
     }
 
 
-def phase_slice_check(torch):
+def ssd_inputs(torch, dtype, b, s, nh, hd, n, state, seed):
+    """dt and A drawn as in tests/test_kernels.py; x, B, C in ``dtype``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=dtype):
+        return torch.from_numpy(np.asarray(a, np.float32)).to("cuda", dt)
+
+    args = (t(rng.normal(size=(b, s, nh, hd))), t(rng.uniform(0.01, 0.2, (b, s, nh)), torch.float32),
+            t(-rng.uniform(0.5, 2, (nh,)), torch.float32), t(rng.normal(size=(b, s, n))),
+            t(rng.normal(size=(b, s, n))))
+    return args, (t(rng.normal(size=(b, nh, hd, n)), torch.float32) if state else None)
+
+
+def ssd_tolerances(torch, y_ref, s_ref):
+    """y: float32 max(1e-4, 1e-5 max|y|) (summation order only), bfloat16
+    1e-2 max|y| (both sides round one float32 result, one bf16 ulp is 2^-7
+    of the value); the float32 state 1e-4 max(1, max|S|)."""
+    y_max = y_ref.float().abs().max().item()
+    y_tol = max(1e-4, 1e-5 * y_max) if y_ref.dtype == torch.float32 else 1e-2 * y_max
+    return y_tol, 1e-4 * max(1.0, s_ref.abs().max().item())
+
+
+def ssd_work(b, s, nh, hd, n, chunk, x_bytes, state):
+    """Bytes the scan must move (each input read once, each output written
+    once) and the operations its data needs: per chunk of q positions the
+    q(q+1)/2 causal pairs of C·Bᵀ (once per batch row: B and C are shared
+    by every head) and of (C·Bᵀ ⊙ L)·(dt x), then C·Sᵀ and the state
+    update, q·N·hd each, per head."""
+    nbytes = (2 * b * s * nh * hd * x_bytes + 4 * b * s * nh + 4 * nh + 2 * b * s * n * x_bytes
+              + 4 * b * nh * hd * n * (2 if state else 1))
+    flops = 0
+    for c0 in range(0, s, chunk):
+        q = min(chunk, s - c0)
+        pairs = q * (q + 1) // 2
+        flops += 2 * b * pairs * n + 2 * b * nh * (pairs * hd + 2 * q * n * hd)
+    return nbytes, flops
+
+
+def phase_ssd_check(torch):
+    from repro_torch.kernels.ssd_scan import ssd_ref, ssd_scan
+
+    serve_err = None
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for i, case in enumerate(SSD_SWEEP + [SSD_SERVE]):
+            b, s, nh, hd, n, chunk, state = case
+            args, s0 = ssd_inputs(torch, dtype, b, s, nh, hd, n, state, seed=i)
+            y, st = ssd_scan(*args, chunk=chunk, initial_state=s0)
+            y_ref, s_ref = ssd_ref(*args, chunk, s0)
+            torch.cuda.synchronize()
+            if (y.shape != y_ref.shape or y.dtype != y_ref.dtype or st.shape != s_ref.shape
+                    or st.dtype != torch.float32):
+                fail(f"ssd kernel {case} {dname}: shape/dtype {y.shape} {y.dtype} {st.dtype}")
+            y_err = (y.float() - y_ref.float()).abs().max().item()
+            s_err = (st - s_ref).abs().max().item()
+            y_tol, s_tol = ssd_tolerances(torch, y_ref, s_ref)
+            ok = y_err <= y_tol and s_err <= s_tol
+            say(f"  ssd {dname} (b, s, nh, hd, n, chunk, state)={case}: y max_abs_err "
+                f"{y_err:.3g} (tol {y_tol:.3g}), state {s_err:.3g} (tol {s_tol:.3g}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"ssd kernel disagrees with ssd_ref at {case} {dname}")
+            if case is SSD_SERVE and dtype == torch.bfloat16:
+                serve_err = y_err
+
+    # times at the serving shape, bf16
+    b, s, nh, hd, n, chunk, state = SSD_SERVE
+    args, _ = ssd_inputs(torch, torch.bfloat16, b, s, nh, hd, n, state, seed=len(SSD_SWEEP))
+    ms = device_ms(lambda: ssd_scan(*args, chunk=chunk))
+    plain_ms = device_ms(lambda: ssd_ref(*args, chunk))
+    nbytes, flops = ssd_work(b, s, nh, hd, n, chunk, 2, state)
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    say(f"  ssd at serving shape (bf16): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library: none, bound {bound_ms:.5f} ms ({nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} GFLOP)")
+    return {
+        "max_abs_err": serve_err,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+
+
+def plain_route(arch):
+    """A context in which the model's one call site of its kernel is
+    pointed at the kernel's plain version: a comparison, not a fallback."""
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ssd_ref
+
+    if arch == SSM_ARCH:
+        return mock.patch.object(ssd_ops, "ssd_scan", ssd_ref)
+    return mock.patch.object(fa_ops, "flash_attention_bhsd", attention_ref)
+
+
+def phase_slice_check(torch, arch, reduced_len):
     import numpy as np
 
     from repro_torch.configs.registry import get_config
     from repro_torch.configs.runtime import RunConfig
-    from repro_torch.kernels.flash_attention import attention_ref
-    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models.transformer import ApplyCtx, init_model_params, prefill
     from repro_torch.serving.engine import cast_for_compute
 
     # (a) reduced, float32: the card's path (kernel) against the CPU's
-    cfg = get_config(ARCH).reduced()
+    cfg = get_config(arch).reduced()
     ctx = ApplyCtx(cfg, RunConfig(compute_dtype="float32", use_kernels=True))
     params = init_model_params(cfg, ctx.rcfg, torch.Generator().manual_seed(0), "cpu")
-    tokens = np.random.default_rng(0).integers(0, cfg.vocab, (2, 96), dtype=np.int32)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, (2, reduced_len), dtype=np.int32)
     with torch.inference_mode():
         _, cpu = prefill(ctx, params, {"tokens": torch.from_numpy(tokens)})
         card_params = _to(params, "cuda")
         _, card = prefill(ctx, card_params, {"tokens": torch.from_numpy(tokens).cuda()})
     err = (card.cpu() - cpu).abs().max().item()
-    say(f"  reduced {ARCH} fp32 prefill, card vs CPU: max_abs_err {err:.3g} "
-        f"(tol {SLICE_FP32_TOL})")
+    say(f"  reduced {arch} fp32 prefill (2x{reduced_len}), card vs CPU: max_abs_err "
+        f"{err:.3g} (tol {SLICE_FP32_TOL})")
     if not err <= SLICE_FP32_TOL:
-        fail("reduced fp32 prefill on the card disagrees with the CPU path")
+        fail(f"reduced {arch} fp32 prefill on the card disagrees with the CPU path")
 
-    # (b) full width, bf16: through the kernel vs through attention_ref
-    cfg = get_config(ARCH)
+    if arch == SSM_ARCH:
+        ssm_full_width_check(torch)
+        return
+    # (b) full width, bf16: through the kernel vs through its plain version
+    cfg = get_config(arch)
     ctx = ApplyCtx(cfg, RunConfig(compute_dtype="bfloat16", use_kernels=True))
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = cast_for_compute(init_model_params(cfg, ctx.rcfg, gen, "cuda"),
@@ -225,20 +359,107 @@ def phase_slice_check(torch):
     tok = torch.from_numpy(tokens).cuda()
     with torch.inference_mode():
         _, via_kernel = prefill(ctx, params, {"tokens": tok})
-        # comparison, not a fallback: the model's one call site of the
-        # kernel is pointed at the kernel's plain version for this run
-        with mock.patch.object(fa_ops, "flash_attention_bhsd", attention_ref):
+        with plain_route(arch):
             _, via_ref = prefill(ctx, params, {"tokens": tok})
     a, b = via_kernel.float(), via_ref.float()
     if a.shape != (4, 1, cfg.vocab) or not torch.isfinite(a).all():
-        fail(f"full-width prefill logits: shape {tuple(a.shape)} or non-finite values")
+        fail(f"full-width {arch} prefill logits: shape {tuple(a.shape)} or non-finite values")
     err = (a - b).abs().max().item()
     scale = b.abs().max().item()
     agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
-    say(f"  full-width {ARCH} bf16 prefill (4x512): max_abs_err {err:.4g} vs max|logit| "
+    say(f"  full-width {arch} bf16 prefill (4x512): max_abs_err {err:.4g} vs max|logit| "
         f"{scale:.4g} (rel tol {PREFILL_REL_TOL}), argmax agreement {agree:.2f}")
     if not err <= PREFILL_REL_TOL * scale:
-        fail("full-width prefill through the kernel disagrees with attention_ref")
+        fail(f"full-width {arch} prefill through the kernel disagrees with its plain version")
+    del params, via_kernel, via_ref
+    torch.cuda.empty_cache()
+
+
+def logits_gap(torch, a, b):
+    """max |a - b|, max |b| and the share of rows whose argmax agrees."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max().item(), b.abs().max().item(),
+            (a.argmax(-1) == b.argmax(-1)).float().mean().item())
+
+
+def ssm_full_width_check(torch):
+    """Mamba2-2.7B at full width, random weights, one prefill (B=4, 512).
+
+    bf16: the prefill through the kernel, each of its 64 launches held to
+    ``ssd_ref`` on that launch's own inputs (the model's dt ~ 0.8 and
+    A = -e, so cs falls to about -560 over a chunk) with the kernel's
+    tolerances; its logits are printed beside the plain path's, and beside
+    a control: the plain path against itself with half the chunk, the
+    same function summed in another order. At this depth the bf16 model
+    carries such rounding differences to the logits (the control alone
+    moves them by about a third of max|logit|), so a bound on the bf16
+    logits would gate the model, not the kernel. float32: the same prefill
+    through the kernel and through its plain version, logits within
+    PREFILL_REL_TOL of max|logit|."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.runtime import RunConfig
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ssd_ref, ssd_scan
+    from repro_torch.models.transformer import ApplyCtx, init_model_params, prefill
+    from repro_torch.serving.engine import cast_for_compute
+
+    cfg = get_config(SSM_ARCH)
+    tok = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab, (4, 512), dtype=np.int32)).cuda()
+    worst = []
+
+    def held_to_plain(x, dt, A, Bm, Cm, *, chunk, initial_state=None):
+        y, st = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state)
+        y_ref, s_ref = ssd_ref(x, dt, A, Bm, Cm, chunk, initial_state)
+        y_tol, s_tol = ssd_tolerances(torch, y_ref, s_ref)
+        worst.append(max((y.float() - y_ref.float()).abs().max().item() / y_tol,
+                         (st - s_ref).abs().max().item() / s_tol))
+        return y, st
+
+    def half_chunk(x, dt, A, Bm, Cm, *, chunk, initial_state=None):
+        return ssd_ref(x, dt, A, Bm, Cm, chunk // 2, initial_state)
+
+    ctx = ApplyCtx(cfg, RunConfig(compute_dtype="bfloat16", use_kernels=True))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = cast_for_compute(init_model_params(cfg, ctx.rcfg, gen, "cuda"), torch.bfloat16)
+    with torch.inference_mode():
+        with mock.patch.object(ssd_ops, "ssd_scan", held_to_plain):
+            _, via_kernel = prefill(ctx, params, {"tokens": tok})
+        with plain_route(SSM_ARCH):
+            _, via_ref = prefill(ctx, params, {"tokens": tok})
+        with mock.patch.object(ssd_ops, "ssd_scan", half_chunk):
+            _, via_ref_half = prefill(ctx, params, {"tokens": tok})
+    if via_kernel.shape != (4, 1, cfg.vocab) or not torch.isfinite(via_kernel).all():
+        fail(f"full-width {SSM_ARCH} prefill logits: shape {tuple(via_kernel.shape)} "
+             "or non-finite values")
+    say(f"  full-width {SSM_ARCH} bf16 prefill (4x512): {len(worst)} ssd launches, each against "
+        f"ssd_ref on its own inputs: worst error / tolerance {max(worst):.3g}")
+    if len(worst) != cfg.n_layers or not max(worst) <= 1.0:
+        fail(f"an ssd launch inside the full-width {SSM_ARCH} prefill disagrees with ssd_ref")
+    err, scale, agree = logits_gap(torch, via_kernel, via_ref)
+    c_err, _, c_agree = logits_gap(torch, via_ref_half, via_ref)
+    say(f"  full-width {SSM_ARCH} bf16 logits: kernel vs plain max_abs_err {err:.4g} "
+        f"(argmax agreement {agree:.2f}); control, plain with chunk 128 vs 256: {c_err:.4g} "
+        f"({c_agree:.2f}); max|logit| {scale:.4g}")
+    del params, via_kernel, via_ref, via_ref_half
+    torch.cuda.empty_cache()
+
+    ctx = ApplyCtx(cfg, RunConfig(compute_dtype="float32", use_kernels=True))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_model_params(cfg, ctx.rcfg, gen, "cuda")
+    with torch.inference_mode():
+        _, via_kernel = prefill(ctx, params, {"tokens": tok})
+        with plain_route(SSM_ARCH):
+            _, via_ref = prefill(ctx, params, {"tokens": tok})
+    if not torch.isfinite(via_kernel).all():
+        fail(f"full-width {SSM_ARCH} fp32 prefill logits are not finite")
+    err, scale, agree = logits_gap(torch, via_kernel, via_ref)
+    say(f"  full-width {SSM_ARCH} fp32 prefill (4x512): max_abs_err {err:.4g} vs max|logit| "
+        f"{scale:.4g} (rel tol {PREFILL_REL_TOL}), argmax agreement {agree:.2f}")
+    if not err <= PREFILL_REL_TOL * scale:
+        fail(f"full-width {SSM_ARCH} fp32 prefill through the kernel disagrees with ssd_ref")
     del params, via_kernel, via_ref
     torch.cuda.empty_cache()
 
@@ -248,43 +469,58 @@ def _to(tree, device):
             for k, v in tree.items()}
 
 
+def serve_runs(torch, arch):
+    """The main path of one model: ``serve()`` at full width at each
+    concurrency of SERVE_ORDER, launch counts reset just before and read
+    just after. Returns the counts."""
+    from repro_torch.kernels import runtime
+    from repro_torch.launch.serve import serve
+
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_launch_counts()
+    metrics = [serve(arch, **SERVE, concurrency=c, device="cuda") for c in SERVE_ORDER]
+    counts = runtime.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for c, m in zip(SERVE_ORDER, metrics):
+        say(f"  {arch} serve c={c}: {m['requests']} requests, {m['throughput_tok_s']:.2f} tok/s, "
+            f"p50 {m['p50_latency_s']:.3f} s, p99 {m['p99_latency_s']:.3f} s")
+        if m["requests"] != SERVE["requests"] or m["queue_depth"] != 0:
+            fail(f"{arch} serve c={c} finished {m['requests']} of {SERVE['requests']} requests")
+    prefills = len(metrics) * SERVE["requests"] // SERVE["batch"]
+    say(f"  {arch} launches on its main path: {counts} over {prefills} prefills, "
+        f"peak memory {peak_gb:.2f} GB")
+    return counts, prefills
+
+
 def phase_serve(torch):
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import runtime
-    from repro_torch.launch.serve import build_engine, serve
+    from repro_torch.launch.serve import build_engine
     from repro_torch.serving import measure_concurrency_curve
 
-    requests, prompt_len, new_tokens, batch = 16, 512, 32, 4
-    torch.cuda.reset_peak_memory_stats()
-    runtime.reset_launch_counts()
-    # c=1, then c=2, then c=1 again: the repeat separates the effect of c
-    # from that of running second
-    order = (1, 2, 1)
-    metrics = [serve(ARCH, requests, prompt_len, new_tokens, batch, c, device="cuda")
-               for c in order]
-    counts = runtime.launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for c, m in zip(order, metrics):
-        say(f"  serve c={c}: {m['requests']} requests, {m['throughput_tok_s']:.2f} tok/s, "
-            f"p50 {m['p50_latency_s']:.3f} s, p99 {m['p99_latency_s']:.3f} s")
-        if m["requests"] != requests or m["queue_depth"] != 0:
-            fail(f"serve c={c} finished {m['requests']} of {requests} requests")
-    served = requests * len(metrics)
-    say(f"  launches on the main path: {counts} ({counts['flash_attention'] / served:.2f} "
-        f"flash launches per request), peak memory {peak_gb:.2f} GB")
-    missing = [k for k, n in counts.items() if n == 0]
+    flash_counts, _ = serve_runs(torch, ARCH)
+    if flash_counts["flash_attention"] == 0:
+        fail(f"flash_attention never launched on the {ARCH} main path")
+    ssd_counts, prefills = serve_runs(torch, SSM_ARCH)
+    per_prefill = get_config(SSM_ARCH).n_layers  # one launch per Mamba2 layer
+    if ssd_counts["ssd_scan"] != per_prefill * prefills:
+        fail(f"ssd_scan launched {ssd_counts['ssd_scan']} times on the {SSM_ARCH} main path, "
+             f"not {per_prefill} per prefill over {prefills} prefills")
+    missing = [k for k in runtime.SOURCES if flash_counts[k] + ssd_counts[k] == 0]
     if missing:
-        fail(f"kernels never launched on the main path: {missing}")
+        fail(f"kernels never launched on the main paths: {missing}")
 
+    batch = SERVE["batch"]
     engine = build_engine(ARCH, batch, 64 + 16 + 1, device="cuda")
     best, used = measure_concurrency_curve(
         engine, [1, 2, 4], rounds=2, min_rounds=2, prompt_len=64, new_tokens=16,
         groups=8, batch_size=batch, vocab=get_config(ARCH).vocab,
     )
-    say("  tau vs concurrency (decode tok/s, best of "
+    say(f"  {ARCH} tau vs concurrency (decode tok/s, best of "
         f"{used} interleaved rounds): " + ", ".join(f"c={c}: {t:.2f}" for c, t in best.items()))
+    del engine
     retire_overlap_check(torch)
-    return counts
+    return {"flash_attention": flash_counts["flash_attention"], "ssd_scan": ssd_counts["ssd_scan"]}
 
 
 class SpinEngine:
@@ -365,26 +601,28 @@ def profile_window(torch, label, fn, reps):
             f"{e.key[:90]}")
 
 
-def phase_profile(torch):
+def phase_profile(torch, arch):
     import numpy as np
 
     from repro_torch.launch.serve import build_engine
 
-    engine = build_engine(ARCH, 4, 512 + 16, device="cuda")
+    engine = build_engine(arch, 4, 512 + 16, device="cuda")
     prompt = np.random.default_rng(2).integers(0, 1000, (4, 512), dtype=np.int32)
     state = {}
 
     def prefill():
         state["cache"], _ = engine.prefill(prompt)
 
-    profile_window(torch, "prefill 4x512", prefill, reps=3)
+    profile_window(torch, f"{arch} prefill 4x512", prefill, reps=3)
     tok = np.zeros((4, 1), np.int32)
 
     def decode():
         state["cache"]["length"] = 512  # re-decode the same slot: no cache growth
         engine.decode(state["cache"], tok)
 
-    profile_window(torch, "decode step (B=4, cache 528)", decode, reps=5)
+    profile_window(torch, f"{arch} decode step (B=4, cache 528)", decode, reps=5)
+    del engine, state
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -401,22 +639,27 @@ def main() -> None:
     say("== phase 1: environment")
     phase_environment(torch)
     say("== phase 2: kernel check")
-    kern = phase_kernel_check(torch)
+    kern = {"flash_attention": phase_flash_check(torch), "ssd_scan": phase_ssd_check(torch)}
     say("== phase 3: slice check")
-    phase_slice_check(torch)
+    phase_slice_check(torch, ARCH, 96)
+    phase_slice_check(torch, SSM_ARCH, 93)
     say("== phase 4: serve")
     counts = phase_serve(torch)
     say("== phase 5: profile")
-    phase_profile(torch)
+    phase_profile(torch, ARCH)
+    phase_profile(torch, SSM_ARCH)
     say(f"== done in {time.perf_counter() - t0:.1f} s")
-    say(json.dumps({"kernels": [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:26",
-        "launches": counts["flash_attention"],
-        **kern,
-    }]}))
+    sources = {
+        "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/flash_attention.py:26"),
+        "ssd_scan": ("src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan/ssd_scan.py:28"),
+    }
+    say(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+         "launches": counts[name], **kern[name]}
+        for name, (src, replaces) in sources.items()
+    ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

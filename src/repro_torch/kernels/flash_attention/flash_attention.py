@@ -14,10 +14,12 @@ S=512, D=128, bf16) the least time is the memory side, about 19 MB at
 design keeps the whole softmax state of a 64-row query tile in one
 block's registers and stages each 64-key K/V tile in shared memory once,
 so K and V are read once per query tile and Q once in all, and the GQA
-group shares KV head h // g with no replication. This first version does
-its products on the float32 CUDA cores, not with ``wgmma``, so it is
-bound by shared-memory bandwidth and FMA issue well above that roofline
-(see PERF.md); the tensor-core version is later work.
+group shares KV head h // g with no replication. The bf16 body (D == Dv
+in 16..128, rows 16-byte aligned) does both products on the tensor cores
+with ``mma.sync`` m16n8k16, ``cp.async`` double-buffering the K/V tiles;
+every other case (float32, Dv != D, unaligned views) takes a float32 body
+on the CUDA cores. Neither uses ``wgmma`` or TMA, so the kernel runs well
+above that roofline (see PERF.md).
 
 Tile sizes are fixed by the compiled kernel (64 × 64), so the reference's
 ``block_q``/``block_k``/``interpret`` arguments have no counterpart. The

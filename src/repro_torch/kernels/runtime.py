@@ -41,6 +41,7 @@ BUILD_DIR = REPO_ROOT / "build"
 # kernel name -> CUDA source, relative to this package
 SOURCES: Dict[str, Path] = {
     "flash_attention": _KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu",
+    "ssd_scan": _KERNELS_DIR / "ssd_scan" / "csrc" / "ssd_scan.cu",
 }
 
 NVCC_FLAGS = (

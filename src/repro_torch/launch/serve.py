@@ -1,12 +1,16 @@
 """Serving launcher: batched generation with the runtime's concurrency
 knob (the counterpart of ``repro/launch/serve.py``).
 
-Serves the full configuration on the card, with prefill attention through
-the hand-written flash attention kernel. ``--reduced`` serves
-``cfg.reduced()`` instead (the reference hard-codes it, because it runs
-on a CPU); the CPU tests pass ``reduced=True, device="cpu"``.
+Serves the full configuration on the card through the hand-written
+kernels: prefill attention through the flash attention kernel for a dense
+decoder (``qwen2.5-3b``), the SSD chunked scan through its kernel for
+Mamba2 (``mamba2-2.7b``). ``--reduced`` serves ``cfg.reduced()`` instead
+(the reference hard-codes it, because it runs on a CPU); the CPU tests
+pass ``reduced=True, device="cpu"``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
+      --requests 16 --prompt-len 512 --new-tokens 32 --batch 4 --concurrency 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
       --requests 16 --prompt-len 512 --new-tokens 32 --batch 4 --concurrency 2
 """
 from __future__ import annotations
@@ -32,8 +36,8 @@ def build_engine(
     device="cuda",
 ) -> ServingEngine:
     """A bf16 serving engine over random weights drawn from a
-    ``torch.Generator`` seeded with ``seed``, with prefill attention
-    through the kernel."""
+    ``torch.Generator`` seeded with ``seed``, with the model's kernels on
+    (``use_kernels``: flash attention or the SSD scan in prefill)."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -79,7 +83,9 @@ def serve(
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="a ported config: a dense decoder (e.g. qwen2.5-3b) or "
+                         "Mamba2 (mamba2-2.7b)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)

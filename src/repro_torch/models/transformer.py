@@ -1,5 +1,5 @@
-"""Model assembly for the dense decoder (the counterpart of
-``repro/models/transformer.py``).
+"""Model assembly for the dense decoder and the Mamba2 (SSM) stack (the
+counterpart of ``repro/models/transformer.py``).
 
 Parameters keep the reference's tree: per-layer tensors carry a leading
 ``layers`` axis, so ``repro_torch.models.convert.params_from_jax`` maps
@@ -11,18 +11,23 @@ Entry points:
   prefill(ctx, params, batch, capacity)   -> (cache, last_logits)
   decode_step(ctx, params, cache, tokens) -> (cache, logits)
 
-KV cache. As in the reference, K and V are stored in bfloat16 whatever
-the compute dtype, with shape (L, B, W, Hkv, D), the slot axis padded
-with zeros to ``capacity``; decode writes ring slot ``t % W`` and masks
-by ``_ring_kv_pos``. Where the reference builds a new cache with
-``jnp.pad`` and ``dynamic_update_slice``, this port preallocates the
-cache at prefill and writes each step's K/V in place, so ``decode_step``
-mutates the tensors of the cache it is given (the returned dict shares
-them). ``length`` is a Python int, so decode needs no device sync to find
-its slot.
+Cache. As in the reference, every cached tensor is bfloat16 whatever the
+compute dtype. A dense model keeps K and V, (L, B, W, Hkv, D), the slot
+axis padded with zeros to ``capacity``; decode writes ring slot ``t % W``
+and masks by ``_ring_kv_pos``. A Mamba2 model keeps no K/V but the SSM
+state ``ssm`` (L, B, nh, hd, N) and the conv state ``conv``
+(L, B, d_conv - 1, conv_dim); prefill stores the float32 final state
+rounded to bf16, and decode widens it to float32, steps, and stores it
+rounded again, at the reference's places. Where the reference builds a
+new cache with ``jnp.pad`` and ``dynamic_update_slice``, this port
+preallocates the cache at prefill and writes each layer's entries and
+each step's K/V or states in place, so ``decode_step`` mutates the
+tensors of the cache it is given (the returned dict shares them).
+``length`` is a Python int, so decode needs no device sync to find its
+slot.
 
-Only the dense decoder is ported. The MoE, SSM (Mamba2), hybrid, MLA,
-encoder-decoder (audio) and M-RoPE (vision) branches raise
+The dense decoder and the pure SSM stack are ported. The MoE, hybrid,
+MLA, encoder-decoder (audio) and M-RoPE (vision) branches raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.runtime import RunConfig
+from repro_torch.models import ssm
 from repro_torch.models.attention import attention
 from repro_torch.models.layers import (
     ParamSpec,
@@ -55,12 +61,12 @@ class ApplyCtx:
     rcfg: RunConfig
 
 
-def require_dense(cfg: ModelConfig) -> None:
+def require_ported(cfg: ModelConfig) -> None:
     """Raise for architecture branches this port does not have yet."""
-    if cfg.arch_type in ("ssm", "hybrid") or cfg.ssm is not None:
+    if cfg.arch_type == "hybrid":
         raise NotImplementedError(
-            f"{cfg.name}: Mamba2 (SSM) blocks and the SSD kernel wait for "
-            "ROADMAP queue 1 item 12"
+            f"{cfg.name}: the hybrid attention + Mamba2 layer (mixing gate, "
+            "SWA ring decode) waits for ROADMAP queue 1 item 12"
         )
     waits = {
         "MoE FFN (models/moe.py)": cfg.moe is not None,
@@ -115,8 +121,11 @@ def _ffn_specs(cfg: ModelConfig, n: int) -> dict:
 
 def _layer_specs(cfg: ModelConfig, n: int) -> dict:
     lx = ("layers",)
+    ln1 = ParamSpec((n, cfg.d_model), lx + (None,), init="ones")
+    if cfg.arch_type == "ssm":  # the Mamba2 block is the whole mixer
+        return {"ln1": ln1, "ssm": ssm.ssm_param_specs(cfg, n)}
     return {
-        "ln1": ParamSpec((n, cfg.d_model), lx + (None,), init="ones"),
+        "ln1": ln1,
         "attn": _attn_specs(cfg, n),
         "ln2": ParamSpec((n, cfg.d_model), lx + (None,), init="ones"),
         "ffn": _ffn_specs(cfg, n),
@@ -124,8 +133,8 @@ def _layer_specs(cfg: ModelConfig, n: int) -> dict:
 
 
 def param_specs(cfg: ModelConfig) -> dict:
-    """The dense decoder's ``ParamSpec`` tree (the reference's, key for key)."""
-    require_dense(cfg)
+    """The model's ``ParamSpec`` tree (the reference's, key for key)."""
+    require_ported(cfg)
     d = cfg.d_model
     specs = {
         "embed": ParamSpec((cfg.vocab, d), ("vocab", "embed"), scale=d**0.5),
@@ -210,16 +219,33 @@ def attn_full(
 
 
 def layer_full(
-    ctx: ApplyCtx, lp: dict, window, h: torch.Tensor, positions
-) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """One decoder layer over the whole sequence; returns (h, (k, v))."""
+    ctx: ApplyCtx,
+    lp: dict,
+    window,
+    h: torch.Tensor,
+    positions,
+    lcache: Optional[Dict[str, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """One layer over the whole sequence; returns the new hidden state.
+    With ``lcache`` (this layer's cache tensors), writes its entries in
+    place: K/V to slots [0, S), or the SSM and conv states."""
     cfg = ctx.cfg
     hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
-    attn_out, kv = attn_full(ctx, lp["attn"], hn, positions, window)
+    if cfg.arch_type == "ssm":
+        out, state, proj = ssm.mamba2_prefill(cfg, lp["ssm"], hn, ctx.rcfg)
+        if lcache is not None:
+            lcache["ssm"].copy_(state)  # rounded to the bf16 cache
+            lcache["conv"].copy_(ssm.conv_tail(cfg, proj))
+        return h + out
+    attn_out, (k, v) = attn_full(ctx, lp["attn"], hn, positions, window)
+    if lcache is not None:
+        s = h.shape[1]
+        lcache["k"][:, :s] = k
+        lcache["v"][:, :s] = v
     h = h + attn_out
     hn2 = rms_norm(h, lp["ln2"], cfg.norm_eps)
     fp = lp["ffn"]
-    return h + swiglu(hn2, fp["wg"], fp["wu"], fp["wd"]), kv
+    return h + swiglu(hn2, fp["wg"], fp["wu"], fp["wd"])
 
 
 def run_stack(
@@ -230,14 +256,11 @@ def run_stack(
     positions,
     cache: Optional[Dict[str, torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """Apply every layer in order. With ``cache`` ((L, B, W, Hkv, D) K and
-    V buffers, W >= S), each layer's K/V are written to slots [0, S)."""
-    s = h.shape[1]
+    """Apply every layer in order. With ``cache`` (stacked (L, ...) cache
+    tensors), each layer writes its entries in place (``layer_full``)."""
     for i, win in enumerate(windows):
-        h, (k, v) = layer_full(ctx, _layer(stack_params, i), win, h, positions)
-        if cache is not None:
-            cache["k"][i, :, :s] = k
-            cache["v"][i, :, :s] = v
+        lcache = None if cache is None else {name: c[i] for name, c in cache.items()}
+        h = layer_full(ctx, _layer(stack_params, i), win, h, positions, lcache)
     return h
 
 
@@ -263,6 +286,26 @@ def unembed(ctx: ApplyCtx, params, h: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _empty_cache(cfg: ModelConfig, b: int, w: int, dev) -> Dict[str, torch.Tensor]:
+    """The stacked bf16 cache tensors of a batch of ``b`` rows: K/V with
+    ``w`` slots, zero-filled, or an SSM model's states (every layer's
+    prefill overwrites them, so they start uninitialised)."""
+    n = cfg.n_layers
+    if cfg.arch_type == "ssm":
+        s = cfg.ssm
+        nh = s.n_ssm_heads(cfg.d_model)
+        conv_dim = s.inner(cfg.d_model) + 2 * s.d_state
+        return {
+            "ssm": torch.empty((n, b, nh, s.headdim, s.d_state), dtype=KV_DTYPE, device=dev),
+            "conv": torch.empty((n, b, s.d_conv - 1, conv_dim), dtype=KV_DTYPE, device=dev),
+        }
+    shape = (n, b, w, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=KV_DTYPE, device=dev),
+        "v": torch.zeros(shape, dtype=KV_DTYPE, device=dev),
+    }
+
+
 def prefill(ctx: ApplyCtx, params, batch, capacity: Optional[int] = None):
     """Fill a KV cache over the whole prompt. Returns (cache, last_logits).
 
@@ -271,19 +314,13 @@ def prefill(ctx: ApplyCtx, params, batch, capacity: Optional[int] = None):
     which is only correct for pure sliding-window attention).
     """
     cfg = ctx.cfg
-    require_dense(cfg)
+    require_ported(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     dev = tokens.device
     positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
     h = embed(ctx, params, tokens)
-    w = max(s, capacity or 0)
-    hd, hkv = cfg.resolved_head_dim, cfg.n_kv_heads
-    shape = (cfg.n_layers, b, w, hkv, hd)
-    main = {
-        "k": torch.zeros(shape, dtype=KV_DTYPE, device=dev),
-        "v": torch.zeros(shape, dtype=KV_DTYPE, device=dev),
-    }
+    main = _empty_cache(cfg, b, max(s, capacity or 0), dev)
     h = run_stack(ctx, params["layers"], layer_windows(cfg), h, positions, main)
     logits = unembed(ctx, params, h[:, -1:])
     return {"main": main, "length": s}, logits
@@ -308,11 +345,18 @@ def layer_decode(
     ctx: ApplyCtx, lp: dict, window, lcache: dict, h: torch.Tensor, pos, t: int
 ) -> torch.Tensor:
     """One-token decode through one layer at position ``t``: writes this
-    step's K/V into ring slot ``t % W`` of ``lcache`` (in place) and
-    returns the new hidden state."""
+    step's K/V into ring slot ``t % W`` of ``lcache``, or an SSM layer's new
+    states over its old ones (in place), and returns the new hidden state."""
     cfg = ctx.cfg
     b = h.shape[0]
     hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
+    if cfg.arch_type == "ssm":
+        out, st, cv = ssm.mamba2_decode(
+            cfg, lp["ssm"], hn, lcache["ssm"].float(), lcache["conv"].to(hn.dtype)
+        )
+        lcache["ssm"].copy_(st)  # rounded to the bf16 cache
+        lcache["conv"].copy_(cv)
+        return h + out
     q, k, v = _qkv(cfg, lp["attn"], hn)
     q, k = _rope_qk(cfg, q, k, pos)
     kc, vc = lcache["k"], lcache["v"]
@@ -333,7 +377,7 @@ def layer_decode(
 
 def decode_step(ctx: ApplyCtx, params, cache, tokens: torch.Tensor):
     """One decode step: tokens (B,1) + cache -> (new cache, logits (B,1,V)).
-    The cache's K/V tensors are updated in place (see the module note)."""
+    The cache's tensors are updated in place (see the module note)."""
     cfg = ctx.cfg
     b = tokens.shape[0]
     t = cache["length"]
@@ -341,7 +385,7 @@ def decode_step(ctx: ApplyCtx, params, cache, tokens: torch.Tensor):
     h = embed(ctx, params, tokens)
     main = cache["main"]
     for i, win in enumerate(layer_windows(cfg)):
-        lc = {"k": main["k"][i], "v": main["v"][i]}
+        lc = {name: c[i] for name, c in main.items()}
         h = layer_decode(ctx, _layer(params["layers"], i), win, lc, h, pos, t)
     new_cache = dict(cache)
     new_cache["length"] = t + 1

@@ -1,4 +1,4 @@
-"""Serving engine: batched prefill + decode against a KV cache (the
+"""Serving engine: batched prefill + decode against a cache (the
 counterpart of ``repro/serving/engine.py``).
 
 PyTorch runs eagerly, so there are no jitted step functions: ``prefill``
@@ -12,8 +12,10 @@ and casts each one to the compute dtype where it is used
 step. The engine casts every weight the reference casts at use to the
 compute dtype up front, which gives bit-identical results (a cast is
 deterministic, and the model's per-use ``.to(dtype)`` is then a no-op).
-Norm weights stay float32: ``rms_norm`` widens them to float32, and a
-round trip through bf16 would not be exact.
+What the reference reads in float32 stays float32, since a round trip
+through bf16 would not be exact: the norm weights (``rms_norm`` widens
+them, Mamba2's ``norm_w`` too), Mamba2's ``dt_bias`` (added to the
+float32 dt) and ``A_log`` (cast to float32 before ``exp``).
 
 Logits reach the host without waiting on other slots
 (``fetch_last``): at dispatch, the last position is cast to float32 and
@@ -31,16 +33,18 @@ import torch
 
 from repro_torch.models.transformer import ApplyCtx, decode_step, prefill
 
-# parameters the reference keeps float32 at use (rms_norm widens them)
-_NORM_KEYS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
+# parameters the reference reads in float32 at use: the norm weights
+# (rms_norm widens them), Mamba2's dt_bias (added to the float32 dt) and
+# A_log (cast to float32 before exp)
+_FLOAT32_KEYS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "norm_w", "dt_bias", "A_log")
 
 
 def cast_for_compute(params: dict, dtype: torch.dtype) -> dict:
-    """Every weight cast to ``dtype`` except the norm weights."""
+    """Every weight cast to ``dtype`` except those read in float32."""
     return {
         k: cast_for_compute(v, dtype)
         if isinstance(v, dict)
-        else (v if k in _NORM_KEYS else v.to(dtype))
+        else (v if k in _FLOAT32_KEYS else v.to(dtype))
         for k, v in params.items()
     }
 
@@ -105,7 +109,7 @@ class ServingEngine:
         """One decode step. Dispatch is asynchronous on the card: the
         returned logits are a device tensor still being computed, which is
         what lets the runtime keep ``c`` groups in flight. The cache's
-        K/V tensors are updated in place."""
+        tensors are updated in place."""
         return decode_step(self.ctx, self.params, cache, self.tokens(tokens))
 
     @staticmethod

@@ -1,5 +1,5 @@
-"""The port's serving slice on reduced Qwen2.5-3B against the JAX
-package, with the JAX model's weights carried over by ``params_from_jax``
+"""The port's serving slice on reduced Qwen2.5-3B (and reduced Mamba2-2.7B
+where named) against the JAX package, with the JAX model's weights carried over by ``params_from_jax``
 so both run on the same numbers.
 
 Tolerances. Float32 compute: rtol/atol 1e-4 — only summation order
@@ -31,7 +31,8 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.serving import Request, ServingEngine, ServingRuntime, workload
 
 ARCH = "qwen2.5-3b"
-VOCAB = 512  # reduced() clamps qwen2.5-3b's vocab to this
+MAMBA = "mamba2-2.7b"
+VOCAB = 512  # reduced() clamps the vocab of both to this
 
 
 @pytest.fixture(scope="module")
@@ -115,19 +116,59 @@ def test_sampled_generation_is_seeded(jax_params):
     assert a.min() >= 0 and a.max() < VOCAB
 
 
-def test_weights_cast_once_are_bit_identical(jax_params):
-    """The engine's load-time cast changes no bit against casting at use."""
-    _, tctx = _ctxs("bfloat16", True)
-    params = params_from_jax(jax_params, "cpu")
+def _mamba_np_params():
+    """Reduced Mamba2 parameters as numpy, with A_log, dt_bias and norm_w
+    drawn so that none of them is exact in bf16 (the JAX initialiser sets
+    them to 1, 0 and 1, which a bf16 round trip would not change)."""
+    cfg = JAX_REGISTRY[MAMBA].reduced()
+    params = jax.tree.map(np.asarray, jax_init(jax.random.PRNGKey(1), cfg, JaxRunConfig()))
+    sp = params["layers"]["ssm"]
+    rng = np.random.default_rng(1)
+    sp["A_log"] = np.log(rng.uniform(1, 16, sp["A_log"].shape)).astype(np.float32)
+    sp["dt_bias"] = rng.uniform(-4, -1, sp["dt_bias"].shape).astype(np.float32)
+    sp["norm_w"] = rng.uniform(0.5, 1.5, sp["norm_w"].shape).astype(np.float32)
+    return params
+
+
+@pytest.mark.parametrize("arch", [ARCH, MAMBA])
+def test_weights_cast_once_are_bit_identical(jax_params, arch):
+    """The engine's load-time cast changes no bit against casting at use.
+    For Mamba2 that holds only if A_log, dt_bias and norm_w stay float32."""
+    np_params = jax_params if arch == ARCH else _mamba_np_params()
+    tctx = ApplyCtx(REGISTRY[arch].reduced(),
+                    RunConfig(compute_dtype="bfloat16", use_kernels=True))
+    params = params_from_jax(np_params, "cpu")
     eng = ServingEngine(tctx, params, 2, 16)
-    assert eng.params["layers"]["attn"]["wq"].dtype == torch.bfloat16
-    assert eng.params["layers"]["ln1"].dtype == torch.float32
+    lp = eng.params["layers"]
+    if arch == ARCH:
+        assert lp["attn"]["wq"].dtype == torch.bfloat16
+    else:
+        assert lp["ssm"]["in_proj"].dtype == lp["ssm"]["D"].dtype == torch.bfloat16
+        for name in ("A_log", "dt_bias", "norm_w"):
+            assert lp["ssm"][name].dtype == torch.float32
+    assert lp["ln1"].dtype == torch.float32
     prompt = np.arange(16, dtype=np.int32).reshape(2, 8)
     _, logits = eng.prefill(prompt)
     with torch.inference_mode():
         _, at_use = prefill(tctx, params, {"tokens": torch.from_numpy(prompt)},
                             capacity=16)
     assert torch.equal(logits, at_use)
+
+
+def test_mamba2_greedy_generation_matches_jax_engine():
+    """Reduced Mamba2, float32 compute, so no near-tie of two logits can
+    flip an argmax: the tokens are identical."""
+    np_params = _mamba_np_params()
+    jctx = JaxCtx(JAX_REGISTRY[MAMBA].reduced(),
+                  JaxRunConfig(remat="none", moe_impl="dense", compute_dtype="float32",
+                               use_pallas=True))
+    tctx = ApplyCtx(REGISTRY[MAMBA].reduced(),
+                    RunConfig(compute_dtype="float32", use_kernels=True))
+    prompt = np.random.default_rng(9).integers(0, VOCAB, (2, 11), dtype=np.int32)
+    ref = JaxEngine(jctx, np_params, batch_size=2, max_len=64).generate(prompt, 6)
+    out = ServingEngine(tctx, params_from_jax(np_params, "cpu"), 2, 64).generate(prompt, 6)
+    assert out.dtype == np.int32 and out.shape == (2, 6)
+    np.testing.assert_array_equal(out, np.asarray(ref))
 
 
 @pytest.fixture(scope="module")
@@ -192,6 +233,12 @@ def test_measure_throughput_probe(engine):
 
 def test_serve_reduced_on_cpu():
     m = serve(ARCH, requests=3, prompt_len=8, new_tokens=3, batch=2,
+              concurrency=2, reduced=True, device="cpu")
+    assert m["requests"] == 3 and m["throughput_tok_s"] > 0
+
+
+def test_serve_mamba2_reduced_on_cpu():
+    m = serve(MAMBA, requests=3, prompt_len=8, new_tokens=3, batch=2,
               concurrency=2, reduced=True, device="cpu")
     assert m["requests"] == 3 and m["throughput_tok_s"] > 0
 
