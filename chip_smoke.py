@@ -4,25 +4,30 @@ GPU, from the root of a checkout:
 
     python3 chip_smoke.py
 
-Phases, each of which exits non-zero on failure:
-
-Two main paths, each a model served at full width through its kernel:
-Qwen2.5-3B (prefill attention through ``flash_attention``) and
-Mamba2-2.7B (the SSD chunked scan through ``ssd_scan``). Phases, each of
-which exits non-zero on failure:
+Three main paths, each at full size through its kernel: Qwen2.5-3B served
+at full width (prefill attention through ``flash_attention``), Mamba2-2.7B
+served at full width (the SSD chunked scan through ``ssd_scan``), and the
+CORAL loop over the 54-cell x 3-seed static grid (its windowed dCor
+through ``dcov``). Phases, each of which exits non-zero on failure:
 
 1. Environment: the card's name and power limit, torch and CUDA versions;
    every kernel built from its source in the checkout (one nvcc each,
    started together), with its build time and ptxas report.
 2. Kernel check: each kernel against its plain version on the card over
-   the CPU tests' sweep and its serving shape, then the kernel's, the
+   the CPU tests' sweep and its main path's shape, then the kernel's, the
    plain version's and (where one exists) a library call's device times
-   at the serving shape, each call back to back behind a spin kernel.
+   at that shape, each call back to back behind a spin kernel.
    ``flash_attention_bhsd`` against ``attention_ref`` (B=4, Hq=16, Hkv=2,
    S=512, D=128, causal, bf16; library: SDPA); ``ssd_scan`` against
    ``ssd_ref`` in float32 and bfloat16, with a ragged tail and an initial
    state (B=4, S=512, NH=80, hd=64, N=128, chunk 256, bf16; no library
-   call computes the scan).
+   call computes the scan); ``dcov``'s windows form against
+   ``dcov_gram_windows_ref`` over B in {1, 3, 162, 1024}, W in {3, 10,
+   64}, C in {2, 7, 8} with n_valid from {1, 2, 3, W-1, W}, constant
+   columns and zero rows, and bitwise batch independence; its
+   single-block form against ``dcov_gram_ref`` over n up to 4099 (times
+   at the grid shape B=162, W=10, C=7 and at n=1600, C=7; no library call
+   computes the Gram).
 3. Slice check, per model: (a) the reduced model in float32 on the card,
    through the kernel, against the same model on the CPU (plain path,
    which the CPU tests hold to the JAX package); (b) the model at full
@@ -33,20 +38,28 @@ which exits non-zero on failure:
    in bf16 every SSD launch of the prefill is held to ``ssd_ref`` on its
    own inputs and the logits are printed beside a control (the plain path
    with half the chunk); in float32 the logits are held within
-   5e-2 × max|logit| (``ssm_full_width_check`` says why).
-4. Serve (the main paths): ``serve()`` at full width, 16 requests, prompt
-   512, 32 new tokens, batch 4, at concurrency 1, then 2, with launch
-   counts reset just before and read just after each model's runs; each
-   model's kernel must have launched (``ssd_scan`` 64 times per prefill).
-   For Qwen2.5-3B then the τ-vs-concurrency probe over c in {1, 2, 4} and
-   the retire-overlap check: the real runtime over a stand-in engine
-   whose steps take 10 ms of host work and a 10 ms spin kernel must serve
-   at c=2 at least 1.3× its c=1 rate, which holds only if retire waits on
-   its own slot alone.
+   5e-2 × max|logit| (``ssm_full_width_check`` says why). Then the CORAL
+   slice (the main path of ``dcov``): ``run_matrix`` over the 54 static
+   cells x 3 seeds on the card as one batched call (10 dcov launches),
+   each cell held to ``BENCH_matrix.json`` (configs, flags and counts
+   exactly, floats at rel 1e-12) and its summary; the same cells through
+   the scalar spec, records identical (one launch per ``correlations()``
+   call with n >= 3); dCor of each cell's noise-free landscape through the
+   single-block form, held to its plain version (54 launches).
+4. Serve (the serving paths): ``serve()`` at full width, 16 requests,
+   prompt 512, 32 new tokens, batch 4, at concurrency 1, then 2, with
+   launch counts reset just before and read just after each model's runs;
+   each model's kernel must have launched (``ssd_scan`` 64 times per
+   prefill). For Qwen2.5-3B then the τ-vs-concurrency probe over c in
+   {1, 2, 4} and the retire-overlap check: the real runtime over a
+   stand-in engine whose steps take 10 ms of host work and a 10 ms spin
+   kernel must serve at c=2 at least 1.3× its c=1 rate, which holds only
+   if retire waits on its own slot alone.
 5. Profile (after the counts are read): where a full-width prefill
-   (B=4, prompt 512) and a decode step (B=4) of each model spend their
-   time — wall time, device-busy time and kernel count from
-   ``torch.profiler``, the idle share, and the heaviest kernels.
+   (B=4, prompt 512) and a decode step (B=4) of each model, and one
+   batched static CORAL call over the grid, spend their time — wall time,
+   device-busy time and kernel count from ``torch.profiler``, the idle
+   share, and the heaviest kernels.
 6. A ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
@@ -102,6 +115,20 @@ SLICE_FP32_TOL = 1e-4  # reduced fp32 logits, card vs CPU
 OVERLAP_MIN = 1.3  # tau(c=2) / tau(c=1) when host and card take 10 ms each
 SERVE = dict(requests=16, prompt_len=512, new_tokens=32, batch=4)
 SERVE_ORDER = (1, 2)  # concurrency of the successive serve() runs of each model
+PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+# dcov: the windows form's sweep (B, W, C) and grid shape, the single-block
+# form's (n, C) and ORACLE shape; column scales of a CORAL window (five knob
+# values, then tau and p, an eighth for C = 8), as tests/test_torch_kernels_gpu.py
+DCOV_WINDOWS = [(b, w, c) for b in (1, 3, 162, 1024) for w in (3, 10, 64) for c in (2, 7, 8)]
+DCOV_GRID = (162, 10, 7)  # 54 cells x 3 seeds, window 10, 5 knobs + (tau, p)
+DCOV_BLOCKS = [(n, c) for n in (30, 200, 512, 1440, 1600, 2160, 4099) for c in (2, 7, 8)]
+DCOV_ORACLE = (1600, 7)
+DCOV_SCALES = (1500.0, 4.0, 800.0, 2000.0, 3.0, 50.0, 5.0, 1.0)
+DCOV_WINDOW_REL = 1e-6  # windows Gram, relative to each episode's max|G|
+DCOV_GRAM_REL = 1e-4  # single-block Gram, relative to max|G| (float32, n^2 terms)
+DCOV_DCOR_ATOL = 1e-3  # single-block dCor (sqrt of a ratio: 1e-6 near 0 is 1e-3)
+MATRIX_RECORD = ROOT / "BENCH_matrix.json"  # the JAX package's committed static grid
+RECORD_REL = 1e-12  # floats of a cell record against the committed one
 
 
 def fail(msg: str) -> None:
@@ -310,6 +337,121 @@ def phase_ssd_check(torch):
     }
 
 
+def dcov_windows_inputs(torch, b, w, c, seed):
+    """B (W, C) windows at CORAL's column scales, n_valid drawn per episode
+    from {1, 2, 3, W-1, W}, rows past n_valid zero, and in every third
+    episode a constant first column."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, w, c)) * np.asarray(DCOV_SCALES[:c]) + np.asarray(DCOV_SCALES[:c])
+    x[::3, :, 0] = DCOV_SCALES[0]
+    n = rng.choice(sorted({1, 2, 3, max(w - 1, 1), w}), size=b).astype(np.int32)
+    x[np.arange(w)[None, :] >= n[:, None]] = 0.0
+    return torch.from_numpy(x.astype(np.float32)).cuda(), torch.from_numpy(n).cuda()
+
+
+def dcov_pair_ops(c):
+    """Operations per unordered (i, j) pair of one Gram with C columns: per
+    column the distance (subtract, abs), its two row-sum adds and the
+    centring (three), then a multiply and an add per (c <= c') product."""
+    return 7 * c + c * (c + 1)
+
+
+def dcov_bound(nbytes, ops):
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_dcov_check(torch):
+    """The windows form and the single-block form against their plain
+    versions over the sweep, batch independence, and the times at the
+    grid shape (B=162, W=10, C=7) and at ORACLE scale (n=1600, C=7)."""
+    import numpy as np
+
+    from repro_torch.kernels.dcov import (
+        dcov_gram,
+        dcov_gram_ref,
+        dcov_gram_windows,
+        dcov_gram_windows_ref,
+    )
+    from repro_torch.kernels.dcov.ref import dcor_from_sums
+
+    for i, (b, w, c) in enumerate(DCOV_WINDOWS):
+        cols, n = dcov_windows_inputs(torch, b, w, c, seed=i)
+        gram = dcov_gram_windows(cols, n)
+        ref = dcov_gram_windows_ref(cols, n)
+        torch.cuda.synchronize()
+        if gram.shape != (b, c, c) or not torch.isfinite(gram).all():
+            fail(f"dcov windows {(b, w, c)}: shape {tuple(gram.shape)} or non-finite values")
+        scale = ref.abs().amax(dim=(1, 2)).clamp_min(1e-30)
+        rel = ((gram - ref).abs().amax(dim=(1, 2)) / scale).max().item()
+        err = (gram - ref).abs().max().item()
+        say(f"  dcov windows (B, W, C)={(b, w, c)}: max_abs_err {err:.3g}, relative to each "
+            f"episode's max|G| {rel:.3g} (tol {DCOV_WINDOW_REL}) {'ok' if rel <= DCOV_WINDOW_REL else 'FAIL'}")
+        if not rel <= DCOV_WINDOW_REL:
+            fail(f"dcov windows kernel disagrees with its plain version at {(b, w, c)}")
+    cols, n = dcov_windows_inputs(torch, *DCOV_GRID, seed=len(DCOV_WINDOWS))
+    batch = dcov_gram_windows(cols, n)
+    grid_err = (batch - dcov_gram_windows_ref(cols, n)).abs().max().item()
+    apart = sum(not torch.equal(dcov_gram_windows(cols[i:i + 1], n[i:i + 1])[0], batch[i])
+                for i in range(DCOV_GRID[0]))
+    say(f"  dcov windows batch independence: {DCOV_GRID[0] - apart} of {DCOV_GRID[0]} episodes "
+        f"bitwise equal alone and inside B={DCOV_GRID[0]}")
+    if apart:
+        fail("dcov windows kernel: an episode's Gram depends on the batch")
+
+    for n_rows, c in DCOV_BLOCKS:
+        rng = np.random.default_rng(n_rows + c)
+        x = rng.normal(size=(n_rows, c)) * np.asarray(DCOV_SCALES[:c]) + np.asarray(DCOV_SCALES[:c])
+        x = torch.from_numpy(x.astype(np.float32)).cuda()
+        gram, ref = dcov_gram(x), dcov_gram_ref(x)
+        torch.cuda.synchronize()
+        scale = ref.abs().max().item()
+        err = (gram - ref).abs().max().item()
+        d = c - 1
+
+        def dcor_of(g):
+            diag = torch.diagonal(g)
+            return dcor_from_sums(g[:d, d:], diag[:d, None], diag[None, d:])
+
+        corr_err = (dcor_of(gram) - dcor_of(ref)).abs().max().item()
+        ok = err <= DCOV_GRAM_REL * scale and corr_err <= DCOV_DCOR_ATOL
+        say(f"  dcov gram (n, C)={(n_rows, c)}: max_abs_err {err:.3g} at max|G| {scale:.3g} "
+            f"(rel {err / scale:.3g}, tol {DCOV_GRAM_REL}), dCor {corr_err:.3g} "
+            f"(tol {DCOV_DCOR_ATOL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"dcov single-block kernel disagrees with its plain version at {(n_rows, c)}")
+
+    # times: the windows form at the grid shape (the main path's launch)
+    b, w, c = DCOV_GRID
+    ms = device_ms(lambda: dcov_gram_windows(cols, n))
+    plain_ms = device_ms(lambda: dcov_gram_windows_ref(cols, n))
+    pairs = sum(k * (k + 1) // 2 for k in n.tolist())
+    nbytes = 4 * (b * w * c + b + b * c * c)
+    bound_ms, bound_by = dcov_bound(nbytes, pairs * dcov_pair_ops(c))
+    say(f"  dcov windows at the grid shape {DCOV_GRID}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, library: none, bound {bound_ms:.6f} ms ({bound_by}; {nbytes / 1e3:.1f} KB, "
+        f"{pairs * dcov_pair_ops(c) / 1e6:.3f} MFLOP)")
+    # the single-block form at ORACLE scale
+    n_rows, c = DCOV_ORACLE
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.normal(size=(n_rows, c)) * np.asarray(DCOV_SCALES[:c])
+                          ).astype(np.float32)).cuda()
+    o_ms = device_ms(lambda: dcov_gram(x))
+    o_plain = device_ms(lambda: dcov_gram_ref(x), reps=3)
+    o_ops = n_rows * (n_rows + 1) // 2 * dcov_pair_ops(c)
+    o_bound, o_by = dcov_bound(4 * (n_rows * c + c * c), o_ops)
+    say(f"  dcov gram at ORACLE scale (n, C)={DCOV_ORACLE}: kernel {o_ms:.4f} ms, plain "
+        f"{o_plain:.4f} ms, library: none, bound {o_bound:.5f} ms ({o_by}; "
+        f"{o_ops / 1e9:.3f} GFLOP)")
+    return {
+        "max_abs_err": grid_err,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
 def plain_route(arch):
     """A context in which the model's one call site of its kernel is
     pointed at the kernel's plain version: a comparison, not a fallback."""
@@ -494,7 +636,6 @@ def serve_runs(torch, arch):
 
 def phase_serve(torch):
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import runtime
     from repro_torch.launch.serve import build_engine
     from repro_torch.serving import measure_concurrency_curve
 
@@ -506,9 +647,9 @@ def phase_serve(torch):
     if ssd_counts["ssd_scan"] != per_prefill * prefills:
         fail(f"ssd_scan launched {ssd_counts['ssd_scan']} times on the {SSM_ARCH} main path, "
              f"not {per_prefill} per prefill over {prefills} prefills")
-    missing = [k for k in runtime.SOURCES if flash_counts[k] + ssd_counts[k] == 0]
+    missing = [k for k in ("flash_attention", "ssd_scan") if flash_counts[k] + ssd_counts[k] == 0]
     if missing:
-        fail(f"kernels never launched on the main paths: {missing}")
+        fail(f"kernels never launched on the serving paths: {missing}")
 
     batch = SERVE["batch"]
     engine = build_engine(ARCH, batch, 64 + 16 + 1, device="cuda")
@@ -599,6 +740,7 @@ def profile_window(torch, label, fn, reps):
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:5]:
         say(f"    {e.self_device_time_total / 1e3 / reps:8.3f} ms  x{e.count // reps:<4d} "
             f"{e.key[:90]}")
+    return launches
 
 
 def phase_profile(torch, arch):
@@ -625,6 +767,146 @@ def phase_profile(torch, arch):
     torch.cuda.empty_cache()
 
 
+def static_grid():
+    from repro_torch.experiments import scenarios
+
+    return scenarios.enumerate_cells(workloads=scenarios.FULL_MATRIX_WORKLOADS)
+
+
+def held_to_record(rec, label):
+    """Every cell of ``rec`` against the JAX package's committed record
+    (configs, flags and counts exactly, floats at RECORD_REL), then the
+    static summary."""
+    from repro_torch.experiments import matrix
+
+    want = json.loads(MATRIX_RECORD.read_text())
+    if len(rec["cells"]) != len(want["cells"]):
+        fail(f"{label}: {len(rec['cells'])} cells against {len(want['cells'])} in the record")
+    diffs, apart = [], 0
+    for got, ref in zip(rec["cells"], want["cells"]):
+        d = matrix.diff_records(got, ref, rel=RECORD_REL)
+        apart += bool(d)
+        diffs += [f"{got['device']}/{got['model']}/{got['workload']}/{got['regime']}{x}" for x in d]
+    diffs += ["summary" + x for x in matrix.diff_records(
+        rec["summary"], {k: want["summary"][k] for k in rec["summary"]}, rel=RECORD_REL)]
+    sm = rec["summary"]
+    say(f"  {label}: {len(rec['cells']) - apart} of {len(rec['cells'])} cells equal "
+        f"{MATRIX_RECORD.name} (floats at rel {RECORD_REL}); mean CORAL score "
+        f"{sm['mean_coral_score']:.4f}, min single-target {sm['min_single_target_score']:.4f}, "
+        f"dual power violations {sm['dual_power_violations']}, dual tau-miss cells "
+        f"{sm['dual_tau_miss_cells']}")
+    for x in diffs[:20]:
+        say(f"    differs: {x}")
+    if diffs:
+        fail(f"{label}: the static grid does not reproduce {MATRIX_RECORD.name}")
+
+
+def phase_coral_slice(torch):
+    """(a) the 54 static cells x 3 seeds through ``run_matrix`` on the card,
+    one batched call; (b) the same cells through the scalar spec, records
+    identical to (a); (c) the ORACLE-scale analysis, dCor of the D knobs
+    against (tau, p) over each cell's noise-free landscape, through the
+    single-block kernel and held to its plain version. Launch counts are
+    reset just before and read just after each part."""
+    import numpy as np
+
+    from repro_torch.core.coral import CORAL
+    from repro_torch.experiments import matrix, scenarios
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.dcov import dcor_all_blocked, dcov_gram_ref
+    from repro_torch.kernels.dcov.ref import dcor_from_sums
+
+    cells = static_grid()
+    iters = 10
+    torch.cuda.synchronize()
+    runtime.reset_launch_counts()
+    t0 = time.perf_counter()
+    batched = matrix.run_matrix(cells, iters=iters, device="cuda")
+    wall = time.perf_counter() - t0
+    counts = runtime.launch_counts()
+    say(f"  (a) run_matrix, {len(cells)} cells x 3 seeds, batched on the card: {wall:.3f} s "
+        f"(phases {json.dumps({k: round(v, 4) for k, v in batched['wall_clock_s'].items()})}), "
+        f"launches {counts}")
+    if counts["dcov"] != iters:
+        fail(f"dcov launched {counts['dcov']} times in the batched call, not {iters} (one per step)")
+    held_to_record(batched, "(a) batched")
+
+    calls = [0]
+    correlations = CORAL.correlations
+
+    def counted(self):  # one launch per call with n >= 3 (the uniform branch launches none)
+        calls[0] += min(self.epoch_n, self.window) >= 3
+        return correlations(self)
+
+    torch.cuda.synchronize()
+    runtime.reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(CORAL, "correlations", counted):
+        scalar = matrix.run_matrix(cells, iters=iters, engine="scalar", device="cuda")
+    wall = time.perf_counter() - t0
+    scalar_counts = runtime.launch_counts()
+    apart = [d for a, b in zip(scalar["cells"], batched["cells"])
+             for d in matrix.diff_records(a, b, rel=0.0)]
+    say(f"  (b) run_matrix, scalar spec on the card: {wall:.3f} s, launches {scalar_counts} over "
+        f"{calls[0]} correlations() calls with n >= 3; records equal to (a): {not apart}")
+    if scalar_counts["dcov"] != calls[0] or calls[0] == 0:
+        fail("the scalar spec's dcov launches do not match its correlations() calls")
+    if apart:
+        for x in apart[:20]:
+            say(f"    differs: {x}")
+        fail("the scalar spec's records differ from the batched engine's")
+
+    torch.cuda.synchronize()
+    runtime.reset_launch_counts()
+    worst = 0.0
+    for cell in cells:
+        sim0 = scenarios.cell_simulator(cell, noise=0.0)
+        land = np.stack(sim0.exact_all(), axis=1)
+        knobs = torch.from_numpy(sim0.space.grid().astype(np.float32)).cuda()
+        metrics = torch.from_numpy(land.astype(np.float32)).cuda()
+        got = dcor_all_blocked(knobs, metrics)
+        ref = dcov_gram_ref(torch.cat([knobs, metrics], dim=1))
+        d = knobs.shape[1]
+        diag = torch.diagonal(ref)
+        want = dcor_from_sums(ref[:d, d:], diag[:d, None], diag[None, d:])
+        if got.shape != (d, 2) or not torch.isfinite(got).all():
+            fail(f"ORACLE-scale dCor of {cell}: shape {tuple(got.shape)} or non-finite values")
+        worst = max(worst, (got - want).abs().max().item())
+    oracle_counts = runtime.launch_counts()
+    say(f"  (c) ORACLE-scale dCor over {len(cells)} landscapes (n = 1440 or 1600 rows, 5 knobs "
+        f"against tau and p): max_abs_err {worst:.3g} against the plain version (tol "
+        f"{DCOV_DCOR_ATOL}), launches {oracle_counts}")
+    if not worst <= DCOV_DCOR_ATOL:
+        fail("ORACLE-scale dCor through the kernel disagrees with its plain version")
+    if oracle_counts["dcov"] != len(cells):
+        fail(f"dcov launched {oracle_counts['dcov']} times in the ORACLE-scale analysis, "
+             f"not {len(cells)}")
+    return counts["dcov"]
+
+
+def phase_coral_profile(torch):
+    """One batched static call over the grid (tables built and moved, T
+    steps on the card, float64 records on the host), and the single-block
+    dcov form at ORACLE scale split into its three passes."""
+    import numpy as np
+
+    from repro_torch.core.episode import run_static_requests
+    from repro_torch.experiments import matrix
+    from repro_torch.kernels.dcov import dcov_gram
+
+    reqs = [r for c in static_grid() for r in matrix._static_requests(matrix._prep_cell(c), (0, 1, 2))]
+    launches = profile_window(
+        torch, f"CORAL batched static call, {len(reqs)} episodes x 10 steps",
+        lambda: run_static_requests(reqs, device="cuda"), reps=3)
+    say(f"    {launches / 10:.1f} kernels per engine step")
+    n_rows, c = DCOV_ORACLE
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.normal(size=(n_rows, c)) * np.asarray(DCOV_SCALES[:c])
+                          ).astype(np.float32)).cuda()
+    profile_window(torch, f"dcov gram at ORACLE scale (n, C)={DCOV_ORACLE}",
+                   lambda: dcov_gram(x), reps=20)
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail("src/repro_torch not found: run from the root of a checkout")
@@ -639,22 +921,30 @@ def main() -> None:
     say("== phase 1: environment")
     phase_environment(torch)
     say("== phase 2: kernel check")
-    kern = {"flash_attention": phase_flash_check(torch), "ssd_scan": phase_ssd_check(torch)}
+    kern = {"flash_attention": phase_flash_check(torch), "ssd_scan": phase_ssd_check(torch),
+            "dcov": phase_dcov_check(torch)}
     say("== phase 3: slice check")
     phase_slice_check(torch, ARCH, 96)
     phase_slice_check(torch, SSM_ARCH, 93)
+    counts = {"dcov": phase_coral_slice(torch)}
     say("== phase 4: serve")
-    counts = phase_serve(torch)
+    counts.update(phase_serve(torch))
     say("== phase 5: profile")
     phase_profile(torch, ARCH)
     phase_profile(torch, SSM_ARCH)
+    phase_coral_profile(torch)
     say(f"== done in {time.perf_counter() - t0:.1f} s")
     sources = {
         "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention/flash_attention.py:26"),
         "ssd_scan": ("src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan/ssd_scan.py:28"),
+        "dcov": ("src/repro_torch/kernels/dcov/csrc/dcov.cu",
+                 "src/repro/kernels/dcov/dcov.py:67"),
     }
+    unlaunched = [name for name in sources if counts[name] == 0]
+    if unlaunched:
+        fail(f"kernels never launched on their main paths: {unlaunched}")
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": counts[name], **kern[name]}

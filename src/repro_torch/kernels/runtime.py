@@ -42,6 +42,7 @@ BUILD_DIR = REPO_ROOT / "build"
 SOURCES: Dict[str, Path] = {
     "flash_attention": _KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu",
     "ssd_scan": _KERNELS_DIR / "ssd_scan" / "csrc" / "ssd_scan.cu",
+    "dcov": _KERNELS_DIR / "dcov" / "csrc" / "dcov.cu",
 }
 
 NVCC_FLAGS = (

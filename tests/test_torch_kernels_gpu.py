@@ -13,7 +13,14 @@ error grows with the magnitude of y, up to ~10 at the serving shape), y
 in bfloat16 1e-2 × max|y| (both sides round one float32 result to bf16,
 so they may differ by one bf16 ulp, 2^-7 of the value), and the float32
 final state 1e-4 × max(1, max|S|) (summation order only, in either input
-dtype).
+dtype). dcov: the windows form's Grams within 1e-6 of each episode's
+max|G| (float32; the kernel sums in the plain version's order without
+fused multiply-adds, so it should agree to the bit, and the bound only
+allows for reordering), and bitwise equal alone and inside a batch; the
+ORACLE-scale form's Gram within 1e-4 of max|G| (float32 sums over n²
+terms, up to 16.8 M, in another order than the materialized plain
+version) and its dCor within 1e-3 (the square root of a ratio: near 0 a
+ratio error of 1e-6 is 1e-3 in dCor).
 """
 import numpy as np
 import pytest
@@ -24,6 +31,14 @@ from repro_torch.kernels.flash_attention import (
     attention_ref,
     flash_attention,
     flash_attention_bhsd,
+)
+from repro_torch.kernels.dcov import (
+    dcor_all_blocked,
+    dcor_from_sums,
+    dcov_gram,
+    dcov_gram_ref,
+    dcov_gram_windows,
+    dcov_gram_windows_ref,
 )
 from repro_torch.kernels.ssd_scan import ssd_ref, ssd_scan
 
@@ -185,3 +200,71 @@ def test_ssd_kernel_chains_initial_state(cuda):
     y2, s2 = ssd_scan(x[:, h:], dt[:, h:], A, Bm[:, h:], Cm[:, h:], chunk=16, initial_state=s1)
     torch.testing.assert_close(torch.cat([y1, y2], 1), y, atol=1e-4, rtol=0)
     torch.testing.assert_close(s2, st, atol=1e-4, rtol=0)
+
+
+# Column scales of a CORAL window: five knob values (MHz, cores, MHz, MHz,
+# streams), then τ and p; an eighth column for C = 8.
+DCOV_SCALES = (1500.0, 4.0, 800.0, 2000.0, 3.0, 50.0, 5.0, 1.0)
+
+
+def dcov_windows_inputs(device, b, w, c, seed):
+    """B (W, C) windows at CORAL's column scales, n_valid drawn per episode
+    from {1, 2, 3, W-1, W}, rows past n_valid zero, and in every third
+    episode a constant first column."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, w, c)) * np.asarray(DCOV_SCALES[:c]) + np.asarray(DCOV_SCALES[:c])
+    x[::3, :, 0] = DCOV_SCALES[0]
+    n = rng.choice(sorted({1, 2, 3, max(w - 1, 1), w}), size=b).astype(np.int32)
+    x[np.arange(w)[None, :] >= n[:, None]] = 0.0
+    return (torch.from_numpy(x.astype(np.float32)).to(device),
+            torch.from_numpy(n).to(device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 3, 162, 1024])
+@pytest.mark.parametrize("w", [3, 10, 64])
+@pytest.mark.parametrize("c", [2, 7, 8])
+def test_dcov_windows_kernel_matches_ref(cuda, b, w, c):
+    cols, n = dcov_windows_inputs(cuda, b, w, c, seed=b * 100 + w * 10 + c)
+    before = runtime.launch_counts()["dcov"]
+    gram = dcov_gram_windows(cols, n)
+    torch.cuda.synchronize()
+    assert runtime.launch_counts()["dcov"] == before + 1
+    ref = dcov_gram_windows_ref(cols, n)
+    assert gram.shape == (b, c, c) and gram.dtype == torch.float32
+    scale = ref.abs().amax(dim=(1, 2)).clamp_min(1e-30)
+    err = ((gram - ref).abs().amax(dim=(1, 2)) / scale).max().item()
+    assert err <= 1e-6
+    diag = torch.diagonal(gram, dim1=1, dim2=2)
+    corr = dcor_from_sums(gram[:, :1, 1:], diag[:, :1, None], diag[:, None, 1:])
+    assert torch.isfinite(corr).all()
+
+
+@pytest.mark.gpu
+def test_dcov_windows_kernel_is_batch_independent(cuda):
+    """Each episode's Gram alone equals its Gram inside B=162, bitwise."""
+    cols, n = dcov_windows_inputs(cuda, 162, 10, 7, seed=7)
+    batch = dcov_gram_windows(cols, n)
+    for i in range(162):
+        alone = dcov_gram_windows(cols[i:i + 1], n[i:i + 1])
+        assert torch.equal(alone[0], batch[i]), f"episode {i}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [30, 200, 512, 1440, 1600, 2160, 4099])
+@pytest.mark.parametrize("c", [2, 7, 8])
+def test_dcov_gram_kernel_matches_ref(cuda, n, c):
+    rng = np.random.default_rng(n + c)
+    x = rng.normal(size=(n, c)) * np.asarray(DCOV_SCALES[:c]) + np.asarray(DCOV_SCALES[:c])
+    cols = torch.from_numpy(x.astype(np.float32)).to(cuda)
+    before = runtime.launch_counts()["dcov"]
+    gram = dcov_gram(cols)
+    torch.cuda.synchronize()
+    assert runtime.launch_counts()["dcov"] == before + 1
+    ref = dcov_gram_ref(cols)
+    torch.testing.assert_close(gram, ref, atol=1e-4 * ref.abs().max().item(), rtol=0)
+    d = c - 1
+    got = dcor_all_blocked(cols[:, :d], cols[:, d:])
+    diag = torch.diagonal(ref)
+    want = dcor_from_sums(ref[:d, d:], diag[:d, None], diag[None, d:])
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
