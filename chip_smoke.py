@@ -12,13 +12,19 @@ through ``dcov``). Phases, each of which exits non-zero on failure:
 
 1. Environment: the card's name and power limit, torch and CUDA versions;
    every kernel built from its source in the checkout (one nvcc each,
-   started together), with its build time and ptxas report.
+   started together), with its build time and ptxas report, and the full
+   ptxas report (registers, shared memory, spills, warnings) of the flash
+   kernel's wgmma body.
 2. Kernel check: each kernel against its plain version on the card over
    the CPU tests' sweep and its main path's shape, then the kernel's, the
    plain version's and (where one exists) a library call's device times
    at that shape, each call back to back behind a spin kernel.
-   ``flash_attention_bhsd`` against ``attention_ref`` (B=4, Hq=16, Hkv=2,
-   S=512, D=128, causal, bf16; library: SDPA); ``ssd_scan`` against
+   ``flash_attention_bhsd`` against ``attention_ref``, each case on the
+   body ``body_for`` names (bf16 with D == Dv in {64, 128}: ``wgmma``),
+   and timed at the serving shape (B=4, Hq=16, Hkv=2, S=512, D=128,
+   causal, bf16; library: SDPA) on contiguous inputs and on the model's
+   (B, S, H, D) views, and at S=4096 (B=1), SDPA beside each as a
+   yardstick; ``ssd_scan`` against
    ``ssd_ref`` in float32 and bfloat16, with a ragged tail and an initial
    state (B=4, S=512, NH=80, hd=64, N=128, chunk 256, bf16; no library
    call computes the scan); ``dcov``'s windows form against
@@ -34,7 +40,8 @@ through ``dcov``). Phases, each of which exits non-zero on failure:
    width, random weights from a seeded ``torch.Generator``: one prefill
    (B=4, prompt 512) through the kernel against the same prefill with the
    model's call site of the kernel routed to its plain version. For
-   Qwen2.5-3B in bf16, logits within 5e-2 × max|logit|. For Mamba2-2.7B,
+   Qwen2.5-3B in bf16, logits within 5e-2 × max|logit|, and all 36 flash
+   launches of the prefill on the ``wgmma`` body. For Mamba2-2.7B,
    in bf16 every SSD launch of the prefill is held to ``ssd_ref`` on its
    own inputs and the logits are printed beside a control (the plain path
    with half the chunk); in float32 the logits are held within
@@ -49,7 +56,8 @@ through ``dcov``). Phases, each of which exits non-zero on failure:
 4. Serve (the serving paths): ``serve()`` at full width, 16 requests,
    prompt 512, 32 new tokens, batch 4, at concurrency 1, then 2, with
    launch counts reset just before and read just after each model's runs;
-   each model's kernel must have launched (``ssd_scan`` 64 times per
+   each model's kernel must have launched (``flash_attention`` 36 times
+   per prefill, every one on the ``wgmma`` body; ``ssd_scan`` 64 times per
    prefill). For Qwen2.5-3B then the τ-vs-concurrency probe over c in
    {1, 2, 4} and the retire-overlap check: the real runtime over a
    stand-in engine whose steps take 10 ms of host work and a 10 ms spin
@@ -59,7 +67,8 @@ through ``dcov``). Phases, each of which exits non-zero on failure:
    (B=4, prompt 512) and a decode step (B=4) of each model, and one
    batched static CORAL call over the grid, spend their time — wall time,
    device-busy time and kernel count from ``torch.profiler``, the idle
-   share, and the heaviest kernels.
+   share, and the heaviest kernels; every flash launch of the Qwen
+   prefills there on the ``wgmma`` body, 36 per prefill.
 6. A ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
@@ -79,7 +88,7 @@ SRC = ROOT / "src"
 ARCH = "qwen2.5-3b"
 SSM_ARCH = "mamba2-2.7b"
 SERVE_SHAPE = dict(b=4, hq=16, hkv=2, s=512, d=128, dv=128, causal=True, window=None)
-SWEEP = [  # the CPU tests' sweep (tests/test_torch_flash_attention.py)
+SWEEP = [  # the card tests' sweep (tests/test_torch_kernels_gpu.py), then the serving shape
     dict(b=1, hq=2, hkv=2, s=64, d=32, dv=32, causal=True, window=None),
     dict(b=2, hq=4, hkv=2, s=96, d=32, dv=32, causal=True, window=None),
     dict(b=1, hq=4, hkv=1, s=128, d=16, dv=16, causal=True, window=24),
@@ -87,7 +96,13 @@ SWEEP = [  # the CPU tests' sweep (tests/test_torch_flash_attention.py)
     dict(b=1, hq=8, hkv=2, s=72, d=64, dv=64, causal=True, window=16),
     dict(b=1, hq=4, hkv=2, s=70, d=32, dv=32, causal=True, window=None),
     dict(b=2, hq=4, hkv=2, s=48, d=32, dv=64, causal=True, window=None),
+    dict(b=2, hq=16, hkv=2, s=300, d=128, dv=128, causal=True, window=None),
+    dict(b=1, hq=25, hkv=5, s=1536, d=64, dv=64, causal=True, window=1024),
+    dict(b=1, hq=16, hkv=2, s=4096, d=128, dv=128, causal=True, window=None),
+    dict(b=2, hq=4, hkv=2, s=200, d=128, dv=128, causal=False, window=None),
 ]
+LONG_SHAPE = dict(b=1, hq=16, hkv=2, s=4096, d=128, dv=128, causal=True, window=None)
+QWEN_FLASH_PER_PREFILL = 36  # one flash launch per Qwen2.5-3B layer
 # (b, s, nh, hd, n, chunk, initial state): the CPU tests' sweep
 # (tests/test_torch_ssd_scan.py), a ragged tail, the reduced Mamba2, and
 # full-width heads (hd 64, N 128, the tensor-core body in bf16), ragged
@@ -198,12 +213,69 @@ def phase_environment(torch):
         for line in str(entry["log"]).splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 say(f"    {line.strip()}")
+    if "flash_attention" not in log:  # built by an earlier run into build/
+        say("  flash wgmma body: library built by an earlier run, no ptxas report")
+        return
+    say("  flash wgmma body, ptxas report:")
+    for line in ptxas_report(str(log["flash_attention"]["log"]), "flash_fwd_wgmma"):
+        say(f"    {line}")
+
+
+def ptxas_report(log, needle):
+    """The ptxas lines of every entry function whose name holds ``needle``
+    (from its "Compiling entry function" line to the next one), and every
+    warning that names it."""
+    out, inside = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            inside = needle in line
+        if inside or ("warning" in line and needle in line):
+            out.append(line.strip())
+    return out
+
+
+def flash_work(b, hq, hkv, s, d, dv, causal):
+    """Bytes the function must move (q, k, v read once, the output written
+    once, bf16) and its operations: 2 (D + Dv) per visible (query, key)
+    pair, causal pairs only where causal."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    nbytes = 2 * (b * hq * s * d + b * hkv * s * (d + dv) + b * hq * s * dv)
+    return nbytes, 2.0 * (d + dv) * pairs * b * hq
+
+
+def flash_times(torch, q, k, v, label, causal=True):
+    """The kernel's and SDPA's device times on the same (B, H, S, D) inputs,
+    with the bound from their shapes; SDPA is a yardstick the port never
+    calls."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import attention_ref, body_for, flash_attention_bhsd
+
+    def sdpa():  # one library call computing the same function (GQA in SDPA)
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
+
+    ms = device_ms(lambda: flash_attention_bhsd(q, k, v, causal=causal))
+    library_ms = device_ms(sdpa)
+    lib_err = (sdpa().float() - attention_ref(q, k, v, causal=causal).float()).abs().max().item()
+    b, hq, s, d = q.shape
+    nbytes, flops = flash_work(b, hq, k.shape[1], s, d, v.shape[3], causal)
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    say(f"  flash {label} ({body_for(q, k, v)} body): kernel {ms:.4f} ms, SDPA {library_ms:.4f} ms "
+        f"(SDPA max_abs_err {lib_err:.3g}), bound {bound_ms:.5f} ms ({nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} GFLOP), kernel / bound {ms / bound_ms:.2f}, kernel / SDPA "
+        f"{ms / library_ms:.2f}")
+    return {"ms": ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def phase_flash_check(torch):
-    import torch.nn.functional as F
-
-    from repro_torch.kernels.flash_attention import attention_ref, flash_attention_bhsd
+    from repro_torch.kernels.flash_attention import (
+        attention_ref,
+        body_for,
+        body_launches,
+        flash_attention_bhsd,
+    )
 
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -212,44 +284,47 @@ def phase_flash_check(torch):
             kw = {k: shp[k] for k in ("causal", "window")}
             dims = {k: shp[k] for k in ("b", "hq", "hkv", "s", "d", "dv")}
             q, k, v = attention_inputs(torch, dtype, **dims, seed=i)
+            body = body_for(q, k, v, kw["window"])
+            want = ("simt" if dtype != torch.bfloat16 or dims["d"] != dims["dv"] else
+                    "wgmma" if dims["d"] in (64, 128) else "mma")
+            if body != want:
+                fail(f"flash {shp} {dname}: body_for names {body}, not {want}")
+            before = body_launches()[body]
             out = flash_attention_bhsd(q, k, v, **kw)
             ref = attention_ref(q, k, v, **kw)
             torch.cuda.synchronize()
+            if body_launches()[body] != before + 1:
+                fail(f"flash kernel {shp} {dname}: the {body} body did not launch")
             if out.shape != ref.shape or out.dtype != ref.dtype:
                 fail(f"flash kernel {shp} {dname}: shape/dtype {out.shape} {out.dtype}")
             err = (out.float() - ref.float()).abs().max().item()
             ok = err <= ATOL[dname]
-            say(f"  flash {dname} {dims} {kw}: max_abs_err {err:.3g} "
+            say(f"  flash {dname} {dims} {kw} ({body} body): max_abs_err {err:.3g} "
                 f"(tol {ATOL[dname]}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"flash kernel disagrees with attention_ref at {shp} {dname}")
             worst[(dname, i)] = err
+            del q, k, v, out, ref
+    torch.cuda.empty_cache()
 
-    # times at the serving shape, bf16
+    # times at the serving shape (bf16): contiguous, then the model's views
     s = SERVE_SHAPE
-    q, k, v = attention_inputs(torch, torch.bfloat16, s["b"], s["hq"], s["hkv"], s["s"],
-                               s["d"], s["dv"], seed=len(SWEEP))
-    ms = device_ms(lambda: flash_attention_bhsd(q, k, v, causal=True))
+    dims = (s["b"], s["hq"], s["hkv"], s["s"], s["d"], s["dv"])
+    q, k, v = attention_inputs(torch, torch.bfloat16, *dims, seed=len(SWEEP))
     plain_ms = device_ms(lambda: attention_ref(q, k, v, causal=True))
-
-    def sdpa():  # one library call computing the same function (GQA in SDPA)
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
-
-    library_ms = device_ms(sdpa)
-    lib_err = (sdpa().float() - attention_ref(q, k, v).float()).abs().max().item()
-    pairs = s["s"] * (s["s"] + 1) // 2  # causal (query, key) pairs per head
-    flops = 2.0 * (s["d"] + s["dv"]) * pairs * s["b"] * s["hq"]
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + s["b"] * s["hq"] * s["s"] * s["dv"])
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    say(f"  flash at serving shape (bf16): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"SDPA {library_ms:.4f} ms (SDPA max_abs_err {lib_err:.3g}), bound {bound_ms:.5f} ms "
-        f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-    return {
-        "max_abs_err": worst[("bfloat16", len(SWEEP))],
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": bound_ms, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-    }
+    say(f"  flash plain version at the serving shape: {plain_ms:.4f} ms")
+    row = flash_times(torch, q, k, v, "serving shape, contiguous (B, H, S, D)")
+    # the model's layout: (B, S, H, D) memory seen as (B, H, S, D)
+    qm, km, vm = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    flash_times(torch, qm, km, vm, "serving shape, the model's (B, S, H, D) views")
+    del q, k, v, qm, km, vm
+    ls = LONG_SHAPE
+    q, k, v = attention_inputs(torch, torch.bfloat16, ls["b"], ls["hq"], ls["hkv"], ls["s"],
+                               ls["d"], ls["dv"], seed=len(SWEEP) + 1)
+    flash_times(torch, q, k, v, f"S={ls['s']}, B={ls['b']}, contiguous")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"max_abs_err": worst[("bfloat16", len(SWEEP))], "plain_ms": plain_ms, **row}
 
 
 def ssd_inputs(torch, dtype, b, s, nh, hd, n, state, seed):
@@ -470,6 +545,7 @@ def phase_slice_check(torch, arch, reduced_len):
 
     from repro_torch.configs.registry import get_config
     from repro_torch.configs.runtime import RunConfig
+    from repro_torch.kernels import runtime
     from repro_torch.models.transformer import ApplyCtx, init_model_params, prefill
     from repro_torch.serving.engine import cast_for_compute
 
@@ -500,7 +576,10 @@ def phase_slice_check(torch, arch, reduced_len):
     tokens = np.random.default_rng(1).integers(0, cfg.vocab, (4, 512), dtype=np.int32)
     tok = torch.from_numpy(tokens).cuda()
     with torch.inference_mode():
+        runtime.reset_launch_counts()
         _, via_kernel = prefill(ctx, params, {"tokens": tok})
+        check_flash_bodies(runtime.launch_counts()["flash_attention"], 1,
+                           f"the full-width {arch} prefill")
         with plain_route(arch):
             _, via_ref = prefill(ctx, params, {"tokens": tok})
     a, b = via_kernel.float(), via_ref.float()
@@ -515,6 +594,19 @@ def phase_slice_check(torch, arch, reduced_len):
         fail(f"full-width {arch} prefill through the kernel disagrees with its plain version")
     del params, via_kernel, via_ref
     torch.cuda.empty_cache()
+
+
+def check_flash_bodies(launches, prefills, what):
+    """Every flash launch since the counts were reset took the wgmma body,
+    36 per Qwen2.5-3B prefill."""
+    from repro_torch.kernels.flash_attention import body_launches
+
+    bodies = body_launches()
+    want = QWEN_FLASH_PER_PREFILL * prefills
+    say(f"  flash launches in {what}: {launches} over {prefills} prefills, by body {bodies}")
+    if not launches == bodies["wgmma"] == want:
+        fail(f"{what}: {launches} flash launches, {bodies['wgmma']} on the wgmma body; "
+             f"want {want}, all on the wgmma body")
 
 
 def logits_gap(torch, a, b):
@@ -639,9 +731,11 @@ def phase_serve(torch):
     from repro_torch.launch.serve import build_engine
     from repro_torch.serving import measure_concurrency_curve
 
-    flash_counts, _ = serve_runs(torch, ARCH)
+    flash_counts, flash_prefills = serve_runs(torch, ARCH)
     if flash_counts["flash_attention"] == 0:
         fail(f"flash_attention never launched on the {ARCH} main path")
+    check_flash_bodies(flash_counts["flash_attention"], flash_prefills,
+                       f"the {ARCH} serve() runs")
     ssd_counts, prefills = serve_runs(torch, SSM_ARCH)
     per_prefill = get_config(SSM_ARCH).n_layers  # one launch per Mamba2 layer
     if ssd_counts["ssd_scan"] != per_prefill * prefills:
@@ -746,16 +840,22 @@ def profile_window(torch, label, fn, reps):
 def phase_profile(torch, arch):
     import numpy as np
 
+    from repro_torch.kernels import runtime
     from repro_torch.launch.serve import build_engine
 
     engine = build_engine(arch, 4, 512 + 16, device="cuda")
     prompt = np.random.default_rng(2).integers(0, 1000, (4, 512), dtype=np.int32)
-    state = {}
+    state = {"prefills": 0}
 
     def prefill():
         state["cache"], _ = engine.prefill(prompt)
+        state["prefills"] += 1
 
+    runtime.reset_launch_counts()
     profile_window(torch, f"{arch} prefill 4x512", prefill, reps=3)
+    if arch == ARCH:
+        check_flash_bodies(runtime.launch_counts()["flash_attention"], state["prefills"],
+                           f"the profiled {arch} prefills")
     tok = np.zeros((4, 1), np.int32)
 
     def decode():

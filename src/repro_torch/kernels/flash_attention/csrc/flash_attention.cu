@@ -6,46 +6,72 @@
 // computes the same function: out = softmax(mask(q k^T * D^-1/2)) v with
 // float32 running max, denominator and accumulator, query head h reading
 // KV head h / (Hq / Hkv), positions contiguous from 0 on both axes, keys at
-// or past Sk masked, and the output written in the inputs' dtype.
+// or past Sk masked, and the output written in the inputs' dtype in
+// (B, Sq, Hq, Dv) memory order.
 //
 // Layout of the work. The TPU ran a sequential grid (B, Hq, nQ, nK) and
 // carried the softmax state across the nK axis in VMEM scratch. Here one
-// thread block owns one (batch, query head, 64-row query tile); a loop
-// inside the block walks the 64-key tiles, so the state never leaves
-// registers. Tiles that the causal mask or the sliding window empties are
-// never loaded; the ragged tail is zero-filled on load and masked.
-//
-// Two bodies share that layout:
-//
-// * flash_fwd_mma — bf16 with D == Dv in {16, 32, 64, 128} (the serving
-//   path). Four warps, each owning 16 query rows, run the two products on
-//   the tensor cores with mma.sync m16n8k16 (bf16 in, float32 out). Tiles
-//   are staged in shared memory as bf16 with rows padded by 16 bytes so
-//   ldmatrix reads hit distinct banks, in two stages: cp.async brings
-//   the next K/V tile in while the current one is multiplied. Q
-//   fragments stay in registers for the whole key loop; S stays in
-//   registers and is re-packed as the bf16 A operand of P V (P is
-//   rounded to bf16 there, as FlashAttention-2 does; the row sums use
-//   the float32 values).
-// * flash_fwd_simt — every other case (float32, Dv != D, unaligned
-//   views): float32 FMAs on the CUDA cores from float32 tiles in shared
-//   memory; 256 threads as a 16 x 16 grid, thread (ty, tx) owning query
-//   rows 4*ty .. 4*ty+3, keys tx + 16*j and output columns tx + 16*c.
+// thread block owns one (batch, query head, query tile); a loop inside the
+// block walks the key tiles, so the state never leaves registers. Tiles
+// that the causal mask or the sliding window empties are never loaded; the
+// ragged tail is zero-filled on load and masked.
 //
 // What bounds it on the card: at the serving shape (B=4, Hq=16, Hkv=2,
-// S=512, D=128, bf16) the function moves ~19 MB and does ~4.3 GFLOP, so
-// the roofline is the memory side (~5.6 us). Neither body uses wgmma or
-// TMA, and each block re-reads K/V once per 64-row query tile, so both
-// run well above that roofline; see PERF.md for the measured times.
+// S=512, D=128, bf16, causal) the function moves 18.9 MB and does 4.30
+// GFLOP, so the roofline is the memory side: 18.9 MB at 3.35 TB/s =
+// 5.63 us (the FLOPs take 4.3 us at 989 TFLOP/s).
+//
+// Three bodies; the wrapper (flash_attention.py::body_for) names one and
+// the entry launches exactly that one or returns an error:
+//
+// * flash_fwd_wgmma — bf16 with D == Dv in {64, 128} and 16-byte aligned
+//   rows: the serving path (Qwen2.5-3B, Granite, InternLM2, Hymba). What
+//   it does about what held the Ampere-style body back:
+//   1. Tensor cores: both products on wgmma. S = Q K^T is m64n128k16 with
+//      Q and K read K-major from shared memory; O += P V takes P (rounded
+//      to bf16, as before) as the A operand from registers and V from
+//      shared memory through the descriptor's transpose bit, so each
+//      64-row warpgroup reads a K/V tile once, not once per 16-row warp.
+//   2. Overlap: three warpgroups. One producer thread issues TMA loads
+//      into a ring of K/V stages with full/empty mbarriers while two
+//      consumer warpgroups (64 query rows each, a 128-row tile per CTA)
+//      compute, each in its own time, so one's softmax can run under the
+//      other's products; setmaxnreg moves registers from the producer (24)
+//      to the consumers (240). At D = 128: Q 32 KB + 3 x (K 32 KB + V 32 KB)
+//      = 224 KB of shared memory, one CTA per SM.
+//   3. Heavy first: blockIdx.y counts query tiles from the last, so the
+//      causal tiles with the most key tiles start in the first wave.
+//   4. Masking only where needed: the causal, window and tail mask runs
+//      only on tiles that cross the diagonal, the window edge or the tail,
+//      as two compares against per-row bounds; the softmax is exp2 of one
+//      FFMA (scale * log2 e folded in).
+//   5. Pipeline: three stages (four at D = 64) in flight; Q, K and V land
+//      on barriers of their own, so S = Q K^T starts while V is in flight;
+//      no __syncthreads runs in the key loop.
+//   6. Host cost: the entry does not switch devices; it encodes three
+//      tensor maps over the strided (B, H, S, D) views as given (the
+//      model's (B, S, H, D) memory is read in place) and launches.
+//   O is staged in the warpgroup's own Q rows and written with 16-byte
+//   stores.
+// * flash_fwd_mma — bf16 with D == Dv in {16, 32} and aligned rows: four
+//   warps of mma.sync m16n8k16 over 64 x 64 tiles, cp.async double
+//   buffering (the first tensor-core body, kept for the widths the wgmma
+//   body does not take).
+// * flash_fwd_simt — every other case (float32, Dv != D, unaligned views):
+//   float32 FMAs on the CUDA cores from float32 tiles in shared memory.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cmath>
+#include <cstdio>
+
 namespace {
 
-constexpr int BQ = 64;       // query rows per block (both bodies)
-constexpr int BK = 64;       // keys per tile (both bodies)
+constexpr int BQ = 64;       // query rows per block (simt and mma bodies)
+constexpr int BK = 64;       // keys per tile (simt and mma bodies)
 constexpr int TX = 16;       // threads across keys / output columns
 constexpr int TY = 16;       // threads across query rows
 constexpr int NT = TX * TY;  // threads per block (simt body)
@@ -78,6 +104,8 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
+// 256 threads as a 16 x 16 grid; thread (ty, tx) owns query rows
+// 4*ty .. 4*ty+3, keys tx + 16*j and output columns tx + 16*c.
 template <typename T, int DV>
 __global__ void __launch_bounds__(NT) flash_fwd_simt(Params p) {
   static_assert(DV % TX == 0, "value head width must be a multiple of 16");
@@ -439,6 +467,411 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_mma(Params p) {
   }
 }
 
+
+// ---------------------------------------------------------- wgmma body
+// bf16, D == Dv in {64, 128}. One CTA owns a 128-row query tile of one
+// (batch, query head) and three warpgroups:
+//   WG 0, 1  consumers: each owns 64 query rows, runs S = Q K^T and
+//            O += P V on wgmma and the online softmax in registers;
+//   WG 2     producer: one thread issues TMA loads of Q (once) and of the
+//            K/V tiles into a ring of WsSmem<D>::STAGES stages.
+// Shared-memory tiles are TMA boxes of 64 columns (128 bytes) x 128 rows
+// in the 128-byte swizzle; a D-wide tile is D / 64 such boxes one after
+// another. The wgmma descriptors read the same swizzle: Q and K K-major,
+// V MN-major (the transpose bit), so V is never transposed in memory.
+constexpr int WS_BQ = 128;                  // query rows per CTA
+constexpr int WS_BK = 128;                  // keys per tile
+constexpr int WS_THREADS = 3 * 128;         // two consumer WGs, one producer WG
+constexpr int WS_CONSUMERS = 2 * 128;
+constexpr uint32_t WS_BOX_BYTES = 128 * 128;  // one 64-column box of 128 rows
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Shared-memory layout, in bytes from a 1024-aligned base: Q, then the
+// ring's (K, V) stages, then the mbarriers (q, k_full[STAGES],
+// v_full[STAGES], empty[STAGES]).
+// D = 128: 32 KB + 3 x 64 KB; D = 64: 16 KB + 4 x 32 KB. Either way more
+// than half the SM's shared memory, so one CTA per SM: the consumers'
+// setmaxnreg.inc can always be granted.
+template <int D>
+struct WsSmem {
+  static constexpr int STAGES = D == 128 ? 3 : 4;            // K/V ring depth
+  static constexpr uint32_t TILE = (D / 64) * WS_BOX_BYTES;  // Q, K or V tile
+  static constexpr uint32_t Q = 0;
+  __host__ __device__ static constexpr uint32_t K(int st) { return TILE * (1 + 2 * st); }
+  __host__ __device__ static constexpr uint32_t V(int st) { return TILE * (2 + 2 * st); }
+  static constexpr uint32_t BAR = TILE * (1 + 2 * STAGES);
+  static constexpr uint32_t BYTES = BAR + 8 * (1 + 3 * STAGES);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One 64-column x 128-row box of a (D, S, H, B) tensor map into shared
+// memory; rows past S arrive as zeros. Completion is counted on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map, int col,
+                                         int row, int head, int batch, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(col), "r"(row), "r"(head), "r"(batch),
+      "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap& map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&map))
+               : "memory");
+}
+
+// wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout B128.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving register reads or writes of a wgmma's
+// operands across the asynchronous window between issue and wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define F8(a, i)                                                                       \
+  "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3]), "+f"(a[i + 4]),          \
+      "+f"(a[i + 5]), "+f"(a[i + 6]), "+f"(a[i + 7])
+
+// d (64 x 128, f32) (+)= A (64 x 16, smem, K-major) * B (16 x 128, smem, K-major)
+__device__ __forceinline__ void wgmma_n128_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24), F8(d, 32), F8(d, 40), F8(d, 48), F8(d, 56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16 registers) * B (16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_n64_rs(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+#undef F8
+
+// Named barriers 1, 2: consumer warpgroup 0's, 1's own epilogue.
+constexpr int WS_EPI_BAR = 1;
+
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One K/V tile for one consumer warpgroup: S = Q K^T, the mask where the
+// tile crosses the diagonal, the window edge or the tail, the online
+// softmax, and O += P V once V has landed (phase `parity` of barrier
+// `v_full`).
+template <int D>
+__device__ __forceinline__ void consume_tile(const Params& p, float (&o)[D / 64][32],
+                                             float (&m)[2], float (&l)[2], uint32_t q_rows,
+                                             uint32_t k_tile, uint32_t v_tile,
+                                             uint32_t v_full, uint32_t parity, int k0,
+                                             int r_first, int row0, int tq4) {
+  constexpr int NCB = D / 64;
+  const float sl2 = p.scale * LOG2E;
+
+  // S = Q K^T: D / 16 steps of k16; within a box a step is 32 bytes on
+  float s[64];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * WS_BOX_BYTES + (kk % 4) * 32;
+    wgmma_n128_ss(s, smem_desc(q_rows + off, 16, 1024), smem_desc(k_tile + off, 16, 1024),
+                  kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(s);
+
+  // Element 4 nb + e is row row0 + 8 (e / 2), key k0 + 2 tq + c with
+  // c = 8 nb + e % 2 known at compile time. Key kj is visible to row qi iff
+  // kj < Sk, kj <= qi (causal) and qi - kj < window, i.e. lo < c < hi with
+  // per-row bounds, so a masked tile pays two compares and a select.
+  const bool edge = k0 + WS_BK > p.sk || (p.causal && k0 + WS_BK - 1 > r_first) ||
+                    (p.window > 0 && r_first + 63 - k0 >= p.window);
+  if (edge) {
+    int lo[2], hi[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rel = row0 + 8 * r - k0 - 2 * tq4;  // qi - (k0 + 2 tq)
+      hi[r] = p.sk - k0 - 2 * tq4;
+      if (p.causal) hi[r] = min(hi[r], rel + 1);
+      lo[r] = p.window > 0 ? rel - p.window : -1;
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int c = 8 * (i / 4) + (i % 2), r = (i % 4) / 2;
+      s[i] = (c > lo[r] && c < hi[r]) ? s[i] : -INFINITY;
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], s[i]);
+  float ms[2], corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    // a row with no visible key yet keeps p = 0 (no inf - inf)
+    ms[r] = m_new == -INFINITY ? 0.f : m_new * sl2;
+    corr[r] = fast_exp2(fmaf(m[r], sl2, -ms[r]));
+    m[r] = m_new;
+  }
+  // p = 2^(s * scale * log2(e) - m * scale * log2(e)): one FFMA and one ex2
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    s[i] = fast_exp2(fmaf(s[i], sl2, -ms[(i % 4) / 2]));
+    sum[(i % 4) / 2] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];  // quad-partial sums
+#pragma unroll
+  for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[cb][i] *= corr[(i % 4) / 2];
+
+  // O += P V: P (bf16, the S fragments re-packed as wgmma A registers)
+  // times V read MN-major through the descriptor's transpose bit; a k16
+  // step is 16 key rows = 2048 bytes on
+  uint32_t pa[WS_BK / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < WS_BK / 16; ++kk) {
+    pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+  mbar_wait(v_full, parity);
+#pragma unroll
+  for (int cb = 0; cb < NCB; ++cb) fence_regs(o[cb]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < WS_BK / 16; ++kk)
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb)
+      wgmma_n64_rs(o[cb], pa[kk],
+                   smem_desc(v_tile + cb * WS_BOX_BYTES + kk * 2048, WS_BOX_BYTES, 1024));
+  wgmma_commit();
+  wgmma_wait_all();
+#pragma unroll
+  for (int cb = 0; cb < NCB; ++cb) fence_regs(o[cb]);
+#pragma unroll
+  for (int kk = 0; kk < WS_BK / 16; ++kk) fence_regs(pa[kk]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_fwd_wgmma(const __grid_constant__ Params p, const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv) {
+  using L = WsSmem<D>;
+  constexpr int NCB = D / 64;  // 64-column boxes per row
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* base_ptr = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t q_bar = base + L::BAR;
+  // K and V of a stage land on barriers of their own, so S = Q K^T can
+  // start while V is still in flight
+  auto k_full = [&](int st) { return base + L::BAR + 8 * (1 + st); };
+  auto v_full = [&](int st) { return base + L::BAR + 8 * (1 + L::STAGES + st); };
+  auto empty_bar = [&](int st) { return base + L::BAR + 8 * (1 + 2 * L::STAGES + st); };
+
+  // heavy first: blockIdx.y = 0 takes the last query tile, which under the
+  // causal mask needs the most key tiles, so the longest CTAs start first
+  const int nq = gridDim.y;
+  const int q0 = (nq - 1 - blockIdx.y) * WS_BQ;
+  const int h = blockIdx.x % p.hq, b = blockIdx.x / p.hq;
+  const int hk = h / (p.hq / p.hkv);
+
+  const int q_last = min(q0 + WS_BQ, p.sq) - 1;
+  const int nk = (p.sk + WS_BK - 1) / WS_BK;
+  const int j_end = p.causal ? min(nk, q_last / WS_BK + 1) : nk;
+  int j_begin = 0;
+  if (p.window > 0) {
+    const int x = q0 - p.window - WS_BK + 1;  // tile j is needed iff j * BK > x
+    j_begin = x < 0 ? 0 : x / WS_BK + 1;
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int st = 0; st < L::STAGES; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(empty_bar(st), WS_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= WS_CONSUMERS) {
+    // ------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == WS_CONSUMERS) {
+      prefetch_map(tq);
+      prefetch_map(tk);
+      prefetch_map(tv);
+      mbar_expect_tx(q_bar, L::TILE);
+      for (int cb = 0; cb < NCB; ++cb)
+        tma_load(base + L::Q + cb * WS_BOX_BYTES, tq, cb * 64, q0, h, b, q_bar);
+      for (int j = j_begin; j < j_end; ++j) {
+        const int it = j - j_begin, st = it % L::STAGES;
+        mbar_wait(empty_bar(st), ((it / L::STAGES) & 1) ^ 1);
+        mbar_expect_tx(k_full(st), L::TILE);
+        for (int cb = 0; cb < NCB; ++cb)
+          tma_load(base + L::K(st) + cb * WS_BOX_BYTES, tk, cb * 64, j * WS_BK, hk, b,
+                   k_full(st));
+        mbar_expect_tx(v_full(st), L::TILE);
+        for (int cb = 0; cb < NCB; ++cb)
+          tma_load(base + L::V(st) + cb * WS_BOX_BYTES, tv, cb * 64, j * WS_BK, hk, b,
+                   v_full(st));
+      }
+    }
+  } else {
+    // ------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = threadIdx.x / 128;  // which 64 query rows
+    const int t = threadIdx.x % 128;
+    const int g = (t % 32) / 4, tq4 = t % 4;
+    const int r_first = q0 + 64 * wg;          // this WG's first row
+    const int row0 = r_first + 16 * (t / 32) + g;  // this thread's rows: row0, row0 + 8
+
+    float o[NCB][32];
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[cb][i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+    mbar_wait(q_bar, 0);
+    const uint32_t q_rows = base + L::Q + wg * 64 * 128;
+    for (int j = j_begin; j < j_end; ++j) {
+      const int it = j - j_begin, st = it % L::STAGES;
+      const int k0 = j * WS_BK;
+      const uint32_t parity = (it / L::STAGES) & 1;
+      mbar_wait(k_full(st), parity);
+
+      consume_tile<D>(p, o, m, l, q_rows, base + L::K(st), base + L::V(st), v_full(st),
+                      parity, k0, r_first, row0, tq4);
+      mbar_arrive(empty_bar(st));  // this stage's K and V are free again
+    }
+
+    // epilogue: O / l, staged as bf16 in this WG's (now free) Q rows in the
+    // same swizzle (16-byte chunk c of row r at chunk c ^ (r % 8): the
+    // fragment stores hit 32 distinct banks), then 16-byte stores in
+    // (B, Sq, Hq, Dv) order, rows past Sq dropped
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+    }
+    named_sync(WS_EPI_BAR + wg, 128);  // every warp is done reading its Q rows
+    const int lr0 = 16 * (t / 32) + g;  // local rows lr0, lr0 + 8 (same r % 8)
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int lr = lr0 + 8 * r;
+          const uint32_t a = q_rows + cb * WS_BOX_BYTES + lr * 128 + ((nb ^ g) * 16) + tq4 * 4;
+          __nv_bfloat162 v2 = __floats2bfloat162_rn(o[cb][4 * nb + 2 * r] * inv[r],
+                                                    o[cb][4 * nb + 2 * r + 1] * inv[r]);
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(a),
+                       "r"(*reinterpret_cast<uint32_t*>(&v2))
+                       : "memory");
+        }
+    named_sync(WS_EPI_BAR + wg, 128);
+    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
+    const unsigned char* stage = base_ptr + L::Q + wg * 64 * 128;
+    constexpr int CH = D / 8;  // 16-byte chunks per row
+#pragma unroll
+    for (int i = t; i < 64 * CH; i += 128) {
+      const int lr = i / CH, c = i % CH;
+      const int qi = r_first + lr;
+      if (qi >= p.sq) continue;
+      const uint4 val = *reinterpret_cast<const uint4*>(
+          stage + (c / 8) * WS_BOX_BYTES + lr * 128 + (((c % 8) ^ (lr % 8)) * 16));
+      *reinterpret_cast<uint4*>(og + qi * p.o_ss + c * 8) = val;
+    }
+  }
+}
+
 // ------------------------------------------------------------- launches
 // Above 48 KB of dynamic shared memory a kernel must opt in; each
 // instantiation raises its grant once to the largest size asked for.
@@ -474,8 +907,73 @@ cudaError_t launch_mma(const Params& p, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// Error codes above any cudaError_t: a failed tensor-map encode returns
+// ERR_TENSOR_MAP + its CUresult; a missing driver entry point ERR_ENTRY_POINT.
+constexpr int ERR_TENSOR_MAP = 100000;
+constexpr int ERR_ENTRY_POINT = 200000;
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime so the
+// library needs no link against libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+int encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* sym = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || sym == nullptr) return ERR_ENTRY_POINT;
+    cached = reinterpret_cast<EncodeTiled>(sym);
+  }
+  *fn = cached;
+  return 0;
+}
+
+// A (B, H, S, D) bf16 view with element strides (sb, sh, ss) and a
+// contiguous last axis, as a 4-D tensor map (D, S, H, B) read in boxes of
+// 64 columns x 128 rows with the 128-byte swizzle. The strides are taken
+// as they are: the model's (B, S, H, D) memory is read without a copy.
+int encode_bhsd(EncodeTiled encode, CUtensorMap* map, const void* ptr, int batch, int heads,
+                int seq, int d, long long sb, long long sh, long long ss) {
+  const cuuint64_t dims[4] = {cuuint64_t(d), cuuint64_t(seq), cuuint64_t(heads),
+                              cuuint64_t(batch)};
+  const cuuint64_t strides[3] = {cuuint64_t(ss) * 2, cuuint64_t(sh) * 2, cuuint64_t(sb) * 2};
+  const cuuint32_t box[4] = {64, WS_BK, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP + static_cast<int>(res);
+}
+
+template <int D>
+int launch_wgmma(const Params& p, int batch, cudaStream_t stream) {
+  static_assert(WS_BQ == WS_BK, "Q and K/V tiles share one tensor-map box");
+  EncodeTiled encode;
+  int rc = encode_tiled(&encode);
+  if (rc != 0) return rc;
+  CUtensorMap tq, tk, tv;
+  if ((rc = encode_bhsd(encode, &tq, p.q, batch, p.hq, p.sq, D, p.q_sb, p.q_sh, p.q_ss)) ||
+      (rc = encode_bhsd(encode, &tk, p.k, batch, p.hkv, p.sk, D, p.k_sb, p.k_sh, p.k_ss)) ||
+      (rc = encode_bhsd(encode, &tv, p.v, batch, p.hkv, p.sk, D, p.v_sb, p.v_sh, p.v_ss)))
+    return rc;
+  const size_t smem = WsSmem<D>::BYTES + 1024;  // + room to align the tiles to 1024
+  static size_t granted = 48 * 1024;
+  cudaError_t err = grant_smem(flash_fwd_wgmma<D>, smem, granted);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(batch * p.hq, (p.sq + WS_BQ - 1) / WS_BQ);
+  flash_fwd_wgmma<D><<<grid, WS_THREADS, smem, stream>>>(p, tq, tk, tv);
+  return cudaGetLastError();
+}
+
 template <typename T>
-cudaError_t dispatch_simt(const Params& p, int batch, int dv, cudaStream_t stream) {
+int dispatch_simt(const Params& p, int batch, int dv, cudaStream_t stream) {
   switch (dv) {
     case 16: return launch_simt<T, 16>(p, batch, stream);
     case 32: return launch_simt<T, 32>(p, batch, stream);
@@ -485,8 +983,8 @@ cudaError_t dispatch_simt(const Params& p, int batch, int dv, cudaStream_t strea
   }
 }
 
-// the mma body reads 16-byte vectors: every base pointer and stride must
-// keep rows 16-byte aligned
+// the tensor-core bodies read 16-byte vectors (mma) or TMA boxes (wgmma):
+// every base pointer and stride must keep rows 16-byte aligned
 bool vector_aligned(const Params& p) {
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(p.q) | reinterpret_cast<uintptr_t>(p.k) |
                          reinterpret_cast<uintptr_t>(p.v) | reinterpret_cast<uintptr_t>(p.o);
@@ -495,42 +993,55 @@ bool vector_aligned(const Params& p) {
   return ptrs % 16 == 0 && strides % 8 == 0;
 }
 
-cudaError_t dispatch_bf16(const Params& p, int batch, int dv, cudaStream_t stream) {
-  if (p.d == dv && vector_aligned(p)) {
-    switch (dv) {
-      case 16: return launch_mma<16>(p, batch, stream);
-      case 32: return launch_mma<32>(p, batch, stream);
-      case 64: return launch_mma<64>(p, batch, stream);
-      case 128: return launch_mma<128>(p, batch, stream);
-      default: break;
-    }
-  }
-  return dispatch_simt<__nv_bfloat16>(p, batch, dv, stream);
-}
-
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. Strides are in elements; the last axis of
-// every tensor is contiguous. window <= 0 means no sliding window.
-// Returns cudaGetLastError() after the launch (0 on success).
+// The body is chosen by the caller (flash_attention.py::body_for):
+// 0 simt (float32 or bfloat16, any D <= 256, Dv in {16, 32, 64, 128}),
+// 1 mma (bfloat16, D == Dv in {16, 32}, rows 16-byte aligned),
+// 2 wgmma (bfloat16, D == Dv in {64, 128}, rows 16-byte aligned).
+// A body asked for a case it does not take returns cudaErrorInvalidValue;
+// nothing here picks another body. dtype: 0 float32, 1 bfloat16. Strides
+// are in elements; the last axis of every tensor is contiguous. window <= 0
+// means no sliding window. The kernel runs on the current device and the
+// given stream. Returns 0 on success, else a code for
+// repro_cuda_error_string.
 extern "C" int repro_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype,
-    int device, int batch, int hq, int hkv, int sq, int sk, int d, int dv,
+    const void* q, const void* k, const void* v, void* o, int dtype, int body,
+    int batch, int hq, int hkv, int sq, int sk, int d, int dv,
     long long q_sb, long long q_sh, long long q_ss, long long k_sb,
     long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long o_sb, long long o_sh, long long o_ss,
     int causal, int window, float scale, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
   Params p{q,    k,    v,    o,    hq,   hkv,  sq,     sk,     d,
            q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,   v_sh,   v_ss,
            o_sb, o_sh, o_ss, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_simt<float>(p, batch, dv, s);
-  if (dtype == 1) return dispatch_bf16(p, batch, dv, s);
-  return cudaErrorInvalidValue;
+  const bool tensor_core = dtype == 1 && d == dv && vector_aligned(p);
+  switch (body) {
+    case 0:
+      if (dtype == 0) return dispatch_simt<float>(p, batch, dv, s);
+      if (dtype == 1) return dispatch_simt<__nv_bfloat16>(p, batch, dv, s);
+      return cudaErrorInvalidValue;
+    case 1:
+      if (tensor_core && d == 16) return launch_mma<16>(p, batch, s);
+      if (tensor_core && d == 32) return launch_mma<32>(p, batch, s);
+      return cudaErrorInvalidValue;
+    case 2:
+      if (tensor_core && d == 64) return launch_wgmma<64>(p, batch, s);
+      if (tensor_core && d == 128) return launch_wgmma<128>(p, batch, s);
+      return cudaErrorInvalidValue;
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {
+  static thread_local char msg[96];
+  if (err >= ERR_ENTRY_POINT) return "cuTensorMapEncodeTiled not found in the CUDA driver";
+  if (err >= ERR_TENSOR_MAP) {
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed (CUresult %d)",
+             err - ERR_TENSOR_MAP);
+    return msg;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

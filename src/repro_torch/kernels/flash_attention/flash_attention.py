@@ -9,28 +9,39 @@ skipped under the causal mask and the window, the ragged key tail
 masked, positions contiguous from 0, output in ``v.dtype``.
 
 What bounds it on the card: at the serving shape (B=4, Hq=16, Hkv=2,
-S=512, D=128, bf16) the least time is the memory side, about 19 MB at
-3.35 TB/s; the causal FLOPs at the bf16 tensor-core rate take less. The
-design keeps the whole softmax state of a 64-row query tile in one
-block's registers and stages each 64-key K/V tile in shared memory once,
-so K and V are read once per query tile and Q once in all, and the GQA
-group shares KV head h // g with no replication. The bf16 body (D == Dv
-in 16..128, rows 16-byte aligned) does both products on the tensor cores
-with ``mma.sync`` m16n8k16, ``cp.async`` double-buffering the K/V tiles;
-every other case (float32, Dv != D, unaligned views) takes a float32 body
-on the CUDA cores. Neither uses ``wgmma`` or TMA, so the kernel runs well
-above that roofline (see PERF.md).
+S=512, D=128, bf16, causal) the least time is the memory side, 18.9 MB
+at 3.35 TB/s = 5.63 µs; the 4.30 causal GFLOP at the bf16 tensor-core
+rate take less. The kernel has three bodies, and :func:`body_for` names
+the one a call takes; the C entry launches exactly that one or fails:
 
-Tile sizes are fixed by the compiled kernel (64 × 64), so the reference's
-``block_q``/``block_k``/``interpret`` arguments have no counterpart. The
-kernel takes float32 or bfloat16 (q, k and v of one dtype), any D up to
-:data:`MAX_HEAD_DIM` and Dv in :data:`VALUE_HEAD_DIMS`.
+* ``"wgmma"`` — bf16, D == Dv in {64, 128}, rows 16-byte aligned (the
+  serving path). A 128-row query tile per CTA: one producer thread loads
+  Q once and 128-key K/V tiles into a shared-memory ring of three stages
+  (four at D = 64) by TMA, with mbarriers, while two consumer warpgroups
+  of 64 rows run S = Q·Kᵀ and O += P·V on ``wgmma`` (V read through the
+  descriptor's transpose bit, P from registers) and the online softmax
+  in f32 registers (``exp2`` of one FFMA; the mask only on tiles that
+  cross the diagonal, the window edge or the tail); ``setmaxnreg`` moves
+  registers from the producer to the consumers;
+  causal tiles run heaviest first; O leaves through shared memory in
+  16-byte stores. The tensor maps are built over the strided views as
+  given, so the model's (B, S, H, D) memory is read in place; the entry
+  does no device switch.
+* ``"mma"`` — bf16, D == Dv in {16, 32}, aligned: ``mma.sync`` m16n8k16
+  with ``cp.async`` double buffering over 64 × 64 tiles.
+* ``"simt"`` — everything else (float32, Dv != D, unaligned views):
+  float32 FMAs on the CUDA cores.
+
+The reference's ``block_q``/``block_k``/``interpret`` arguments have no
+counterpart (tile sizes are fixed per body). The kernel takes float32 or
+bfloat16 (q, k and v of one dtype), any D up to :data:`MAX_HEAD_DIM` and
+Dv in :data:`VALUE_HEAD_DIMS`.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -40,11 +51,13 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 NAME = "flash_attention"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 VALUE_HEAD_DIMS = (16, 32, 64, 128)  # instantiated in the CUDA source
+BODIES = ("simt", "mma", "wgmma")  # the C entry's body codes 0, 1, 2
+_TENSOR_CORE_DIMS = {"mma": (16, 32), "wgmma": (64, 128)}
 MAX_HEAD_DIM = 256  # keeps the shared-memory tiles under the 227 KB a block may use
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 4  # q, k, v, o
-    + [ctypes.c_int] * 9  # dtype, device, B, Hq, Hkv, Sq, Sk, D, Dv
+    + [ctypes.c_int] * 9  # dtype, body, B, Hq, Hkv, Sq, Sk, D, Dv
     + [ctypes.c_longlong] * 12  # (batch, head, seq) strides of q, k, v, o
     + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 )
@@ -77,6 +90,34 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window) -> None:
         raise ValueError(f"window must be >= 1, got {window}")
 
 
+def body_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window=None) -> str:
+    """The body of the kernel that (B, H, S, D) inputs take: ``"wgmma"``
+    for bf16 with D == Dv in {64, 128}, ``"mma"`` for bf16 with D == Dv in
+    {16, 32}, each only where every base pointer is 16-byte aligned and
+    every stride is a positive multiple of 8 elements with the last axis
+    contiguous (TMA boxes and 16-byte vectors); ``"simt"`` otherwise. Every
+    body takes the causal mask and any ``window``, so the window does not
+    decide."""
+    d, dv = q.shape[-1], v.shape[-1]
+    if q.dtype != torch.bfloat16 or d != dv:
+        return "simt"
+    aligned = all(
+        t.data_ptr() % 16 == 0 and t.stride(-1) == 1
+        and all(st > 0 and st % 8 == 0 for st in t.stride()[:-1])
+        for t in (q, k, v)
+    )
+    if aligned:
+        for body, dims in _TENSOR_CORE_DIMS.items():
+            if d in dims:
+                return body
+    return "simt"
+
+
+def body_launches() -> Dict[str, int]:
+    """Launches of each body since the last ``runtime.reset_launch_counts``."""
+    return runtime.body_launch_counts(NAME, BODIES)
+
+
 def flash_attention_bhsd(
     q: torch.Tensor,  # (B, Hq, Sq, D)
     k: torch.Tensor,  # (B, Hkv, Sk, D)
@@ -86,23 +127,25 @@ def flash_attention_bhsd(
     window: Optional[int] = None,
 ) -> torch.Tensor:
     """Attention over (B, H, S, D) tensors; returns (B, Hq, Sq, Dv) in
-    ``v.dtype``. CUDA tensors launch the kernel (the output is laid out in
-    (B, Sq, Hq, Dv) memory order); CPU tensors take ``attention_ref``."""
+    ``v.dtype``. CUDA tensors launch the kernel's body that
+    :func:`body_for` names, on the current device (the output is laid out
+    in (B, Sq, Hq, Dv) memory order); CPU tensors take ``attention_ref``."""
     _check(q, k, v, window)
     if not runtime.on_card(q, k, v):
         return attention_ref(q, k, v, causal=causal, window=window)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    body = body_for(q, k, v, window)
     b, hq, sq, d = q.shape
     hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
     out = torch.empty((b, sq, hq, dv), dtype=v.dtype, device=v.device).transpose(1, 2)
     lib, fn = _entry()
-    runtime.count_launch(NAME)
+    runtime.count_launch(NAME, body)
     rc = fn(
         runtime.ptr(q), runtime.ptr(k), runtime.ptr(v), runtime.ptr(out),
-        _DTYPE_CODE[q.dtype], q.device.index, b, hq, hkv, sq, sk, d, dv,
+        _DTYPE_CODE[q.dtype], BODIES.index(body), b, hq, hkv, sq, sk, d, dv,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         int(causal), 0 if window is None else int(window),
         1.0 / math.sqrt(d), runtime.stream_handle(q.device),
     )
-    runtime.check(lib, rc, "flash_attention_bhsd")
+    runtime.check(lib, rc, f"flash_attention_bhsd ({body} body)")
     return out

@@ -56,6 +56,7 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 # kernel name -> {"seconds": build time, "log": nvcc/ptxas output}
 BUILD_LOG: Dict[str, Dict[str, object]] = {}
 _LAUNCHES: collections.Counter = collections.Counter()
+_BODY_LAUNCHES: collections.Counter = collections.Counter()  # (kernel, body) -> launches
 
 
 # ---------------------------------------------------------------- dispatch
@@ -75,9 +76,12 @@ def on_card(*tensors: torch.Tensor) -> bool:
     )
 
 
-def count_launch(name: str) -> None:
-    """Record one launch of kernel ``name`` (called only where it launches)."""
+def count_launch(name: str, body: Optional[str] = None) -> None:
+    """Record one launch of kernel ``name`` (called only where it launches),
+    and of its ``body`` where the kernel has more than one."""
     _LAUNCHES[name] += 1
+    if body is not None:
+        _BODY_LAUNCHES[(name, body)] += 1
 
 
 def launch_counts() -> Dict[str, int]:
@@ -85,9 +89,16 @@ def launch_counts() -> Dict[str, int]:
     return {name: _LAUNCHES[name] for name in SOURCES}
 
 
+def body_launch_counts(name: str, bodies: Iterable[str]) -> Dict[str, int]:
+    """Launches of each of kernel ``name``'s ``bodies`` since the last
+    :func:`reset_launch_counts`."""
+    return {body: _BODY_LAUNCHES[(name, body)] for body in bodies}
+
+
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count, and each body's, to 0."""
     _LAUNCHES.clear()
+    _BODY_LAUNCHES.clear()
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

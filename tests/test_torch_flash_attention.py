@@ -17,6 +17,8 @@ from repro.kernels.flash_attention import flash_attention_bhsd as jax_flash
 from repro_torch.kernels import runtime
 from repro_torch.kernels.flash_attention import (
     attention_ref,
+    body_for,
+    body_launches,
     flash_attention,
     flash_attention_bhsd,
 )
@@ -97,6 +99,57 @@ def test_cpu_path_launches_nothing():
     assert runtime.launch_counts() == {name: 0 for name in runtime.SOURCES}
 
 
+def test_cpu_path_counts_no_body():
+    runtime.reset_launch_counts()
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _inputs(0, 1, 4, 2, 16, 64, 64))
+    flash_attention_bhsd(q, k, v)
+    assert body_launches() == {"simt": 0, "mma": 0, "wgmma": 0}
+
+
+def _bhsd(b, h, s, d, dtype=torch.bfloat16):
+    return torch.zeros((b, h, s, d), dtype=dtype)
+
+
+def _model_view(b, h, s, d):
+    """(B, S, H, D) memory seen as (B, H, S, D), as models/transformer.py
+    hands q, k and v to the kernel."""
+    return torch.zeros((b, s, h, d), dtype=torch.bfloat16).transpose(1, 2)
+
+
+def _one_in(b, h, s, d):
+    """A view one element into a wider row: neither 16-byte aligned nor
+    with a row stride that is a multiple of 8."""
+    return torch.zeros((b, h, s, d + 1), dtype=torch.bfloat16)[..., 1:]
+
+
+# (q, k, v, window, body): the serving shape (Qwen2.5-3B prefill, B=4,
+# Hq=16, Hkv=2, S=512, D=128) contiguous and in the model's views, D = 64
+# with a window (Hymba's widths), D = 32 (the mma body's widths), and the
+# cases no tensor-core body takes
+BODY_CASES = [
+    ("serving-contiguous", lambda: (_bhsd(4, 16, 512, 128), _bhsd(4, 2, 512, 128),
+                                    _bhsd(4, 2, 512, 128)), None, "wgmma"),
+    ("serving-model-views", lambda: (_model_view(4, 16, 512, 128), _model_view(4, 2, 512, 128),
+                                     _model_view(4, 2, 512, 128)), None, "wgmma"),
+    ("d64-window", lambda: (_bhsd(1, 25, 96, 64), _bhsd(1, 5, 96, 64), _bhsd(1, 5, 96, 64)),
+     1024, "wgmma"),
+    ("d32", lambda: (_bhsd(1, 4, 64, 32), _bhsd(1, 2, 64, 32), _bhsd(1, 2, 64, 32)), None, "mma"),
+    ("float32", lambda: (_bhsd(1, 4, 64, 128, torch.float32), _bhsd(1, 2, 64, 128, torch.float32),
+                         _bhsd(1, 2, 64, 128, torch.float32)), None, "simt"),
+    ("dv-not-d", lambda: (_bhsd(1, 4, 64, 64), _bhsd(1, 2, 64, 64), _bhsd(1, 2, 64, 128)),
+     None, "simt"),
+    ("one-element-in", lambda: (_one_in(1, 4, 40, 128), _one_in(1, 2, 40, 128),
+                                _one_in(1, 2, 40, 128)), None, "simt"),
+]
+
+
+@pytest.mark.parametrize("make,window,body", [c[1:] for c in BODY_CASES],
+                         ids=[c[0] for c in BODY_CASES])
+def test_body_for_names_the_body(make, window, body):
+    q, k, v = make()
+    assert body_for(q, k, v, window) == body
+
+
 @pytest.mark.parametrize(
     "shapes,dtype,err",
     [
@@ -154,3 +207,17 @@ def test_build_writes_the_library_and_reports_failures(tmp_path, monkeypatch):
         runtime.build(["flash_attention"])
     assert not runtime.library_path("flash_attention").exists()
 
+
+def test_ablation_variants_take_out_what_they_name():
+    """tools/flash_ablation.py cuts parts of the wgmma body by markers in
+    the CUDA source: each variant must find its markers and drop exactly
+    its part (the tool times them on the card)."""
+    from tools import flash_ablation
+
+    src = flash_ablation.SOURCE.read_text()
+    v = flash_ablation.variants(src)
+    assert v["as built"] == src
+    assert "fast_exp2(fmaf(s[i]" in src and "fast_exp2(fmaf(s[i]" not in v["no softmax"]
+    assert "wgmma_n64_rs(o[cb]" in src and "wgmma_n64_rs(o[cb]" not in v["no products"]
+    assert "wgmma_n128_ss(s," not in v["no products"]
+    assert "D == 128 ? 2 : 4" in v["two stages"] and "D == 128 ? 2 : 4" not in src

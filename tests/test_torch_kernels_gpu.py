@@ -29,9 +29,12 @@ import torch
 from repro_torch.kernels import runtime
 from repro_torch.kernels.flash_attention import (
     attention_ref,
+    body_for,
+    body_launches,
     flash_attention,
     flash_attention_bhsd,
 )
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.dcov import (
     dcor_all_blocked,
     dcor_from_sums,
@@ -51,6 +54,10 @@ SWEEP = [
     (1, 4, 2, 70, 32, 32, True, None),  # unpadded tail
     (2, 4, 2, 48, 32, 64, True, None),  # Dv != D
     (4, 16, 2, 512, 128, 128, True, None),  # Qwen2.5-3B prefill
+    (2, 16, 2, 300, 128, 128, True, None),  # ragged tail in the query and key tiles
+    (1, 25, 5, 1536, 64, 64, True, 1024),  # Hymba's widths: GQA group 5, a long window
+    (1, 16, 2, 4096, 128, 128, True, None),  # long prefill
+    (2, 4, 2, 200, 128, 128, False, None),  # bidirectional, ragged
 ]
 
 
@@ -76,10 +83,15 @@ def _inputs(device, dtype, b, hq, hkv, s, d, dv):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_ref(cuda, b, hq, hkv, s, d, dv, causal, window, dtype):
     q, k, v = _inputs(cuda, dtype, b, hq, hkv, s, d, dv)
+    body = body_for(q, k, v, window)
+    assert body == ("wgmma" if dtype == torch.bfloat16 and d == dv and d >= 64 else
+                    "mma" if dtype == torch.bfloat16 and d == dv else "simt")
     before = runtime.launch_counts()["flash_attention"]
+    before_body = body_launches()[body]
     out = flash_attention_bhsd(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert runtime.launch_counts()["flash_attention"] == before + 1
+    assert body_launches()[body] == before_body + 1
     assert out.shape == (b, hq, s, dv) and out.dtype == dtype
     ref = attention_ref(q, k, v, causal=causal, window=window)
     atol = 2e-5 if dtype == torch.float32 else 3e-2
@@ -100,6 +112,29 @@ def test_grouped_wrapper_on_card(cuda, dtype):
     ref = flash_attention(qg.cpu(), k.cpu(), v.cpu(), window=32)
     atol = 2e-5 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(out.cpu().float(), ref.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.gpu
+def test_models_strided_views_through_the_wgmma_body(cuda, monkeypatch):
+    """q, k and v as models/transformer.py makes them, (B, S, H, D) memory
+    at D = 128, go through ``flash_attention`` on the wgmma body, read in
+    place, and agree with the plain route on the same views."""
+    rng = np.random.default_rng(2)
+    b, s, hkv, g, d = 2, 384, 2, 8, 128
+    qkv = torch.from_numpy(rng.normal(size=(b, s, hkv * (g + 2), d)).astype(np.float32))
+    qkv = qkv.to(cuda, torch.bfloat16)
+    q = qkv[:, :, :hkv * g]  # (B, S, Hq, D) views of one projection output
+    k, v = qkv[:, :, hkv * g:hkv * (g + 1)], qkv[:, :, hkv * (g + 1):]
+    qg = q.reshape(b, s, hkv, g, d)
+    assert not k.is_contiguous() and body_for(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2)) == "wgmma"
+    before = body_launches()["wgmma"]
+    out = flash_attention(qg, k, v)
+    torch.cuda.synchronize()
+    assert body_launches()["wgmma"] == before + 1
+    monkeypatch.setattr(fa_ops, "flash_attention_bhsd", attention_ref)
+    ref = flash_attention(qg, k, v)
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=0)
 
 
 @pytest.mark.gpu
