@@ -14,7 +14,8 @@ through ``dcov``). Phases, each of which exits non-zero on failure:
    every kernel built from its source in the checkout (one nvcc each,
    started together), with its build time and ptxas report, and the full
    ptxas report (registers, shared memory, spills, warnings) of the flash
-   kernel's wgmma body.
+   kernel's wgmma body and of the SSD scan's three wgmma-body kernels (a
+   library built by an earlier run into build/ has no report to print).
 2. Kernel check: each kernel against its plain version on the card over
    the CPU tests' sweep and its main path's shape, then the kernel's, the
    plain version's and (where one exists) a library call's device times
@@ -25,9 +26,13 @@ through ``dcov``). Phases, each of which exits non-zero on failure:
    causal, bf16; library: SDPA) on contiguous inputs and on the model's
    (B, S, H, D) views, and at S=4096 (B=1), SDPA beside each as a
    yardstick; ``ssd_scan`` against
-   ``ssd_ref`` in float32 and bfloat16, with a ragged tail and an initial
-   state (B=4, S=512, NH=80, hd=64, N=128, chunk 256, bf16; no library
-   call computes the scan); ``dcov``'s windows form against
+   ``ssd_ref`` in float32 and bfloat16, with a ragged tail, an initial
+   state, 16 chunks at S=4096 and chunk 64 at S=1000, and the model's
+   strided views at the full width, each case on the body ``body_for``
+   names (bf16 at hd 64, N 128: ``wgmma``), timed at the serving shape
+   (B=4, S=512, NH=80, hd=64, N=128, chunk 256, bf16) and at S=4096 (B=1),
+   the bound beside each (no library call computes the scan); ``dcov``'s
+   windows form against
    ``dcov_gram_windows_ref`` over B in {1, 3, 162, 1024}, W in {3, 10,
    64}, C in {2, 7, 8} with n_valid from {1, 2, 3, W-1, W}, constant
    columns and zero rows, and bitwise batch independence; its
@@ -43,8 +48,9 @@ through ``dcov``). Phases, each of which exits non-zero on failure:
    Qwen2.5-3B in bf16, logits within 5e-2 × max|logit|, and all 36 flash
    launches of the prefill on the ``wgmma`` body. For Mamba2-2.7B,
    in bf16 every SSD launch of the prefill is held to ``ssd_ref`` on its
-   own inputs and the logits are printed beside a control (the plain path
-   with half the chunk); in float32 the logits are held within
+   own inputs and all 64 launches take the ``wgmma`` body, and the logits
+   are printed beside a control (the plain path with half the chunk); in
+   float32 the logits are held within
    5e-2 × max|logit| (``ssm_full_width_check`` says why). Then the CORAL
    slice (the main path of ``dcov``): ``run_matrix`` over the 54 static
    cells x 3 seeds on the card as one batched call (10 dcov launches),
@@ -58,7 +64,8 @@ through ``dcov``). Phases, each of which exits non-zero on failure:
    launch counts reset just before and read just after each model's runs;
    each model's kernel must have launched (``flash_attention`` 36 times
    per prefill, every one on the ``wgmma`` body; ``ssd_scan`` 64 times per
-   prefill). For Qwen2.5-3B then the τ-vs-concurrency probe over c in
+   prefill, every one on its ``wgmma`` body). For Qwen2.5-3B then the
+   τ-vs-concurrency probe over c in
    {1, 2, 4} and the retire-overlap check: the real runtime over a
    stand-in engine whose steps take 10 ms of host work and a 10 ms spin
    kernel must serve at c=2 at least 1.3× its c=1 rate, which holds only
@@ -68,7 +75,9 @@ through ``dcov``). Phases, each of which exits non-zero on failure:
    batched static CORAL call over the grid, spend their time — wall time,
    device-busy time and kernel count from ``torch.profiler``, the idle
    share, and the heaviest kernels; every flash launch of the Qwen
-   prefills there on the ``wgmma`` body, 36 per prefill.
+   prefills there on the ``wgmma`` body, 36 per prefill, and every SSD
+   launch of the Mamba2 prefills on its ``wgmma`` body, 64 per prefill,
+   with the device time of each of the SSD body's three kernels.
 6. A ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
@@ -104,8 +113,9 @@ SWEEP = [  # the card tests' sweep (tests/test_torch_kernels_gpu.py), then the s
 LONG_SHAPE = dict(b=1, hq=16, hkv=2, s=4096, d=128, dv=128, causal=True, window=None)
 QWEN_FLASH_PER_PREFILL = 36  # one flash launch per Qwen2.5-3B layer
 # (b, s, nh, hd, n, chunk, initial state): the CPU tests' sweep
-# (tests/test_torch_ssd_scan.py), a ragged tail, the reduced Mamba2, and
-# full-width heads (hd 64, N 128, the tensor-core body in bf16), ragged
+# (tests/test_torch_ssd_scan.py), a ragged tail, the reduced Mamba2,
+# full-width heads (hd 64, N 128, the wgmma body in bf16), ragged, 16
+# chunks at the full width (state passing), chunk 64 over 16 ragged chunks
 SSD_SWEEP = [
     (1, 32, 2, 16, 8, 8, False),
     (2, 64, 4, 16, 16, 16, False),
@@ -117,14 +127,20 @@ SSD_SWEEP = [
     (2, 93, 16, 16, 16, 8, True),
     (1, 300, 4, 64, 128, 256, True),
     (2, 200, 3, 64, 128, 64, False),
+    (1, 4096, 80, 64, 128, 256, True),
+    (2, 1000, 8, 64, 128, 64, False),
 ]
 SSD_SERVE = (4, 512, 80, 64, 128, 256, False)  # Mamba2-2.7B prefill, B=4 x 512
+SSD_LONG = (1, 4096, 80, 64, 128, 256, False)  # a 4096-token Mamba2-2.7B prefill
+# the SSD wgmma body's kernels (ssd_scan.cu), in launch order
+SSD_PHASES = ("ssd_chunk_states", "ssd_state_passing", "ssd_chunk_outputs")
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 ATOL = {"float32": 2e-5, "bfloat16": 3e-2}
-SPIN_CYCLES = 60_000_000  # >= 30 ms at the H100's top SM clock of 1.98 GHz
-SPIN_MS_MIN = 30.0
+SPIN_CYCLES_PER_MS = 1_980_000  # >= 1 ms at the H100's top SM clock of 1.98 GHz
+SPIN_MS_MIN = 30.0  # the shortest spin ahead of a timed round
+SPIN_TRIES = 4  # rounds whose enqueue outran the spin, each redone with twice the spin
 PREFILL_REL_TOL = 5e-2  # full-width bf16 logits, relative to max |logit|
 SLICE_FP32_TOL = 1e-4  # reduced fp32 logits, card vs CPU
 OVERLAP_MIN = 1.3  # tau(c=2) / tau(c=1) when host and card take 10 ms each
@@ -159,25 +175,40 @@ def device_ms(fn, reps: int = 10, rounds: int = 5) -> float:
     """Device time of one call of ``fn``: ``reps`` calls back to back between
     two CUDA events, median over ``rounds``. A spin kernel queued first keeps
     the card busy while the host enqueues the calls, so host launch overhead
-    does not enter the time. Inputs stay warm in L2 between calls."""
+    does not enter the time. The spin is sized from the host's own time to
+    enqueue ``reps`` calls (hosts differ by up to 2x), and a round whose
+    enqueue still outran it is redone with twice the spin; a time is kept
+    only from a round the spin covered. Inputs stay warm in L2 between
+    calls."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    spin_ms = max(SPIN_MS_MIN, 2.0 * host_ms)
     times = []
     for _ in range(rounds):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
-        t0 = time.perf_counter()
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        enqueue_s = time.perf_counter() - t0
-        b.synchronize()
-        if enqueue_s * 1e3 > SPIN_MS_MIN:
-            fail(f"timing: the host took {enqueue_s * 1e3:.1f} ms to enqueue {reps} calls, "
-                 "longer than the spin kernel covers")
+        for _ in range(SPIN_TRIES):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(int(spin_ms * SPIN_CYCLES_PER_MS))
+            t0 = time.perf_counter()
+            a.record()
+            for _ in range(reps):
+                fn()
+            b.record()
+            enqueue_ms = (time.perf_counter() - t0) * 1e3
+            b.synchronize()
+            if enqueue_ms <= spin_ms:
+                break
+            spin_ms *= 2.0
+        else:
+            fail(f"timing: the host took {enqueue_ms:.1f} ms to enqueue {reps} calls "
+                 f"({host_ms:.1f} ms with no spin ahead), longer than a spin of "
+                 f"{spin_ms / 2.0:.1f} ms covers, {SPIN_TRIES} times")
         times.append(a.elapsed_time(b) / reps)
     times.sort()
     return times[len(times) // 2]
@@ -213,12 +244,15 @@ def phase_environment(torch):
         for line in str(entry["log"]).splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 say(f"    {line.strip()}")
-    if "flash_attention" not in log:  # built by an earlier run into build/
-        say("  flash wgmma body: library built by an earlier run, no ptxas report")
-        return
-    say("  flash wgmma body, ptxas report:")
-    for line in ptxas_report(str(log["flash_attention"]["log"]), "flash_fwd_wgmma"):
-        say(f"    {line}")
+    for kernel, label, needles in (("flash_attention", "flash wgmma body", ("flash_fwd_wgmma",)),
+                                   ("ssd_scan", "ssd wgmma body", SSD_PHASES)):
+        if kernel not in log:  # built by an earlier run into build/
+            say(f"  {label}: library built by an earlier run, no ptxas report")
+            continue
+        say(f"  {label}, ptxas report:")
+        for needle in needles:
+            for line in ptxas_report(str(log[kernel]["log"]), needle):
+                say(f"    {line}")
 
 
 def ptxas_report(log, needle):
@@ -367,49 +401,108 @@ def ssd_work(b, s, nh, hd, n, chunk, x_bytes, state):
     return nbytes, flops
 
 
-def phase_ssd_check(torch):
+def ssd_want_body(torch, x, Bm, Cm, chunk):
+    """The body the SSD serving conditions call for: wgmma for bf16 at
+    hd 64, N 128, chunk % 64 == 0 with 16-byte aligned rows, else simt."""
+    aligned = all(t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:-1])
+                  for t in (x, Bm, Cm))
+    return ("wgmma" if x.dtype == torch.bfloat16 and x.shape[-1] == 64 and Bm.shape[-1] == 128
+            and chunk % 64 == 0 and aligned else "simt")
+
+
+def ssd_held(torch, args, s0, chunk, label):
+    """One ssd_scan call on the body body_for names, held to ssd_ref;
+    returns y's max_abs_err."""
+    from repro_torch.kernels.ssd_scan import ssd_ref, ssd_scan
+    from repro_torch.kernels.ssd_scan.ssd_scan import body_for, body_launches
+
+    x, _, _, Bm, Cm = args
+    body = body_for(x, Bm, Cm, chunk)
+    want = ssd_want_body(torch, x, Bm, Cm, chunk)
+    if body != want:
+        fail(f"ssd {label}: body_for names {body}, not {want}")
+    before = body_launches()[body]
+    y, st = ssd_scan(*args, chunk=chunk, initial_state=s0)
+    y_ref, s_ref = ssd_ref(*args, chunk, s0)
+    torch.cuda.synchronize()
+    if body_launches()[body] != before + 1:
+        fail(f"ssd kernel {label}: the {body} body did not launch")
+    if (y.shape != y_ref.shape or y.dtype != y_ref.dtype or st.shape != s_ref.shape
+            or st.dtype != torch.float32):
+        fail(f"ssd kernel {label}: shape/dtype {y.shape} {y.dtype} {st.dtype}")
+    y_err = (y.float() - y_ref.float()).abs().max().item()
+    s_err = (st - s_ref).abs().max().item()
+    y_tol, s_tol = ssd_tolerances(torch, y_ref, s_ref)
+    ok = y_err <= y_tol and s_err <= s_tol
+    say(f"  ssd {label} ({body} body): y max_abs_err {y_err:.3g} (tol {y_tol:.3g}), state "
+        f"{s_err:.3g} (tol {s_tol:.3g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"ssd kernel disagrees with ssd_ref at {label}")
+    return y_err
+
+
+def ssd_views(torch, dtype, b, s, nh, hd, n, seed):
+    """x, B and C as views of one (B, S, NH·hd + 2N) tensor, as the model's
+    convolution output hands them in (row stride 5376 at the full width)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    di = nh * hd
+    xbc = torch.from_numpy(rng.normal(size=(b, s, di + 2 * n)).astype(np.float32)).to("cuda", dtype)
+    dt = torch.from_numpy(rng.uniform(0.01, 0.2, (b, s, nh)).astype(np.float32)).cuda()
+    A = torch.from_numpy(-rng.uniform(0.5, 2, (nh,)).astype(np.float32)).cuda()
+    return (xbc[..., :di].reshape(b, s, nh, hd), dt, A, xbc[..., di:di + n], xbc[..., di + n:])
+
+
+def ssd_times(torch, args, chunk, label):
+    """The kernel's and the plain version's device times, the bound from
+    the shapes beside them."""
     from repro_torch.kernels.ssd_scan import ssd_ref, ssd_scan
 
+    b, s, nh, hd = args[0].shape
+    ms = device_ms(lambda: ssd_scan(*args, chunk=chunk))
+    plain_ms = device_ms(lambda: ssd_ref(*args, chunk))
+    nbytes, flops = ssd_work(b, s, nh, hd, args[3].shape[-1], chunk, 2, False)
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    say(f"  ssd {label} (bf16): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library: none, "
+        f"bound {bound_ms:.5f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
+        f"kernel / bound {ms / bound_ms:.2f}")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_ssd_check(torch):
     serve_err = None
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         for i, case in enumerate(SSD_SWEEP + [SSD_SERVE]):
             b, s, nh, hd, n, chunk, state = case
             args, s0 = ssd_inputs(torch, dtype, b, s, nh, hd, n, state, seed=i)
-            y, st = ssd_scan(*args, chunk=chunk, initial_state=s0)
-            y_ref, s_ref = ssd_ref(*args, chunk, s0)
-            torch.cuda.synchronize()
-            if (y.shape != y_ref.shape or y.dtype != y_ref.dtype or st.shape != s_ref.shape
-                    or st.dtype != torch.float32):
-                fail(f"ssd kernel {case} {dname}: shape/dtype {y.shape} {y.dtype} {st.dtype}")
-            y_err = (y.float() - y_ref.float()).abs().max().item()
-            s_err = (st - s_ref).abs().max().item()
-            y_tol, s_tol = ssd_tolerances(torch, y_ref, s_ref)
-            ok = y_err <= y_tol and s_err <= s_tol
-            say(f"  ssd {dname} (b, s, nh, hd, n, chunk, state)={case}: y max_abs_err "
-                f"{y_err:.3g} (tol {y_tol:.3g}), state {s_err:.3g} (tol {s_tol:.3g}) "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"ssd kernel disagrees with ssd_ref at {case} {dname}")
+            err = ssd_held(torch, args, s0, chunk,
+                           f"{dname} (b, s, nh, hd, n, chunk, state)={case}")
             if case is SSD_SERVE and dtype == torch.bfloat16:
-                serve_err = y_err
+                serve_err = err
+            del args, s0
+        # the model's strided views at the full width (row stride 5376)
+        b, s, nh, hd, n, chunk, _ = SSD_SERVE
+        ssd_held(torch, ssd_views(torch, dtype, 2, 300, nh, hd, n, seed=7), None, chunk,
+                 f"{dname} model views (2, 300, {nh}, {hd}, {n}, {chunk})")
+    torch.cuda.empty_cache()
 
-    # times at the serving shape, bf16
+    # times, bf16: the serving shape, its model views, and S = 4096
     b, s, nh, hd, n, chunk, state = SSD_SERVE
     args, _ = ssd_inputs(torch, torch.bfloat16, b, s, nh, hd, n, state, seed=len(SSD_SWEEP))
-    ms = device_ms(lambda: ssd_scan(*args, chunk=chunk))
-    plain_ms = device_ms(lambda: ssd_ref(*args, chunk))
-    nbytes, flops = ssd_work(b, s, nh, hd, n, chunk, 2, state)
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    say(f"  ssd at serving shape (bf16): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"library: none, bound {bound_ms:.5f} ms ({nbytes / 1e6:.1f} MB, "
-        f"{flops / 1e9:.2f} GFLOP)")
-    return {
-        "max_abs_err": serve_err,
-        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-        "bound_ms": bound_ms, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-    }
+    row = ssd_times(torch, args, chunk, f"serving shape {SSD_SERVE[:6]}, contiguous")
+    ssd_times(torch, ssd_views(torch, torch.bfloat16, b, s, nh, hd, n, seed=8), chunk,
+              "serving shape, the model's views")
+    del args
+    b, s, nh, hd, n, chunk, state = SSD_LONG
+    args, _ = ssd_inputs(torch, torch.bfloat16, b, s, nh, hd, n, state, seed=len(SSD_SWEEP) + 1)
+    ssd_times(torch, args, chunk, f"S={s}, B={b}")
+    del args
+    torch.cuda.empty_cache()
+    return {"max_abs_err": serve_err, **row}
 
 
 def dcov_windows_inputs(torch, b, w, c, seed):
@@ -609,6 +702,20 @@ def check_flash_bodies(launches, prefills, what):
              f"want {want}, all on the wgmma body")
 
 
+def check_ssd_bodies(launches, prefills, what):
+    """Every SSD launch since the counts were reset took the wgmma body,
+    64 per Mamba2-2.7B prefill (one per layer)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.ssd_scan.ssd_scan import body_launches
+
+    bodies = body_launches()
+    want = get_config(SSM_ARCH).n_layers * prefills
+    say(f"  ssd launches in {what}: {launches} over {prefills} prefills, by body {bodies}")
+    if not launches == bodies["wgmma"] == want:
+        fail(f"{what}: {launches} ssd launches, {bodies['wgmma']} on the wgmma body; "
+             f"want {want}, all on the wgmma body")
+
+
 def logits_gap(torch, a, b):
     """max |a - b|, max |b| and the share of rows whose argmax agrees."""
     a, b = a.float(), b.float()
@@ -634,6 +741,7 @@ def ssm_full_width_check(torch):
 
     from repro_torch.configs.registry import get_config
     from repro_torch.configs.runtime import RunConfig
+    from repro_torch.kernels import runtime
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ssd_ref, ssd_scan
     from repro_torch.models.transformer import ApplyCtx, init_model_params, prefill
@@ -659,8 +767,11 @@ def ssm_full_width_check(torch):
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = cast_for_compute(init_model_params(cfg, ctx.rcfg, gen, "cuda"), torch.bfloat16)
     with torch.inference_mode():
+        runtime.reset_launch_counts()
         with mock.patch.object(ssd_ops, "ssd_scan", held_to_plain):
             _, via_kernel = prefill(ctx, params, {"tokens": tok})
+        check_ssd_bodies(runtime.launch_counts()["ssd_scan"], 1,
+                         f"the full-width {SSM_ARCH} bf16 prefill")
         with plain_route(SSM_ARCH):
             _, via_ref = prefill(ctx, params, {"tokens": tok})
         with mock.patch.object(ssd_ops, "ssd_scan", half_chunk):
@@ -741,6 +852,7 @@ def phase_serve(torch):
     if ssd_counts["ssd_scan"] != per_prefill * prefills:
         fail(f"ssd_scan launched {ssd_counts['ssd_scan']} times on the {SSM_ARCH} main path, "
              f"not {per_prefill} per prefill over {prefills} prefills")
+    check_ssd_bodies(ssd_counts["ssd_scan"], prefills, f"the {SSM_ARCH} serve() runs")
     missing = [k for k in ("flash_attention", "ssd_scan") if flash_counts[k] + ssd_counts[k] == 0]
     if missing:
         fail(f"kernels never launched on the serving paths: {missing}")
@@ -803,10 +915,11 @@ def retire_overlap_check(torch):
         fail("two decode slots do not overlap: retire waits on more than its own slot")
 
 
-def profile_window(torch, label, fn, reps):
+def profile_window(torch, label, fn, reps, named=()):
     """Wall and host-enqueue time of ``reps`` calls of ``fn`` (CUDA events,
     no profiler attached), then device-busy time, kernel count and the
-    heaviest kernels from a second, profiled window."""
+    heaviest kernels from a second, profiled window, and the device time
+    per call of every kernel whose name holds one of ``named``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -834,6 +947,12 @@ def profile_window(torch, label, fn, reps):
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:5]:
         say(f"    {e.self_device_time_total / 1e3 / reps:8.3f} ms  x{e.count // reps:<4d} "
             f"{e.key[:90]}")
+    for needle in named:
+        for e in kern:
+            if needle in e.key:
+                say(f"    {needle}: {e.self_device_time_total / 1e3 / reps:.3f} ms per call, "
+                    f"{e.count // reps} launches per call, "
+                    f"{e.self_device_time_total / max(e.count, 1):.2f} us each")
     return launches
 
 
@@ -852,10 +971,14 @@ def phase_profile(torch, arch):
         state["prefills"] += 1
 
     runtime.reset_launch_counts()
-    profile_window(torch, f"{arch} prefill 4x512", prefill, reps=3)
+    profile_window(torch, f"{arch} prefill 4x512", prefill, reps=3,
+                   named=SSD_PHASES if arch == SSM_ARCH else ())
     if arch == ARCH:
         check_flash_bodies(runtime.launch_counts()["flash_attention"], state["prefills"],
                            f"the profiled {arch} prefills")
+    else:
+        check_ssd_bodies(runtime.launch_counts()["ssd_scan"], state["prefills"],
+                         f"the profiled {arch} prefills")
     tok = np.zeros((4, 1), np.int32)
 
     def decode():

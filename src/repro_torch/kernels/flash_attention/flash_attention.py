@@ -32,6 +32,11 @@ the one a call takes; the C entry launches exactly that one or fails:
 * ``"simt"`` — everything else (float32, Dv != D, unaligned views):
   float32 FMAs on the CUDA cores.
 
+A query row that sees no key (a window with Sq ≥ Sk + window) gets
+``attention_ref``'s answer on every body, the mean of V over the Sk keys:
+the rows are known from the shapes, and the wrapper writes them after the
+launch (:func:`first_blind_row`).
+
 The reference's ``block_q``/``block_k``/``interpret`` arguments have no
 counterpart (tile sizes are fixed per body). The kernel takes float32 or
 bfloat16 (q, k and v of one dtype), any D up to :data:`MAX_HEAD_DIM` and
@@ -41,6 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import sys
 from typing import Dict, Optional
 
 import torch
@@ -148,4 +154,17 @@ def flash_attention_bhsd(
         1.0 / math.sqrt(d), runtime.stream_handle(q.device),
     )
     runtime.check(lib, rc, f"flash_attention_bhsd ({body} body)")
+    blind = first_blind_row(sk, window)
+    if blind < sq:  # rows that see no key: attention_ref's mean of V over the Sk keys
+        mean = v.float().mean(dim=2).repeat_interleave(hq // hkv, dim=1)  # (B, Hq, Dv)
+        out[:, :, blind:] = mean[:, :, None, :].to(out.dtype)
     return out
+
+
+def first_blind_row(sk: int, window: Optional[int]) -> int:
+    """The first query position that sees no key, with or without the
+    causal mask: row q's nearest key is min(q, Sk - 1), out of the window
+    iff q - (Sk - 1) >= window. ``attention_ref`` softmaxes such a row of
+    -1e30 into the mean of V over the Sk keys; the bodies, which skip or
+    mask every tile of it, do not, so the wrapper writes those rows."""
+    return sys.maxsize if window is None else sk - 1 + window

@@ -15,45 +15,47 @@
 // zeros, exactly the reference's zero padding: with dt = 0 they leave cs
 // and S unchanged. The causal decay is made by selection, never by a 0/1
 // multiply: exp(cs_i - cs_j) is only evaluated for j <= i, where it is at
-// most 1 (for j > i it can overflow to inf, and inf * 0 is NaN).
+// most 1 (for j > i it can overflow to inf, and inf * 0 is NaN). x, B and C
+// are read through their strides (the model hands in views of the
+// convolution output), so the wrapper copies nothing.
 //
-// Layout of the work. The TPU ran a sequential grid (B, NH, NC) and carried
-// S across the chunk axis in VMEM scratch; each grid step held a whole
-// Q x Q score matrix (256 KB at Q = 256). Here one thread block owns one
-// (b, h) and walks its chunks in order, carrying S for the whole sequence.
-// A Hopper block has at most 227 KB of shared memory, so a chunk is cut
-// into 64-row query tiles; for query tile qi the block loops over the key
-// tiles kj <= qi only (the tiles above the diagonal are all masked and are
-// skipped), forms the 64 x 64 score tile C_qi B_kj^T, applies the decay,
-// and accumulates it times the 64 x hd tile of x into the query tile's
-// registers. x, B and C are read through their strides (the model hands in
-// views of the convolution output), so the wrapper copies nothing.
+// The TPU ran a sequential grid (B, NH, NC) and carried S across the chunk
+// axis in VMEM scratch. Two bodies; the wrapper (ssd_scan.py::body_for)
+// names one and the entry launches exactly that one or returns an error:
 //
-// Two bodies share that layout:
-//
-// * ssd_fwd_mma — bf16 at the Mamba2 widths (hd = 64, N = 128), chunk a
-//   multiple of 64, rows 16-byte aligned (the serving path): the products
-//   on the tensor cores with mma.sync m16n8k16, bf16 in and float32 out;
-//   see the note above it.
-// * ssd_fwd_simt — every other case (float32, other widths, unaligned
-//   views): float32 FMAs on the CUDA cores from float32 tiles in shared
-//   memory; 256 threads as a 16 x 16 grid, thread (ty, tx) owning rows
-//   4*ty .. 4*ty+3 and columns tx + 16*c; S in shared memory, its update
-//   riding on the last query tile's key loop, which visits every key tile.
+// * wgmma — bf16 at the Mamba2 widths (hd = 64, N = 128), chunk a multiple
+//   of 64, rows 16-byte aligned (the serving path): the chunk-parallel
+//   split of the SSD algorithm in three kernels (chunk states, state
+//   passing, outputs) on TMA and wgmma, C . B^T formed once per CTA for a
+//   group of heads; see the note above it.
+// * simt — every other case (float32, other widths, unaligned views): one
+//   thread block per (b, h) walks its chunks in order, carrying S; a chunk
+//   is cut into 64-row query tiles and, for query tile qi, the key tiles
+//   kj <= qi (tiles above the diagonal are skipped): float32 FMAs on the
+//   CUDA cores from float32 tiles in shared memory; 256 threads as a
+//   16 x 16 grid, thread (ty, tx) owning rows 4*ty .. 4*ty+3 and columns
+//   tx + 16*c; S in shared memory, its update riding on the last query
+//   tile's key loop, which visits every key tile.
 //
 // What bounds it on the card: at the serving shape (B=4, S=512, NH=80,
 // hd=64, N=128, Q=256, bf16 x/B/C) the function moves ~54 MB (x and y 21 MB
 // each, final state 10.5 MB) and needs ~8.1 GFLOP (the causal half of the
 // intra-chunk products, C . B^T once per batch row since B and C are shared
-// by all heads), so its roofline is the memory side, ~16 us. Both bodies
-// recompute C . B^T for every head, hold one block of one (b, h) per SM
-// (320 blocks at the serving shape, 2.4 waves on 132 SMs) and do not
-// overlap a chunk's loads with its products, so they run far above that
-// roofline; see PERF.md for the measured times.
+// by all heads), so its roofline is the memory side, ~16 us. The wgmma body
+// adds traffic of its own (the chunk states, 21 MB in float32, written and
+// read again; the entering states in bf16; C and B reread per CTA, x per
+// query tile) and tensor work of its own (the state products' high/low
+// split, C . B^T once per group of heads, the masked half of the diagonal
+// tiles); its kernels are bound by the latency of their serial chains at
+// two or three CTAs per SM more than by either roofline. See PERF.md for
+// the measured times and tools/ssd_ablation.py for where they go.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cstdio>
 
 namespace {
 
@@ -304,64 +306,88 @@ __global__ void __launch_bounds__(NT) ssd_fwd_simt(Params p) {
   for (int e = tid; e < HD * N; e += NT) p.sfin[sbase + e] = St[(e / N) * ldn + e % N];
 }
 
-// ------------------------------------------------------------ mma body
-// bf16 x, B and C with hd = HD and N = NS (the Mamba2-2.7B widths), chunk a
-// multiple of 64, rows 16-byte aligned. One block of eight warps per
-// (batch, head) walks the chunks in order. A chunk's C, B and x (bf16, rows
-// padded by 16 bytes so ldmatrix reads hit distinct banks) are brought into
-// shared memory by cp.async, zero-filled past the sequence end. The float32
-// state S (HD x NS) lives in the warps' mma accumulators for the whole
-// sequence: warp w owns state rows 16 (w % 4) .. + 15 and columns
-// NS/2 (w / 4) .. + NS/2. Per chunk:
+// ------------------------------------------------------------ wgmma body
+// bf16 x, B and C at the Mamba2 widths (hd = 64, N = 128), chunk a multiple
+// of 64, rows 16-byte aligned: the serving path. Three kernels, launched
+// one after the other on the caller's stream, in the SSD algorithm's own
+// order (arXiv:2405.21060 sections 6-7; ref.py computes the same split):
 //
-// * S is rounded to bf16 into shared memory for the inter-chunk product;
-// * the 64-row query tiles are dealt to the two groups of four warps so
-//   that each group does the same number of key tiles (tiles 0 and 3 to
-//   one, 1 and 2 to the other, and so on). Within a tile warp w takes rows
-//   16 (w % 4) .. + 15: y starts as C . S^T scaled by exp(cs_i); then for
-//   each key tile kj <= qi the scores C . B^T come out of mma.sync
-//   m16n8k16 in float32 registers, are multiplied by exp(cs_i - cs_j) dt_j
-//   where j <= i (selection), re-packed as the bf16 A operand (rounded
-//   there, as the flash kernel rounds P), and multiplied into y with x as
-//   the B operand. On the diagonal tile a warp skips the key blocks past
-//   its own rows;
-// * S = exp(cs_last) S + (dt seg x)^T B, with the weighted x split into a
-//   bf16 high and low part (two products) so the carried state keeps about
-//   16 bits: its rounding does not compound from chunk to chunk.
-template <int HD, int NS>
-struct MmaShape {
-  static constexpr int WG = HD / 16;  // warps per group: one per 16 rows
-  static constexpr int NW = 2 * WG;   // warps per block
-  static constexpr int LDC = NS + 8;  // padded bf16 row of C, B and S
-  static constexpr int LDX = HD + 8;  // padded bf16 row of x
-};
+// 1. ssd_chunk_states, one CTA per (head, chunk, batch row): the chunk's
+//    cumulative sum cs of dt * A, written to scratch with dt (zero past the
+//    sequence end) for phases 2 and 3, and its end state from zero,
+//    S_c = sum_j (dt_j seg_j x_j) (x) B_j with seg_j = exp(cs_last - cs_j),
+//    a 64 x 128 float32 product of depth Q on wgmma m64n64k16 (two per
+//    k-step, one per 64-column box of B). The weighted x is the A operand
+//    from registers, split into a bf16 high and low part (two products),
+//    so S_c keeps about 16 bits; B is read MN-major through the
+//    descriptor's transpose bit. A producer warp keeps a two-stage ring of
+//    (B, x) tiles in flight by TMA: 52 KB of shared memory and 123
+//    registers let three CTAs share an SM (four stages, two CTAs, were
+//    slower; so was splitting N over two CTAs).
+// 2. ssd_state_passing, elementwise over (b, h) and the state's elements,
+//    sequential over chunks: S_enter(c+1) = exp(cs_last(c)) S_enter(c) +
+//    S_c in float32, the same recurrence in the same order as ref.py. It
+//    writes each entering state rounded to bf16 (the operand of phase 3's
+//    C . S^T) and the float32 final state. (Folding it into phase 1, by the
+//    last CTA of each (b, h), was slower: it costs phase 1 registers.)
+// 3. ssd_chunk_outputs, one CTA per (64-row query tile, chunk, batch row)
+//    x a group of SCAN_G heads. The query tile's C . B^T (64 x 64 float32
+//    in registers, one key tile at a time) is formed once per CTA and
+//    reused by all SCAN_G heads (ngroups = 1 makes it independent of the
+//    head): per head the decay exp(cs_i - cs_j) (by selection on the
+//    diagonal tile), dt_j and the bf16 rounding are applied in registers,
+//    then y_h += M_h . x_h on wgmma with x MN-major. y_h starts as
+//    exp(cs_i) C . S_enter_h^T (a third product) where a state enters.
+//    A producer warpgroup brings C, the entering states, the B tiles and
+//    the x tiles by TMA into two shared-memory rings (16 KB and 8 KB
+//    slots) on mbarriers; setmaxnreg moves its registers to the consumer
+//    warpgroup, whose SCAN_G accumulators of y stay in registers (two CTAs
+//    per SM). y leaves through the idle rings, swizzled, by one TMA store
+//    per head. Heavy query tiles (most key tiles) are scheduled first.
+//
+// Every tile is a TMA box of 64 columns (128 bytes) x 64 rows in the
+// 128-byte swizzle; the tensor maps are built over the strided views as
+// given (the model's views of the convolution output are read in place).
+// The scratch (cs and dt, the chunk states in float32, the entering states
+// in bf16) is allocated by the wrapper; no atomics, no order that depends
+// on the schedule: two runs give the same bits.
+constexpr int SCAN_G = 4;           // heads per phase-3 CTA
+constexpr int WG_HD = 64;           // head width the body is compiled for
+constexpr int WG_N = 128;           // state width the body is compiled for
+constexpr int WG_T = 64;            // rows of every tile
+constexpr uint32_t BOX = 64 * 128;  // one 64-row x 64-column bf16 box: 8 KB
+constexpr int P1_STAGES = 2;        // phase-1 ring of (B tile, x tile)
+constexpr int P1_THREADS = 160;     // one consumer warpgroup and a producer warp
+constexpr int P3_WIDE = 2;          // phase-3 ring of 16 KB slots (S_enter, B tiles)
+constexpr int P3_NARROW = 4;        // phase-3 ring of 8 KB slots (x tiles)
+constexpr int P3_THREADS = 256;     // one consumer and one producer warpgroup
+constexpr int P2_THREADS = 128;     // phase 2: four state elements a thread
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int PDL = 1;  // launch phases 2 and 3 with programmatic dependent launch
 
-__host__ __device__ inline size_t mma_smem_bytes(int chunk, int hd, int n) {
-  return sizeof(__nv_bfloat16) * (size_t(chunk) * (2 * (n + 8) + hd + 8) + size_t(hd) * (n + 8)) +
-         sizeof(float) * 3 * size_t(chunk);
+// Shared memory, in bytes from a 1024-aligned base (+ 1024 to align).
+// Phase 1: P1_STAGES x (B 16 KB + x 8 KB), the barriers, then dt, cs and
+// the weights dt seg over the chunk.
+constexpr uint32_t P1_BAR = P1_STAGES * 3 * BOX;
+constexpr uint32_t P1_FLOATS = P1_BAR + 16 * P1_STAGES;
+// Phase 3: C (16 KB), the wide and narrow rings, the barriers, then cs
+// (times log2 e) and dt of the CTA's heads over the chunk.
+constexpr uint32_t P3_WIDE_OFF = 2 * BOX;
+constexpr uint32_t P3_NARROW_OFF = P3_WIDE_OFF + P3_WIDE * 2 * BOX;
+constexpr uint32_t P3_BAR = P3_NARROW_OFF + P3_NARROW * BOX;
+constexpr uint32_t P3_FLOATS = P3_BAR + 8 * (1 + 2 * P3_WIDE + 2 * P3_NARROW);
+
+inline size_t p1_smem_bytes(int chunk) {
+  return 1024 + P1_FLOATS + sizeof(float) * 3 * size_t(chunk);
+}
+inline size_t p3_smem_bytes(int chunk) {
+  return 1024 + P3_FLOATS + sizeof(float) * 2 * SCAN_G * size_t(chunk);
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), float32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -373,241 +399,564 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
 }
 
-// 16-byte asynchronous copy global -> shared; zero-fills when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Start copying `rows` rows WIDTH bf16 wide (row stride ld_g elements) into
-// shared memory (row stride ld_s), rows at or past `valid` zero-filled.
-template <int WIDTH, int NTH>
-__device__ __forceinline__ void issue_rows(__nv_bfloat16* dst, int ld_s,
-                                           const __nv_bfloat16* src, long long ld_g,
-                                           int rows, int valid) {
-  constexpr int CH = WIDTH / 8;
-  for (int i = threadIdx.x; i < rows * CH; i += NTH) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const bool ok = r < valid;
-    cp_async16(dst + r * ld_s + c, ok ? src + r * ld_g + c : src, ok);
-  }
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
 }
 
-// Which warp group takes query tile qt: 0, 1, 1, 0, 0, 1, 1, 0, ... so the
-// groups' key-tile counts (qt + 1 each) balance.
-__device__ __forceinline__ int tile_group(int qt) { return (qt ^ (qt >> 1)) & 1; }
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
 
-template <int HD, int NS>
-__global__ void __launch_bounds__(MmaShape<HD, NS>::NW * 32, 1) ssd_fwd_mma(Params p) {
-  using Sh = MmaShape<HD, NS>;
-  constexpr int WG = Sh::WG, NTH = Sh::NW * 32, LDC = Sh::LDC, LDX = Sh::LDX;
-  constexpr int SB = NS / 16;  // 8-wide column blocks of this warp's half of S
-  constexpr int YB = HD / 8;   // 8-wide column blocks of y
-  constexpr int KS = NS / 16;  // k-steps over the state width
-  static_assert(HD % 16 == 0 && NS % 32 == 0, "tile shapes");
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One 64 x 64 box of a 3-D (columns, rows, batch) or 4-D (columns, rows,
+// head, batch) tensor map into shared memory; rows past the map's end
+// arrive as zeros. Completion is counted on `bar`.
+__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap& map, int col,
+                                          int row, int batch, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(col), "r"(row), "r"(batch), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap& map, int col,
+                                          int row, int head, int batch, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(col), "r"(row), "r"(head), "r"(batch),
+      "r"(bar)
+      : "memory");
+}
+
+// One 64-row box of shared memory out to a 4-D tensor map (bulk group of
+// the issuing thread); rows past the map's end are not written.
+__device__ __forceinline__ void tma_store4(const CUtensorMap& map, uint32_t src, int col, int row,
+                                           int head, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(&map)), "r"(src), "r"(col), "r"(row), "r"(head),
+      "r"(batch)
+      : "memory");
+}
+
+// Make this thread's shared-memory writes visible to TMA stores.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Issue the thread's pending TMA stores and wait until they have read
+// shared memory.
+__device__ __forceinline__ void tma_store_drain() {
+  asm volatile("cp.async.bulk.commit_group;\ncp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap& map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&map))
+               : "memory");
+}
+
+// wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout B128.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | (1ull << 62);
+}
+
+// K-major operand (rows of 128 columns, two boxes): k-step kk of 16 columns
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
+  return smem_desc(tile + (kk / 4) * BOX + (kk % 4) * 32, 16, 1024);
+}
+
+// MN-major operand (64 columns, one box): k-step kk of 16 rows
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t box, int kk) {
+  return smem_desc(box + kk * 2048, BOX, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving register reads or writes of a wgmma's
+// operands across the asynchronous window between issue and wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define F8(a, i)                                                                       \
+  "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3]), "+f"(a[i + 4]),          \
+      "+f"(a[i + 5]), "+f"(a[i + 6]), "+f"(a[i + 7])
+
+// d (64 x 64, f32) (+)= A (64 x 16, smem, K-major) * B (16 x 64, smem, K-major)
+__device__ __forceinline__ void wgmma_n64_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16 registers) * B (16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_n64_rs(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+#undef F8
+
+// Named barrier 1: the consumer warpgroup alone (128 threads).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+
+// Under programmatic dependent launch a kernel may start before the one
+// before it on the stream has finished: wait for it (and its writes) here.
+// Without that launch attribute this returns at once.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Scratch layouts (element offsets): cs and dt (B, NH, NC, Q) float32, dt
+// zero past the sequence end; chunk states (B, NC, NH, hd, N) float32;
+// entering states (B, NC, NH, hd, N) bf16.
+__device__ __forceinline__ long long cs_at(int b, int h, int c, int nh, int nc, int q) {
+  return ((long long)(b * nh + h) * nc + c) * q;
+}
+__device__ __forceinline__ long long state_at(int b, int c, int h, int nh, int nc) {
+  return ((long long)(b * nc + c) * nh + h) * (WG_HD * WG_N);
+}
+
+struct Scratch {
+  float* cs;
+  float* dt;
+  float* states;
+  __nv_bfloat16* senter;
+};
+
+// ---- phase 1: the chunk's cs and its end state from zero
+__global__ void __launch_bounds__(P1_THREADS)
+    ssd_chunk_states(const __grid_constant__ Params p, const __grid_constant__ CUtensorMap tx,
+                     const __grid_constant__ CUtensorMap tb, Scratch sc) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  float* dts = reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)) + P1_FLOATS);
   const int Q = p.chunk;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sC = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // Q x LDC
-  __nv_bfloat16* sB = sC + Q * LDC;                                  // Q x LDC
-  __nv_bfloat16* sX = sB + Q * LDC;                                  // Q x LDX
-  __nv_bfloat16* sS = sX + Q * LDX;                                  // HD x LDC
-  float* cs = reinterpret_cast<float*>(sS + HD * LDC);
-  float* dts = cs + Q;
-  float* seg = dts + Q;
+  float* cs = dts + Q;
+  float* w = cs + Q;
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z, nc = gridDim.y;
+  const int t0 = c * Q, rows = min(Q, p.seqlen - t0);
+  const int nk = (rows + WG_T - 1) / WG_T;  // key tiles past the sequence end add 0
+  auto full = [&](int st) { return base + P1_BAR + 8 * st; };
+  auto empty = [&](int st) { return base + P1_BAR + 8 * (P1_STAGES + st); };
 
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, t = lane % 4;  // fragment row group / column pair
-  const int wr = warp % WG, group = warp / WG;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const float a = p.A[h];
-  const __nv_bfloat16* xg = static_cast<const __nv_bfloat16*>(p.x) + b * p.x_sb + h * p.x_sh;
-  const __nv_bfloat16* bg = static_cast<const __nv_bfloat16*>(p.bm) + b * p.b_sb;
-  const __nv_bfloat16* cg = static_cast<const __nv_bfloat16*>(p.cm) + b * p.c_sb;
-  const float* dtg = p.dt + b * p.dt_sb + h * p.dt_sh;
-  __nv_bfloat16* yg = static_cast<__nv_bfloat16*>(p.y) + b * p.y_sb + h * p.y_sh;
-  const long long sbase = (long long)(b * p.nh + h) * HD * NS;
-
-  // this warp's part of S: element e of column block n is row
-  // 16 wr + g + 8 (e / 2), column c0 + 8 n + 2 t + e % 2
-  const int c0 = group * (NS / 2);
-  float st[SB][4];
-#pragma unroll
-  for (int n = 0; n < SB; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      st[n][e] = p.s0 == nullptr ? 0.f
-                 : p.s0[sbase + (wr * 16 + g + 8 * (e / 2)) * NS + c0 + 8 * n + 2 * t + e % 2];
-
-  const int nq = Q / TT;
-  const int nchunks = (p.seqlen + Q - 1) / Q;
-  for (int ch = 0; ch < nchunks; ++ch) {
-    const int t0 = ch * Q;
-    const int rows = min(Q, p.seqlen - t0);
-    __syncthreads();  // the previous chunk is done with every shared tile
-    issue_rows<NS, NTH>(sC, LDC, cg + (long long)t0 * p.c_ss, p.c_ss, Q, rows);
-    issue_rows<NS, NTH>(sB, LDC, bg + (long long)t0 * p.b_ss, p.b_ss, Q, rows);
-    issue_rows<HD, NTH>(sX, LDX, xg + (long long)t0 * p.x_ss, p.x_ss, Q, rows);
-    asm volatile("cp.async.commit_group;\n" ::);
-    load_dt<NTH>(dts, dtg + t0 * p.dt_ss, p.dt_ss, rows, Q);
-#pragma unroll
-    for (int n = 0; n < SB; ++n) {  // S entering the chunk, rounded to bf16
-      const int r = wr * 16 + g, c = c0 + 8 * n + 2 * t;
-      *reinterpret_cast<uint32_t*>(sS + r * LDC + c) = pack_bf16(st[n][0], st[n][1]);
-      *reinterpret_cast<uint32_t*>(sS + (r + 8) * LDC + c) = pack_bf16(st[n][2], st[n][3]);
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < P1_STAGES; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 128);
     }
-    __syncthreads();  // dts is written
-    if (warp == 0) chunk_cumsum(cs, dts, Q, a);
-    asm volatile("cp.async.wait_group 0;\n" ::);
-    __syncthreads();  // cs and the tiles are in
-    const float cs_last = cs[Q - 1];  // padded rows add 0
-    for (int r = threadIdx.x; r < Q; r += NTH) seg[r] = expf(cs_last - cs[r]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    const bool carry = ch > 0 || p.s0 != nullptr;  // S entering the chunk may be nonzero
-    for (int qt = 0; qt < nq; ++qt) {
-      if (tile_group(qt) != group) continue;
-      const int r0 = qt * TT + wr * 16;  // this warp's first query row
-      uint32_t cf[KS][4];                // its rows of C as A fragments
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        ldsm_x4(cf[kk], sC + (r0 + lane % 16) * LDC + kk * 16 + (lane / 16) * 8);
-      const int ri[2] = {r0 + g, r0 + g + 8};
-
-      // inter-chunk part: exp(cs_i) C_i . S^T (0 while S is still 0)
-      float y[YB][4];
-#pragma unroll
-      for (int n = 0; n < YB; ++n) y[n][0] = y[n][1] = y[n][2] = y[n][3] = 0.f;
-      if (carry) {
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-          for (int n2 = 0; n2 < YB / 2; ++n2) {
-            uint32_t bf[4];
-            ldsm_x4(bf, sS + (n2 * 16 + lane % 8 + (lane / 16) * 8) * LDC + kk * 16 +
-                            ((lane / 8) % 2) * 8);
-            mma_bf16(y[2 * n2], cf[kk], bf[0], bf[1]);
-            mma_bf16(y[2 * n2 + 1], cf[kk], bf[2], bf[3]);
-          }
-        }
-        const float ey[2] = {expf(cs[ri[0]]), expf(cs[ri[1]])};
-#pragma unroll
-        for (int n = 0; n < YB; ++n) {
-          y[n][0] *= ey[0];
-          y[n][1] *= ey[0];
-          y[n][2] *= ey[1];
-          y[n][3] *= ey[1];
-        }
-      }
-
-      // intra-chunk part over the key tiles at or below the diagonal
-      for (int kt = 0; kt <= qt; ++kt) {
-        const int j0 = kt * TT;
-        // key blocks of 16 this warp needs: on the diagonal, up to its rows
-        const int kb = kt == qt ? wr + 1 : TT / 16;
-        float s[TT / 8][4];
-#pragma unroll
-        for (int n = 0; n < TT / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-          for (int n2 = 0; n2 < TT / 16; ++n2) {
-            if (n2 >= kb) continue;
-            uint32_t bf[4];
-            ldsm_x4(bf, sB + (j0 + n2 * 16 + lane % 8 + (lane / 16) * 8) * LDC + kk * 16 +
-                            ((lane / 8) % 2) * 8);
-            mma_bf16(s[2 * n2], cf[kk], bf[0], bf[1]);
-            mma_bf16(s[2 * n2 + 1], cf[kk], bf[2], bf[3]);
-          }
-        }
-        // decay by selection, times dt_j
-#pragma unroll
-        for (int n = 0; n < TT / 8; ++n) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int i = ri[e / 2];
-            const int j = j0 + 8 * n + 2 * t + (e % 2);
-            s[n][e] = j <= i ? s[n][e] * expf(cs[i] - cs[j]) * dts[j] : 0.f;
-          }
-        }
-        // y += M . x, M re-packed as the bf16 A operand
-#pragma unroll
-        for (int kk = 0; kk < TT / 16; ++kk) {
-          if (kk >= kb) continue;
-          const uint32_t pa[4] = {
-              pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-          };
-#pragma unroll
-          for (int n2 = 0; n2 < YB / 2; ++n2) {
-            uint32_t bf[4];
-            ldsm_x4_t(bf, sX + (j0 + kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LDX +
-                              n2 * 16 + (lane / 16) * 8);
-            mma_bf16(y[2 * n2], pa, bf[0], bf[1]);
-            mma_bf16(y[2 * n2 + 1], pa, bf[2], bf[3]);
-          }
-        }
-      }
-
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        if (ri[r] >= rows) continue;
-        __nv_bfloat16* yrow = yg + (long long)(t0 + ri[r]) * p.y_ss;
-#pragma unroll
-        for (int n = 0; n < YB; ++n)
-          *reinterpret_cast<__nv_bfloat162*>(yrow + 8 * n + 2 * t) =
-              __floats2bfloat162_rn(y[n][2 * r], y[n][2 * r + 1]);
+  if (threadIdx.x >= 128) {  // producer warp: one thread issues every load
+    if (threadIdx.x == 128) {
+      prefetch_map(tx);
+      prefetch_map(tb);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int st = kt % P1_STAGES, row = t0 + kt * WG_T;
+        const uint32_t slot = base + st * 3 * BOX;
+        mbar_wait(empty(st), ((kt / P1_STAGES) & 1) ^ 1);
+        mbar_expect_tx(full(st), 3 * BOX);
+        tma_load3(slot, tb, 0, row, b, full(st));
+        tma_load3(slot + BOX, tb, 64, row, b, full(st));
+        tma_load4(slot + 2 * BOX, tx, 0, row, h, b, full(st));
       }
     }
+    return;
+  }
 
-    // state update: S = exp(cs_last) S + (w x)^T B with w_j = dt_j seg_j
-    __syncthreads();  // seg is written
-    const float dec = expf(cs_last);
+  // consumers: dt, cs (to scratch) and the weights dt_j seg_j
+  const float* dtg = p.dt + b * p.dt_sb + h * p.dt_sh + (long long)t0 * p.dt_ss;
+  load_dt<128>(dts, dtg, p.dt_ss, rows, Q);
+  consumers_sync();
+  if (threadIdx.x < 32) chunk_cumsum(cs, dts, Q, p.A[h]);
+  consumers_sync();
+  const float cs_last = cs[Q - 1];  // padded rows add 0
+  const long long at = cs_at(b, h, c, p.nh, nc, Q);
+  for (int r = threadIdx.x; r < Q; r += 128) {
+    w[r] = dts[r] * expf(cs_last - cs[r]);
+    sc.cs[at + r] = cs[r];
+    sc.dt[at + r] = dts[r];
+  }
+  consumers_sync();
+
+  const int lane = threadIdx.x % 32, wr = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  float acc[2][32];
 #pragma unroll
-    for (int n = 0; n < SB; ++n)
+  for (int cb = 0; cb < 2; ++cb)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) st[n][e] *= dec;
-    for (int kk = 0; kk < Q / 16; ++kk) {
-      const int j0 = kk * 16;
-      uint32_t xa[4];  // x^T rows 16 wr .., keys j0 .. j0 + 15
-      ldsm_x4_t(xa, sX + (j0 + lane % 8 + (lane / 16) * 8) * LDX + wr * 16 +
-                        ((lane / 8) % 2) * 8);
-      // element pairs of xa[r] sit at keys j0 + 2t (+1), + 8 for r >= 2
-      uint32_t hi[4], lo[4];
+    for (int i = 0; i < 32; ++i) acc[cb][i] = 0.f;
+  // this lane's ldmatrix row within a 16-key step, and its 16-byte chunk
+  // of the 64-wide x row (rows 16 wr .. of x^T, the A operand)
+  const int lrow = lane % 8 + (lane / 16) * 8;
+  const int lchunk = 2 * wr + (lane / 8) % 2;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt % P1_STAGES;
+    const uint32_t slot = base + st * 3 * BOX;
+    mbar_wait(full(st), (kt / P1_STAGES) & 1);
+    uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const int j = ks * 16 + lrow;
+      uint32_t xa[4];
+      ldsm_x4_t(xa, slot + 2 * BOX + j * 128 + ((lchunk ^ (j & 7)) << 4));
+      // element pairs of xa[r] sit at keys 2t (+1), + 8 for r >= 2
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const int j = j0 + 2 * t + 8 * (r / 2);
+        const int jj = kt * WG_T + ks * 16 + 2 * t + 8 * (r / 2);
         const float2 v = unpack_bf16(xa[r]);
-        const float w0 = v.x * (dts[j] * seg[j]), w1 = v.y * (dts[j + 1] * seg[j + 1]);
-        hi[r] = pack_bf16(w0, w1);
-        const float2 hv = unpack_bf16(hi[r]);
-        lo[r] = pack_bf16(w0 - hv.x, w1 - hv.y);
+        const float w0 = v.x * w[jj], w1 = v.y * w[jj + 1];
+        hi[ks][r] = pack_bf16(w0, w1);
+        const float2 hv = unpack_bf16(hi[ks][r]);
+        lo[ks][r] = pack_bf16(w0 - hv.x, w1 - hv.y);
       }
+    }
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    wgmma_fence();
 #pragma unroll
-      for (int n2 = 0; n2 < SB / 2; ++n2) {
-        uint32_t bf[4];
-        ldsm_x4_t(bf, sB + (j0 + lane % 8 + ((lane / 8) % 2) * 8) * LDC + c0 + n2 * 16 +
-                          (lane / 16) * 8);
-        mma_bf16(st[2 * n2], hi, bf[0], bf[1]);
-        mma_bf16(st[2 * n2 + 1], hi, bf[2], bf[3]);
-        mma_bf16(st[2 * n2], lo, bf[0], bf[1]);
-        mma_bf16(st[2 * n2 + 1], lo, bf[2], bf[3]);
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int cb = 0; cb < 2; ++cb) {
+        wgmma_n64_rs(acc[cb], hi[ks], mnmajor_desc(slot + cb * BOX, ks));
+        wgmma_n64_rs(acc[cb], lo[ks], mnmajor_desc(slot + cb * BOX, ks));
       }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      fence_regs(hi[ks]);
+      fence_regs(lo[ks]);
+    }
+    mbar_arrive(empty(st));
+  }
+
+  // element 4 nb + e of box cb: state row 16 wr + g + 8 (e / 2), column
+  // 64 cb + 8 nb + 2 t + e % 2
+  float* out = sc.states + state_at(b, c, h, p.nh, nc);
+#pragma unroll
+  for (int cb = 0; cb < 2; ++cb)
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<float2*>(out + (16 * wr + g + 8 * r) * WG_N + 64 * cb + 8 * nb + 2 * t) =
+            make_float2(acc[cb][4 * nb + 2 * r], acc[cb][4 * nb + 2 * r + 1]);
+}
+
+// ---- phase 2: the states entering each chunk, and the final state
+__global__ void __launch_bounds__(P2_THREADS)
+    ssd_state_passing(const __grid_constant__ Params p, Scratch sc, int nc) {
+  grid_dependency_wait();  // phase 1's states and cs
+  constexpr int E = WG_HD * WG_N;
+  const int e = (blockIdx.x * P2_THREADS + threadIdx.x) * 4;
+  const int b = blockIdx.y / p.nh, h = blockIdx.y % p.nh;
+  const long long bh = (long long)blockIdx.y * E;
+  float4 s = p.s0 != nullptr ? *reinterpret_cast<const float4*>(p.s0 + bh + e)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c = 0; c < nc; ++c) {
+    const long long at = state_at(b, c, h, p.nh, nc) + e;
+    if (c > 0 || p.s0 != nullptr) {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(s.x, s.y), hi = __floats2bfloat162_rn(s.z, s.w);
+      uint2 v;
+      v.x = *reinterpret_cast<const uint32_t*>(&lo);
+      v.y = *reinterpret_cast<const uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(sc.senter + at) = v;
+    }
+    const float dec = expf(sc.cs[cs_at(b, h, c, p.nh, nc, p.chunk) + p.chunk - 1]);
+    const float4 d = *reinterpret_cast<const float4*>(sc.states + at);
+    s = make_float4(fmaf(s.x, dec, d.x), fmaf(s.y, dec, d.y), fmaf(s.z, dec, d.z),
+                    fmaf(s.w, dec, d.w));
+  }
+  *reinterpret_cast<float4*>(p.sfin + bh + e) = s;
+}
+
+// ---- phase 3: y for one 64-row query tile of one chunk, SCAN_G heads
+__global__ void __launch_bounds__(P3_THREADS, 2)
+    ssd_chunk_outputs(const __grid_constant__ Params p, const __grid_constant__ CUtensorMap tx,
+                      const __grid_constant__ CUtensorMap tb,
+                      const __grid_constant__ CUtensorMap tc,
+                      const __grid_constant__ CUtensorMap ts,
+                      const __grid_constant__ CUtensorMap ty, Scratch sc) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const int Q = p.chunk, nq = Q / WG_T;
+  float* cs2 = reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)) + P3_FLOATS);
+  float* dts = cs2 + SCAN_G * Q;
+  const int nc = (p.seqlen + Q - 1) / Q, nhg = (p.nh + SCAN_G - 1) / SCAN_G;
+  // heavy first: blockIdx.y = 0 takes the last query tile, which has the
+  // most key tiles, so the longest CTAs start in the first wave
+  const int qt = nq - 1 - blockIdx.y;
+  const int hg = blockIdx.x % nhg, c = (blockIdx.x / nhg) % nc, b = blockIdx.x / (nhg * nc);
+  const int h0 = hg * SCAN_G, ng = min(SCAN_G, p.nh - h0);
+  const int t0 = c * Q, rows = min(Q, p.seqlen - t0), i0 = qt * WG_T;
+  if (i0 >= rows) return;  // a query tile wholly past the sequence end
+  const bool carry = c > 0 || p.s0 != nullptr;  // a state enters this chunk
+  const uint32_t c_bar = base + P3_BAR;
+  auto wide_full = [&](int st) { return base + P3_BAR + 8 * (1 + st); };
+  auto wide_empty = [&](int st) { return base + P3_BAR + 8 * (1 + P3_WIDE + st); };
+  auto narrow_full = [&](int st) { return base + P3_BAR + 8 * (1 + 2 * P3_WIDE + st); };
+  auto narrow_empty = [&](int st) {
+    return base + P3_BAR + 8 * (1 + 2 * P3_WIDE + P3_NARROW + st);
+  };
+  auto wide = [&](int st) { return base + P3_WIDE_OFF + st * 2 * BOX; };
+  auto narrow = [&](int st) { return base + P3_NARROW_OFF + st * BOX; };
+
+  if (threadIdx.x == 0) {
+    mbar_init(c_bar, 1);
+    for (int st = 0; st < P3_WIDE; ++st) {
+      mbar_init(wide_full(st), 1);
+      mbar_init(wide_empty(st), 128);
+    }
+    for (int st = 0; st < P3_NARROW; ++st) {
+      mbar_init(narrow_full(st), 1);
+      mbar_init(narrow_empty(st), 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // ------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 128) {
+      prefetch_map(tx);
+      prefetch_map(tb);
+      prefetch_map(tc);
+      prefetch_map(ts);
+      mbar_expect_tx(c_bar, 2 * BOX);
+      tma_load3(base, tc, 0, t0 + i0, b, c_bar);
+      tma_load3(base + BOX, tc, 64, t0 + i0, b, c_bar);
+      grid_dependency_wait();  // the entering states of phase 2
+      int wi = 0, ni = 0;  // loads issued into each ring
+      if (carry)
+        for (int hh = 0; hh < ng; ++hh, ++wi) {
+          const int st = wi % P3_WIDE, h = h0 + hh;
+          mbar_wait(wide_empty(st), ((wi / P3_WIDE) & 1) ^ 1);
+          mbar_expect_tx(wide_full(st), 2 * BOX);
+          tma_load4(wide(st), ts, 0, 0, h, b * nc + c, wide_full(st));
+          tma_load4(wide(st) + BOX, ts, 64, 0, h, b * nc + c, wide_full(st));
+        }
+      for (int kt = 0; kt <= qt; ++kt) {
+        const int row = t0 + kt * WG_T;
+        {
+          const int st = wi % P3_WIDE;
+          mbar_wait(wide_empty(st), ((wi / P3_WIDE) & 1) ^ 1);
+          mbar_expect_tx(wide_full(st), 2 * BOX);
+          tma_load3(wide(st), tb, 0, row, b, wide_full(st));
+          tma_load3(wide(st) + BOX, tb, 64, row, b, wide_full(st));
+          ++wi;
+        }
+        for (int hh = 0; hh < ng; ++hh, ++ni) {
+          const int st = ni % P3_NARROW;
+          mbar_wait(narrow_empty(st), ((ni / P3_NARROW) & 1) ^ 1);
+          mbar_expect_tx(narrow_full(st), BOX);
+          tma_load4(narrow(st), tx, 0, row, h0 + hh, b, narrow_full(st));
+        }
+      }
+    }
+    return;
+  }
+
+  // --------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  grid_dependency_wait();  // cs and dt of phase 1, through phase 2
+  const int kend = (qt + 1) * WG_T;  // chunk rows this tile reads
+  for (int e = threadIdx.x; e < ng * kend; e += 128) {
+    const int hh = e / kend, r = e % kend, h = h0 + hh;
+    const long long at = cs_at(b, h, c, p.nh, nc, Q) + r;
+    cs2[hh * Q + r] = sc.cs[at] * LOG2E;
+    dts[hh * Q + r] = sc.dt[at];
+  }
+  consumers_sync();
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int lr0 = 16 * warp + g;  // this thread's tile rows: lr0, lr0 + 8
+  float y[SCAN_G][32];
+#pragma unroll
+  for (int hh = 0; hh < SCAN_G; ++hh)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) y[hh][i] = 0.f;
+  mbar_wait(c_bar, 0);
+  int wi = 0, ni = 0;  // loads consumed from each ring
+
+  // inter-chunk part first: y_h = exp(cs_i) C_i . S_enter_h^T
+  if (carry) {
+#pragma unroll
+    for (int hh = 0; hh < SCAN_G; ++hh) {
+      if (hh >= ng) continue;
+      const int st = wi % P3_WIDE;
+      mbar_wait(wide_full(st), (wi / P3_WIDE) & 1);
+      fence_regs(y[hh]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WG_N / 16; ++kk)
+        wgmma_n64_ss(y[hh], kmajor_desc(base, kk), kmajor_desc(wide(st), kk), 1);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(y[hh]);
+      mbar_arrive(wide_empty(st));
+      ++wi;
+      const float e0 = exp2f(cs2[hh * Q + i0 + lr0]), e1 = exp2f(cs2[hh * Q + i0 + lr0 + 8]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) y[hh][i] *= (i % 4) / 2 ? e1 : e0;
     }
   }
 
+  // intra-chunk part over the key tiles at or below the diagonal
+  for (int kt = 0; kt <= qt; ++kt) {
+    float cb[32];
+    {
+      const int st = wi % P3_WIDE;
+      mbar_wait(wide_full(st), (wi / P3_WIDE) & 1);
+      wgmma_fence();
 #pragma unroll
-  for (int n = 0; n < SB; ++n)
+      for (int kk = 0; kk < WG_N / 16; ++kk)
+        wgmma_n64_ss(cb, kmajor_desc(base, kk), kmajor_desc(wide(st), kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(cb);
+      mbar_arrive(wide_empty(st));
+      ++wi;
+    }
+    const bool diag = kt == qt;
 #pragma unroll
-    for (int e = 0; e < 4; e += 2)
-      *reinterpret_cast<float2*>(p.sfin + sbase + (wr * 16 + g + 8 * (e / 2)) * NS + c0 +
-                                 8 * n + 2 * t) = make_float2(st[n][e], st[n][e + 1]);
+    for (int hh = 0; hh < SCAN_G; ++hh) {
+      if (hh >= ng) continue;
+      const float* c2 = cs2 + hh * Q;
+      const float* d = dts + hh * Q + kt * WG_T;
+      const float* ck = c2 + kt * WG_T;
+      const float ci[2] = {c2[i0 + lr0], c2[i0 + lr0 + 8]};
+      // element 4 nb + e: tile row lr0 + 8 (e / 2), key 8 nb + 2 t + e % 2;
+      // the decay by selection, times dt_j, rounded to bf16 as the A operand
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        float m[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kc = 8 * nb + 2 * t + e % 2, lr = lr0 + 8 * (e / 2);
+          m[e] = (!diag || kc <= lr) ? cb[4 * nb + e] * fast_exp2(ci[e / 2] - ck[kc]) * d[kc]
+                                     : 0.f;
+        }
+        pa[nb / 2][2 * (nb % 2)] = pack_bf16(m[0], m[1]);
+        pa[nb / 2][2 * (nb % 2) + 1] = pack_bf16(m[2], m[3]);
+      }
+      const int st = ni % P3_NARROW;
+      mbar_wait(narrow_full(st), (ni / P3_NARROW) & 1);
+      fence_regs(y[hh]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WG_T / 16; ++kk) wgmma_n64_rs(y[hh], pa[kk], mnmajor_desc(narrow(st), kk));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(y[hh]);
+#pragma unroll
+      for (int kk = 0; kk < WG_T / 16; ++kk) fence_regs(pa[kk]);
+      mbar_arrive(narrow_empty(st));
+      ++ni;
+    }
+  }
+
+  // y in bf16: each head's tile staged in the rings, idle now, in the
+  // 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8), so the
+  // fragment writes hit 32 distinct banks), then one TMA store per head;
+  // rows past the sequence end are clipped by the tensor map
+  static_assert(SCAN_G * BOX <= P3_BAR - P3_WIDE_OFF, "y tiles fit the idle rings");
+#pragma unroll
+  for (int hh = 0; hh < SCAN_G; ++hh) {
+    if (hh >= ng) continue;
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint32_t at = base + P3_WIDE_OFF + hh * BOX + (lr0 + 8 * r) * 128 + ((nb ^ g) << 4) + 4 * t;
+        __nv_bfloat162 v = __floats2bfloat162_rn(y[hh][4 * nb + 2 * r], y[hh][4 * nb + 2 * r + 1]);
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at), "r"(*reinterpret_cast<uint32_t*>(&v))
+                     : "memory");
+      }
+  }
+  fence_async_smem();
+  consumers_sync();
+  if (threadIdx.x == 0) {
+    for (int hh = 0; hh < ng; ++hh)
+      tma_store4(ty, base + P3_WIDE_OFF + hh * BOX, 0, t0 + i0, h0 + hh, b);
+    tma_store_drain();
+  }
 }
 
 // ------------------------------------------------------------- launches
-// Above 48 KB of dynamic shared memory a kernel must opt in; each
-// instantiation raises its grant once to the largest size asked for.
+// Above 48 KB of dynamic shared memory a kernel must opt in; each kernel
+// raises its grant once to the largest size asked for.
 template <typename Kernel>
 cudaError_t grant_smem(Kernel kernel, size_t bytes, size_t& granted) {
   if (bytes <= granted) return cudaSuccess;
@@ -629,33 +978,8 @@ cudaError_t launch_simt(const Params& p, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int HD, int NS>
-cudaError_t launch_mma(const Params& p, int batch, cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes(p.chunk, HD, NS);
-  static size_t granted = 48 * 1024;
-  cudaError_t err = grant_smem(ssd_fwd_mma<HD, NS>, smem, granted);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(p.nh, batch);
-  ssd_fwd_mma<HD, NS><<<grid, MmaShape<HD, NS>::NW * 32, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-// The mma body's conditions: the widths it is compiled for, whole 64-row
-// tiles, its chunk in shared memory, and 16-byte aligned rows of x, B and
-// C (it copies them with 16-byte cp.async) and 4-byte aligned y pairs.
-bool mma_takes(const Params& p) {
-  if (p.hd != 64 || p.n != 128 || p.chunk % TT != 0) return false;
-  if (mma_smem_bytes(p.chunk, p.hd, p.n) > MAX_SMEM) return false;
-  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(p.x) | reinterpret_cast<uintptr_t>(p.bm) |
-                         reinterpret_cast<uintptr_t>(p.cm);
-  const long long strides = p.x_sb | p.x_ss | p.x_sh | p.b_sb | p.b_ss | p.c_sb | p.c_ss;
-  const long long y_strides = p.y_sb | p.y_ss | p.y_sh;
-  return ptrs % 16 == 0 && strides % 8 == 0 && reinterpret_cast<uintptr_t>(p.y) % 4 == 0 &&
-         y_strides % 2 == 0;
-}
-
 template <typename T>
-cudaError_t dispatch(const Params& p, int batch, cudaStream_t stream) {
+cudaError_t dispatch_simt(const Params& p, int batch, cudaStream_t stream) {
   if (p.hd <= 16) return launch_simt<T, 1>(p, batch, stream);
   if (p.hd <= 32) return launch_simt<T, 2>(p, batch, stream);
   if (p.hd <= 64) return launch_simt<T, 4>(p, batch, stream);
@@ -663,19 +987,135 @@ cudaError_t dispatch(const Params& p, int batch, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
+// Error codes above any cudaError_t: a failed tensor-map encode returns
+// ERR_TENSOR_MAP + its CUresult; a missing driver entry point ERR_ENTRY_POINT.
+constexpr int ERR_TENSOR_MAP = 100000;
+constexpr int ERR_ENTRY_POINT = 200000;
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime so the
+// library needs no link against libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+int encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* sym = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || sym == nullptr) return ERR_ENTRY_POINT;
+    cached = reinterpret_cast<EncodeTiled>(sym);
+  }
+  *fn = cached;
+  return 0;
+}
+
+// A bf16 tensor of `rank` (3 or 4) dims, innermost first, with element
+// strides for dims 1.. and a contiguous dim 0, as a tensor map read in
+// boxes of 64 columns x 64 rows with the 128-byte swizzle. The strides are
+// taken as they are: strided views are read without a copy.
+int encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int rank,
+               const long long* dims, const long long* strides) {
+  cuuint64_t d[4], s[3];
+  for (int i = 0; i < rank; ++i) d[i] = cuuint64_t(dims[i]);
+  for (int i = 0; i + 1 < rank; ++i) s[i] = cuuint64_t(strides[i]) * 2;
+  const cuuint32_t box[4] = {64, WG_T, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
+                              d, s, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP + static_cast<int>(res);
+}
+
+// The wgmma body's conditions: the widths it is compiled for, whole 64-row
+// tiles, its shared memory, and 16-byte aligned rows of x, B, C and y (TMA
+// boxes).
+bool wgmma_takes(const Params& p) {
+  if (p.hd != WG_HD || p.n != WG_N || p.chunk % WG_T != 0) return false;
+  if (p1_smem_bytes(p.chunk) > MAX_SMEM || p3_smem_bytes(p.chunk) > MAX_SMEM) return false;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(p.x) | reinterpret_cast<uintptr_t>(p.bm) |
+                         reinterpret_cast<uintptr_t>(p.cm);
+  const long long strides = p.x_sb | p.x_ss | p.x_sh | p.b_sb | p.b_ss | p.c_sb | p.c_ss;
+  const long long y_strides = p.y_sb | p.y_ss | p.y_sh;
+  return ptrs % 16 == 0 && strides % 8 == 0 && reinterpret_cast<uintptr_t>(p.y) % 16 == 0 &&
+         y_strides % 8 == 0;
+}
+
+int launch_wgmma(const Params& p, const Scratch& sc, int batch, cudaStream_t stream) {
+  if (!wgmma_takes(p) || !sc.cs || !sc.dt || !sc.states || !sc.senter)
+    return cudaErrorInvalidValue;
+  EncodeTiled encode;
+  int rc = encode_tiled(&encode);
+  if (rc != 0) return rc;
+  const int nc = (p.seqlen + p.chunk - 1) / p.chunk;
+  CUtensorMap tx, tb, tc, ts, ty;
+  {
+    const long long xd[4] = {WG_HD, p.seqlen, p.nh, batch}, xs[3] = {p.x_ss, p.x_sh, p.x_sb};
+    const long long bd[3] = {WG_N, p.seqlen, batch}, bs[2] = {p.b_ss, p.b_sb};
+    const long long cs[2] = {p.c_ss, p.c_sb}, ys[3] = {p.y_ss, p.y_sh, p.y_sb};
+    const long long sd[4] = {WG_N, WG_HD, p.nh, (long long)batch * nc};
+    const long long ss[3] = {WG_N, WG_HD * WG_N, (long long)p.nh * WG_HD * WG_N};
+    if ((rc = encode_map(encode, &tx, p.x, 4, xd, xs)) ||
+        (rc = encode_map(encode, &tb, p.bm, 3, bd, bs)) ||
+        (rc = encode_map(encode, &tc, p.cm, 3, bd, cs)) ||
+        (rc = encode_map(encode, &ts, sc.senter, 4, sd, ss)) ||
+        (rc = encode_map(encode, &ty, p.y, 4, xd, ys)))
+      return rc;
+  }
+  const size_t smem1 = p1_smem_bytes(p.chunk), smem3 = p3_smem_bytes(p.chunk);
+  static size_t granted1 = 48 * 1024, granted3 = 48 * 1024;
+  cudaError_t err = grant_smem(ssd_chunk_states, smem1, granted1);
+  if (err == cudaSuccess) err = grant_smem(ssd_chunk_outputs, smem3, granted3);
+  if (err != cudaSuccess) return err;
+
+  ssd_chunk_states<<<dim3(p.nh, nc, batch), P1_THREADS, smem1, stream>>>(p, tx, tb, sc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // phases 2 and 3 by programmatic dependent launch: each may be scheduled
+  // while the kernel before it drains, and waits for it in the kernel
+  cudaLaunchAttribute pdl;
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = PDL;
+  cudaLaunchConfig_t cfg = {};
+  cfg.stream = stream;
+  cfg.attrs = &pdl;
+  cfg.numAttrs = 1;
+  const int e4 = WG_HD * WG_N / 4;
+  cfg.gridDim = dim3((e4 + P2_THREADS - 1) / P2_THREADS, batch * p.nh);
+  cfg.blockDim = dim3(P2_THREADS);
+  cfg.dynamicSmemBytes = 0;
+  if ((err = cudaLaunchKernelEx(&cfg, ssd_state_passing, p, sc, nc)) != cudaSuccess) return err;
+  const int nhg = (p.nh + SCAN_G - 1) / SCAN_G;
+  cfg.gridDim = dim3(batch * nc * nhg, p.chunk / WG_T);
+  cfg.blockDim = dim3(P3_THREADS);
+  cfg.dynamicSmemBytes = smem3;
+  return cudaLaunchKernelEx(&cfg, ssd_chunk_outputs, p, tx, tb, tc, ts, ty, sc);
+}
+
 }  // namespace
 
-// dtype (of x, B, C and y): 0 float32, 1 bfloat16. dt, A, the initial
-// state s0 (may be null) and the final state are float32; s0 and sfin are
-// contiguous (B, NH, hd, N). Strides are in elements; the last axis of x,
-// B, C and y is contiguous. Returns cudaGetLastError() after the launch
-// (0 on success).
+// The body is chosen by the caller (ssd_scan.py::body_for): 0 simt
+// (float32 or bfloat16, hd <= 128, any N and chunk whose tiles fit), 1 wgmma
+// (bfloat16, hd 64, N 128, chunk a multiple of 64, rows 16-byte aligned;
+// needs the scratch cs and dtc (B, NH, NC, chunk) float32, states (B, NC,
+// NH, hd, N) float32 and senter (B, NC, NH, hd, N) bf16). A body asked for a case it
+// does not take returns cudaErrorInvalidValue; nothing here picks another
+// body. dtype (of x, B, C and y): 0 float32, 1 bfloat16. dt, A, the
+// initial state s0 (may be null) and the final state are float32; s0 and
+// sfin are contiguous (B, NH, hd, N). Strides are in elements; the last
+// axis of x, B, C and y is contiguous. Returns 0 on success, else a code
+// for repro_cuda_error_string.
 extern "C" int repro_ssd_scan_fwd(
     const void* x, const void* dt, const void* A, const void* bm, const void* cm,
-    const void* s0, void* y, void* sfin, int dtype, int device, int batch,
-    int seqlen, int nh, int hd, int n, int chunk, long long x_sb, long long x_ss,
-    long long x_sh, long long dt_sb, long long dt_ss, long long dt_sh,
-    long long b_sb, long long b_ss, long long c_sb, long long c_ss,
+    const void* s0, void* y, void* sfin, void* cs, void* dtc, void* states, void* senter,
+    int dtype,
+    int body, int device, int batch, int seqlen, int nh, int hd, int n, int chunk,
+    long long x_sb, long long x_ss, long long x_sh, long long dt_sb, long long dt_ss,
+    long long dt_sh, long long b_sb, long long b_ss, long long c_sb, long long c_ss,
     long long y_sb, long long y_ss, long long y_sh, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -687,14 +1127,30 @@ extern "C" int repro_ssd_scan_fwd(
            x_sb,  x_ss, x_sh, dt_sb, dt_ss, dt_sh,
            b_sb,  b_ss, c_sb, c_ss,  y_sb,  y_ss, y_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(p, batch, s);
-  if (dtype == 1) {
-    if (mma_takes(p)) return launch_mma<64, 128>(p, batch, s);
-    return dispatch<__nv_bfloat16>(p, batch, s);
+  switch (body) {
+    case 0:
+      if (dtype == 0) return dispatch_simt<float>(p, batch, s);
+      if (dtype == 1) return dispatch_simt<__nv_bfloat16>(p, batch, s);
+      return cudaErrorInvalidValue;
+    case 1:
+      if (dtype != 1) return cudaErrorInvalidValue;
+      return launch_wgmma(p,
+                          Scratch{static_cast<float*>(cs), static_cast<float*>(dtc),
+                                  static_cast<float*>(states),
+                                  static_cast<__nv_bfloat16*>(senter)},
+                          batch, s);
+    default:
+      return cudaErrorInvalidValue;
   }
-  return cudaErrorInvalidValue;
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {
+  static thread_local char msg[96];
+  if (err >= ERR_ENTRY_POINT) return "cuTensorMapEncodeTiled not found in the CUDA driver";
+  if (err >= ERR_TENSOR_MAP) {
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed (CUresult %d)",
+             err - ERR_TENSOR_MAP);
+    return msg;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

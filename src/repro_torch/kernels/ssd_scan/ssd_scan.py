@@ -2,25 +2,38 @@
 CUDA kernel ``csrc/ssd_scan.cu``.
 
 Replaces the Pallas TPU kernel ``repro/kernels/ssd_scan/ssd_scan.py::
-_ssd_kernel`` (entry ``ssd_pallas``): per (batch, head), the chunks of the
-sequence in order, with the intra-chunk dual form (C·Bᵀ ⊙ L)·(dt ⊙ x), the
-inter-chunk term exp(cs) ⊙ C·Sᵀ, and the (hd × N) float32 state S carried
-from chunk to chunk; ngroups = 1, an optional initial state, the ragged
-tail masked.
+_ssd_kernel`` (entry ``ssd_pallas``): per (batch, head), the intra-chunk
+dual form (C·Bᵀ ⊙ L)·(dt ⊙ x), the inter-chunk term exp(cs) ⊙ C·Sᵀ, and
+the (hd × N) float32 state S carried from chunk to chunk; ngroups = 1, an
+optional initial state, the ragged tail masked.
 
 What bounds it on the card: at the serving shape (B=4, S=512, NH=80,
 hd=64, N=128, chunk 256, bf16) the least time is the memory side, about
-54 MB at 3.35 TB/s; the causal half of the intra-chunk products at the
-bf16 tensor-core rate takes less. The kernel runs one block per (batch,
-head) that walks the chunks in order carrying the state, cut into 64-row
-query and key tiles so that a block fits in 227 KB; key tiles above the
-diagonal are skipped. In bf16 at the Mamba2 widths (hd 64, N 128) the
-products run on the tensor cores (``mma.sync``), the state in float32
-registers; the decayed scores are rounded to bf16 as the A operand of
-their product with x (as the flash kernel rounds P), and the weighted x
-of the state update is split into a bf16 high and low part, so the
-carried state keeps float32-like accuracy. Every other case runs float32
-FMAs on the CUDA cores. Both run well above that roofline (see PERF.md).
+54 MB at 3.35 TB/s = 16 µs; the causal half of the intra-chunk products at
+the bf16 tensor-core rate takes less. The kernel has two bodies, and
+:func:`body_for` names the one a call takes; the C entry launches exactly
+that one or fails:
+
+* ``"wgmma"`` — bf16 at the Mamba2 widths (hd 64, N 128), chunk a multiple
+  of 64, rows 16-byte aligned (the serving path): the SSD algorithm's
+  chunk-parallel split, three kernels in one call. (1) Chunk states in
+  parallel over (batch, chunk, head): cs and each chunk's end state from
+  zero on ``wgmma``, the weighted x split into a bf16 high and low part so
+  the float32 state keeps float32-like accuracy. (2) State passing, the
+  float32 recurrence over chunks of :func:`~repro_torch.kernels.ssd_scan.
+  ref.ssd_state_passing_ref`, writing each entering state in bf16 and the
+  final state. (3) Outputs in parallel over (batch, chunk, 64-row query
+  tile) × a group of four heads: C·Bᵀ formed once per CTA and reused by
+  every head of the group, the decay (by selection), dt and the bf16
+  rounding applied in registers (as the flash kernel rounds P), then the
+  products with x and, where a state enters, exp(cs)·C·S_enterᵀ, on
+  ``wgmma``, with tiles brought by TMA into shared-memory rings and y
+  written by TMA. The scratch (cs and dt per chunk, the chunk states, the
+  entering states) is allocated here with ``torch.empty``. About 4× its
+  bound at the serving shape; see PERF.md.
+* ``"simt"`` — every other case (float32, other widths, unaligned views):
+  one block per (batch, head) walks the chunks in order carrying S,
+  float32 FMAs on the CUDA cores.
 
 x, B and C are read through their strides, so the model's views of the
 convolution output go in without a copy (only a last axis that is not
@@ -31,7 +44,7 @@ contiguous is copied). The kernel takes x, B and C in float32 or bfloat16
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -40,26 +53,65 @@ from repro_torch.kernels.ssd_scan.ref import ssd_ref
 
 NAME = "ssd_scan"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+BODIES = ("simt", "wgmma")  # the C entry's body codes 0, 1
 MAX_HEAD_DIM = 128
 MAX_SMEM_BYTES = 232_448  # what one Hopper block may use
 _TILE = 64  # rows per query / key tile, fixed by the compiled kernel
+WGMMA_WIDTHS = (64, 128)  # (hd, N) the wgmma body is compiled for
+# the wgmma body's shared memory (mirrors ssd_scan.cu): 64 x 64 bf16 boxes
+# of 8 KB; phase 1 a ring of 2 (B, x) stages, phase 3 C, 2 wide (16 KB) and
+# 4 narrow (8 KB) slots and cs, dt of SCAN_G = 4 heads; + 1024 to align
+_BOX = 8192
+_P1_FIXED = 1024 + 2 * 3 * _BOX + 16 * 2
+_P3_FIXED = 1024 + (2 + 2 * 2 + 4) * _BOX + 8 * (1 + 2 * 2 + 2 * 4)
+_SCAN_G = 4
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 8  # x, dt, A, B, C, s0, y, sfin
-    + [ctypes.c_int] * 8  # dtype, device, B, S, NH, hd, N, chunk
+    [ctypes.c_void_p] * 12  # x, dt, A, B, C, s0, y, sfin; scratch cs, dt, states, senter
+    + [ctypes.c_int] * 9  # dtype, body, device, B, S, NH, hd, N, chunk
     + [ctypes.c_longlong] * 13  # strides of x, dt, B, C, y
     + [ctypes.c_void_p]  # stream
 )
 
 
-def smem_bytes(chunk: int, hd: int, n: int) -> int:
-    """Shared memory one block asks for (mirrors ``smem_floats`` in the
-    CUDA source): cs, dt and seg over the chunk padded to the tile, the C
-    and B tiles, the dt·x tile, the score tile and the state."""
+def smem_bytes(chunk: int, hd: int, n: int, body: str = "simt") -> int:
+    """Shared memory one block of ``body`` asks for (mirrors the CUDA
+    source). ``"simt"`` (``smem_floats``): cs, dt and seg over the chunk
+    padded to the tile, the C and B tiles, the dt·x tile, the score tile
+    and the state. ``"wgmma"``: the larger of its chunk-states kernel (a
+    ring of two B and x tiles, then dt, cs and the weights over the chunk)
+    and its outputs kernel (C, the rings of entering states or B tiles and
+    of x tiles, then cs and dt of a group of heads over the chunk)."""
+    if body == "wgmma":
+        return max(_P1_FIXED + 12 * chunk, _P3_FIXED + 8 * _SCAN_G * chunk)
     qp = -(-chunk // _TILE) * _TILE
     hdp = 16 * next(c for c in (1, 2, 4, 8) if 16 * c >= hd)
     floats = 3 * qp + 2 * _TILE * (n + 1) + _TILE * hdp + _TILE * (_TILE + 1) + hdp * (n + 1)
     return 4 * floats
+
+
+def body_for(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, chunk: int) -> str:
+    """The body of the kernel that a call takes: ``"wgmma"`` for bf16 x, B
+    and C with (hd, N) == :data:`WGMMA_WIDTHS` and a chunk that is a
+    multiple of 64 whose tiles fit in shared memory, only where every base
+    pointer is 16-byte aligned and every stride is a positive multiple of
+    8 elements with the last axis contiguous (TMA boxes); ``"simt"``
+    otherwise. A function of shapes, dtypes and strides alone, so the CPU
+    tests can ask it too."""
+    if (x.dtype != torch.bfloat16 or (x.shape[-1], Bm.shape[-1]) != WGMMA_WIDTHS
+            or chunk % _TILE or smem_bytes(chunk, *WGMMA_WIDTHS, "wgmma") > MAX_SMEM_BYTES):
+        return "simt"
+    aligned = all(
+        t.data_ptr() % 16 == 0 and t.stride(-1) == 1
+        and all(st > 0 and st % 8 == 0 for st in t.stride()[:-1])
+        for t in (x, Bm, Cm)
+    )
+    return "wgmma" if aligned else "simt"
+
+
+def body_launches() -> Dict[str, int]:
+    """Launches of each body since the last ``runtime.reset_launch_counts``."""
+    return runtime.body_launch_counts(NAME, BODIES)
 
 
 def _entry():
@@ -89,9 +141,11 @@ def _check(x, dt, A, Bm, Cm, chunk, initial_state) -> None:
     if s < 1 or chunk < 1 or n < 1 or not 1 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"S={s}, chunk={chunk}, N={n}, hd={hd} not taken by the kernel "
                          f"(each >= 1, hd <= {MAX_HEAD_DIM})")
-    if smem_bytes(chunk, hd, n) > MAX_SMEM_BYTES:
-        raise ValueError(f"chunk={chunk}, hd={hd}, N={n} need {smem_bytes(chunk, hd, n)} "
-                         f"bytes of shared memory per block, more than {MAX_SMEM_BYTES}")
+    body = body_for(x, Bm, Cm, chunk)
+    need = smem_bytes(chunk, hd, n, body)
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(f"chunk={chunk}, hd={hd}, N={n} need {need} bytes of shared memory "
+                         f"per block of the {body} body, more than {MAX_SMEM_BYTES}")
 
 
 def ssd_scan(
@@ -105,28 +159,40 @@ def ssd_scan(
     initial_state: Optional[torch.Tensor] = None,  # (B, NH, hd, N)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns y (B, S, NH, hd) in ``x.dtype`` and the final state
-    (B, NH, hd, N) in float32. CUDA tensors launch the kernel; CPU tensors
-    take ``ssd_ref``."""
+    (B, NH, hd, N) in float32. CUDA tensors launch the kernel's body that
+    :func:`body_for` names; CPU tensors take ``ssd_ref``."""
     _check(x, dt, A, Bm, Cm, chunk, initial_state)
     extra = () if initial_state is None else (initial_state,)
     if not runtime.on_card(x, dt, A, Bm, Cm, *extra):
         return ssd_ref(x, dt, A, Bm, Cm, chunk, initial_state)
     x, Bm, Cm = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, Bm, Cm))
+    body = body_for(x, Bm, Cm, chunk)
     A = A.contiguous()
     s0 = None if initial_state is None else initial_state.float().contiguous()
     b, s, nh, hd = x.shape
     n = Bm.shape[-1]
-    y = torch.empty((b, s, nh, hd), dtype=x.dtype, device=x.device)
-    sfin = torch.empty((b, nh, hd, n), dtype=torch.float32, device=x.device)
+    dev = x.device
+    y = torch.empty((b, s, nh, hd), dtype=x.dtype, device=dev)
+    sfin = torch.empty((b, nh, hd, n), dtype=torch.float32, device=dev)
+    scratch = (None,) * 4  # kept alive until the launch is enqueued
+    if body == "wgmma":  # cs and dt per chunk, the chunk and entering states
+        nc = -(-s // chunk)
+        scratch = (
+            torch.empty((b, nh, nc, chunk), dtype=torch.float32, device=dev),
+            torch.empty((b, nh, nc, chunk), dtype=torch.float32, device=dev),
+            torch.empty((b, nc, nh, hd, n), dtype=torch.float32, device=dev),
+            torch.empty((b, nc, nh, hd, n), dtype=torch.bfloat16, device=dev),
+        )
     lib, fn = _entry()
-    runtime.count_launch(NAME)
+    runtime.count_launch(NAME, body)
     rc = fn(
         runtime.ptr(x), runtime.ptr(dt), runtime.ptr(A), runtime.ptr(Bm), runtime.ptr(Cm),
         None if s0 is None else runtime.ptr(s0), runtime.ptr(y), runtime.ptr(sfin),
-        _DTYPE_CODE[x.dtype], x.device.index, b, s, nh, hd, n, chunk,
+        *(None if t is None else runtime.ptr(t) for t in scratch),
+        _DTYPE_CODE[x.dtype], BODIES.index(body), dev.index, b, s, nh, hd, n, chunk,
         x.stride(0), x.stride(1), x.stride(2), *dt.stride(),
         Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1), *y.stride()[:3],
-        runtime.stream_handle(x.device),
+        runtime.stream_handle(dev),
     )
-    runtime.check(lib, rc, "ssd_scan")
+    runtime.check(lib, rc, f"ssd_scan ({body} body)")
     return y, sfin

@@ -92,6 +92,50 @@ def test_grouped_wrapper_matches_jax_layout(window):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_rows_that_see_no_key_match_jax(causal):
+    """Window 16 with Sq > Sk + window: rows at or past Sk - 1 + window see
+    no key, and the reference softmaxes their row of -1e30 into the mean of
+    V over the Sk keys. The port's plain path (and, on the card, every
+    body through the wrapper) gives the same rows."""
+    from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
+    from repro_torch.kernels.flash_attention.flash_attention import first_blind_row
+
+    rng = np.random.default_rng(11)
+    b, hq, hkv, sq, sk, d, window = 2, 4, 2, 48, 20, 32, 16
+    q, k, v = (rng.normal(size=shape).astype(np.float32)
+               for shape in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+    ref = np.asarray(jax_attention_ref(*(jnp.asarray(a) for a in (q, k, v)), causal=causal,
+                                       window=window))
+    blind = first_blind_row(sk, window)
+    assert blind == sk - 1 + window < sq
+    mean = v.mean(axis=2).repeat(hq // hkv, axis=1)[:, :, None]
+    np.testing.assert_allclose(ref[:, :, blind:], np.broadcast_to(mean, ref[:, :, blind:].shape),
+                               atol=2e-5)
+    out = flash_attention_bhsd(*(torch.from_numpy(a) for a in (q, k, v)), causal=causal,
+                               window=window)
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-5)
+
+
+def test_first_blind_row_is_where_the_window_leaves_every_key():
+    from repro_torch.kernels.flash_attention.flash_attention import first_blind_row
+    from repro_torch.kernels.flash_attention.ref import attention_ref as plain
+
+    assert first_blind_row(100, None) > 10**9
+    for sk, window in ((20, 16), (1, 1), (64, 3)):
+        sq = sk + window + 5
+        q = torch.zeros((1, 1, sq, 4))
+        k = torch.zeros((1, 1, sk, 4))
+        v = torch.arange(sk, dtype=torch.float32).reshape(1, 1, sk, 1).expand(1, 1, sk, 4)
+        for causal in (False, True):
+            out = plain(q, k, v.contiguous(), causal=causal, window=window)[0, 0, :, 0]
+            # a row that sees keys averages a window ending at min(q, Sk - 1);
+            # the first blind row and every later one average all Sk keys
+            blind = first_blind_row(sk, window)
+            assert torch.allclose(out[blind:], torch.full((sq - blind,), (sk - 1) / 2))
+            assert out[blind - 1].item() == sk - 1
+
+
 def test_cpu_path_launches_nothing():
     runtime.reset_launch_counts()
     q, k, v = (torch.from_numpy(a) for a in _inputs(0, 1, 2, 1, 16, 16, 16))

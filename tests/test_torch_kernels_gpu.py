@@ -43,7 +43,10 @@ from repro_torch.kernels.dcov import (
     dcov_gram_windows,
     dcov_gram_windows_ref,
 )
+from repro_torch.kernels.flash_attention.flash_attention import first_blind_row
 from repro_torch.kernels.ssd_scan import ssd_ref, ssd_scan
+from repro_torch.kernels.ssd_scan.ssd_scan import body_for as ssd_body_for
+from repro_torch.kernels.ssd_scan.ssd_scan import body_launches as ssd_body_launches
 
 SWEEP = [
     (1, 2, 2, 64, 32, 32, True, None),
@@ -138,6 +141,32 @@ def test_models_strided_views_through_the_wgmma_body(cuda, monkeypatch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d,dtype", [(128, torch.bfloat16), (64, torch.bfloat16),
+                                     (32, torch.bfloat16), (32, torch.float32)])
+def test_flash_rows_that_see_no_key(cuda, d, dtype):
+    """Bidirectional, window 16, Sq > Sk + window: query rows at or past
+    Sk - 1 + window see no key, and every body gives them attention_ref's
+    answer, the mean of V over the Sk keys."""
+    rng = np.random.default_rng(5)
+    b, hq, hkv, sq, sk, window = 2, 4, 2, 200, 120, 16
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda, dtype)
+               for shape in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+    body = body_for(q, k, v, window)
+    before = body_launches()[body]
+    out = flash_attention_bhsd(q, k, v, causal=False, window=window)
+    torch.cuda.synchronize()
+    assert body_launches()[body] == before + 1
+    ref = attention_ref(q, k, v, causal=False, window=window)
+    blind = first_blind_row(sk, window)
+    assert 0 < blind < sq
+    atol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+    mean = v.float().mean(dim=2).repeat_interleave(hq // hkv, dim=1)
+    torch.testing.assert_close(out[:, :, blind:].float(),
+                               mean[:, :, None].expand(-1, -1, sq - blind, -1), atol=atol, rtol=0)
+
+
+@pytest.mark.gpu
 def test_unaligned_views_take_the_general_body(cuda):
     """Rows not 16-byte aligned (a view one element in) still compute."""
     rng = np.random.default_rng(1)
@@ -160,6 +189,8 @@ SSD_SWEEP = [
     (1, 300, 4, 64, 128, 256),  # two chunks, ragged, full-width head
     (2, 200, 3, 64, 128, 64),  # full-width head, chunk 64, ragged
     (4, 512, 80, 64, 128, 256),  # Mamba2-2.7B prefill
+    (1, 4096, 80, 64, 128, 256),  # 16 chunks at the full width: state passing
+    (2, 1000, 8, 64, 128, 64),  # chunk 64, ragged, 16 chunks
 ]
 
 
@@ -175,6 +206,19 @@ def _ssd_inputs(device, dtype, b, s, nh, hd, n, seed=0, state=False):
            t(rng.normal(size=(b, s, n))))
     s0 = t(rng.normal(size=(b, nh, hd, n)), torch.float32) if state else None
     return out, s0
+
+
+def _ssd_body(x, Bm, Cm, chunk):
+    """The body body_for names, which must be wgmma exactly where the
+    serving conditions hold (bf16, hd 64, N 128, chunk % 64 == 0,
+    16-byte aligned rows)."""
+    body = ssd_body_for(x, Bm, Cm, chunk)
+    aligned = all(t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:-1])
+                  for t in (x, Bm, Cm))
+    want = x.dtype == torch.bfloat16 and x.shape[-1] == 64 and Bm.shape[-1] == 128 \
+        and chunk % 64 == 0 and aligned
+    assert body == ("wgmma" if want else "simt")
+    return body
 
 
 def _ssd_close(y, st, y_ref, st_ref):
@@ -193,16 +237,19 @@ def _ssd_close(y, st, y_ref, st_ref):
 @pytest.mark.parametrize("state", [False, True])
 def test_ssd_kernel_matches_ref(cuda, b, s, nh, hd, n, chunk, dtype, state):
     (x, dt, A, Bm, Cm), s0 = _ssd_inputs(cuda, dtype, b, s, nh, hd, n, seed=s, state=state)
+    body = _ssd_body(x, Bm, Cm, chunk)
     before = runtime.launch_counts()["ssd_scan"]
+    before_body = ssd_body_launches()[body]
     y, st = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=s0)
     torch.cuda.synchronize()
     assert runtime.launch_counts()["ssd_scan"] == before + 1
+    assert ssd_body_launches()[body] == before_body + 1
     y_ref, st_ref = ssd_ref(x, dt, A, Bm, Cm, chunk, s0)
     _ssd_close(y, st, y_ref, st_ref)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("nh,hd,n,chunk", [(4, 16, 16, 16), (2, 64, 128, 256)])
+@pytest.mark.parametrize("nh,hd,n,chunk", [(4, 16, 16, 16), (2, 64, 128, 256), (80, 64, 128, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("offset", [0, 1])
 def test_ssd_kernel_takes_the_models_strided_views(cuda, nh, hd, n, chunk, dtype, offset):
@@ -220,9 +267,28 @@ def test_ssd_kernel_takes_the_models_strided_views(cuda, nh, hd, n, chunk, dtype
     assert not xh.is_contiguous() and not Bm.is_contiguous()
     dt = torch.from_numpy(rng.uniform(0.01, 0.2, (b, s, nh)).astype(np.float32)).to(cuda)
     A = torch.from_numpy(-rng.uniform(0.5, 2, (nh,)).astype(np.float32)).to(cuda)
+    body = _ssd_body(xh, Bm, Cm, chunk)
+    before = ssd_body_launches()[body]
     y, st = ssd_scan(xh, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_body_launches()[body] == before + 1
     y_ref, st_ref = ssd_ref(xh.contiguous(), dt, A, Bm.contiguous(), Cm.contiguous(), chunk)
     _ssd_close(y, st, y_ref, st_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(4, 512, 80, 64, 128, 256), (1, 4096, 80, 64, 128, 256)])
+def test_ssd_wgmma_body_is_deterministic(cuda, case):
+    """No float atomics and no order that depends on the schedule: two
+    launches on the same inputs give the same bits, y and final state."""
+    b, s, nh, hd, n, chunk = case
+    (x, dt, A, Bm, Cm), s0 = _ssd_inputs(cuda, torch.bfloat16, b, s, nh, hd, n, seed=6,
+                                         state=True)
+    assert ssd_body_for(x, Bm, Cm, chunk) == "wgmma"
+    y1, s1 = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=s0)
+    y2, s2 = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=s0)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
 
 
 @pytest.mark.gpu
