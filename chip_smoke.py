@@ -14,8 +14,9 @@ through ``dcov``). Phases, each of which exits non-zero on failure:
    every kernel built from its source in the checkout (one nvcc each,
    started together), with its build time and ptxas report, and the full
    ptxas report (registers, shared memory, spills, warnings) of the flash
-   kernel's wgmma body and of the SSD scan's three wgmma-body kernels (a
-   library built by an earlier run into build/ has no report to print).
+   kernel's wgmma body, of the SSD scan's three wgmma-body kernels and of
+   the dcov single-block form's two kernels at C = 7 and 8 (a library
+   built by an earlier run into build/ has no report to print).
 2. Kernel check: each kernel against its plain version on the card over
    the CPU tests' sweep and its main path's shape, then the kernel's, the
    plain version's and (where one exists) a library call's device times
@@ -36,9 +37,13 @@ through ``dcov``). Phases, each of which exits non-zero on failure:
    ``dcov_gram_windows_ref`` over B in {1, 3, 162, 1024}, W in {3, 10,
    64}, C in {2, 7, 8} with n_valid from {1, 2, 3, W-1, W}, constant
    columns and zero rows, and bitwise batch independence; its
-   single-block form against ``dcov_gram_ref`` over n up to 4099 (times
-   at the grid shape B=162, W=10, C=7 and at n=1600, C=7; no library call
-   computes the Gram).
+   single-block form against ``dcov_gram_ref`` over n up to 4099, and
+   against its float64 version (normalised Gram within 1e-6 at every
+   pair, dCor within 1e-4 where the float64 dCor is >= 1e-2) there and at
+   n=16384, C=8 (float64 in row blocks), two runs bitwise equal (times at
+   the grid shape B=162, W=10, C=7, with the windows kernel's own
+   duration from the profiler, at n=1600, C=7 and at n=16384, C=8; no
+   library call computes the Gram).
 3. Slice check, per model: (a) the reduced model in float32 on the card,
    through the kernel, against the same model on the CPU (plain path,
    which the CPU tests hold to the JAX package); (b) the model at full
@@ -58,7 +63,8 @@ through ``dcov``). Phases, each of which exits non-zero on failure:
    exactly, floats at rel 1e-12) and its summary; the same cells through
    the scalar spec, records identical (one launch per ``correlations()``
    call with n >= 3); dCor of each cell's noise-free landscape through the
-   single-block form, held to its plain version (54 launches).
+   single-block form, held to its plain version and to its float64
+   version as in phase 2 (54 launches).
 4. Serve (the serving paths): ``serve()`` at full width, 16 requests,
    prompt 512, 32 new tokens, batch 4, at concurrency 1, then 2, with
    launch counts reset just before and read just after each model's runs;
@@ -77,7 +83,11 @@ through ``dcov``). Phases, each of which exits non-zero on failure:
    share, and the heaviest kernels; every flash launch of the Qwen
    prefills there on the ``wgmma`` body, 36 per prefill, and every SSD
    launch of the Mamba2 prefills on its ``wgmma`` body, 64 per prefill,
-   with the device time of each of the SSD body's three kernels.
+   with the device time of each of the SSD body's three kernels; the
+   dcov single-block form at n=1600, C=7 and n=16384, C=8, with the
+   device time of each of its two kernels, from a profiled window that
+   holds every launch of both (redone up to PROFILE_TRIES times, else
+   reported as not measured).
 6. A ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
@@ -86,6 +96,7 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -141,6 +152,9 @@ ATOL = {"float32": 2e-5, "bfloat16": 3e-2}
 SPIN_CYCLES_PER_MS = 1_980_000  # >= 1 ms at the H100's top SM clock of 1.98 GHz
 SPIN_MS_MIN = 30.0  # the shortest spin ahead of a timed round
 SPIN_TRIES = 4  # rounds whose enqueue outran the spin, each redone with twice the spin
+PROFILE_LEAD = 32  # spin kernels ahead of a profiled window's calls (see profiled_kernels)
+PROFILE_PAUSE_S = 0.02  # host pause between the lead spins and a window's first call
+PROFILE_TRIES = 3  # profiled windows, at most, until one holds every launch it must
 PREFILL_REL_TOL = 5e-2  # full-width bf16 logits, relative to max |logit|
 SLICE_FP32_TOL = 1e-4  # reduced fp32 logits, card vs CPU
 OVERLAP_MIN = 1.3  # tau(c=2) / tau(c=1) when host and card take 10 ms each
@@ -158,6 +172,17 @@ DCOV_SCALES = (1500.0, 4.0, 800.0, 2000.0, 3.0, 50.0, 5.0, 1.0)
 DCOV_WINDOW_REL = 1e-6  # windows Gram, relative to each episode's max|G|
 DCOV_GRAM_REL = 1e-4  # single-block Gram, relative to max|G| (float32, n^2 terms)
 DCOV_DCOR_ATOL = 1e-3  # single-block dCor (sqrt of a ratio: 1e-6 near 0 is 1e-3)
+# the single-block form against a float64 plain version: the normalised Gram
+# <A_c,A_d> / sqrt(<A_c,A_c> <A_d,A_d>) (dCor^2 before the root) at every pair,
+# and dCor wherever the float64 dCor is at least DCOV_DCOR_FLOOR. Near an exact
+# zero dCor any float32 rounding of <A,B> shows under the square root (1e-8 in
+# dCor^2 is 1e-4 in dCor), so there only the normalised Gram is held.
+DCOV_NORM_ATOL = 1e-6
+DCOV_DCOR64_ATOL = 1e-4
+DCOV_DCOR_FLOOR = 1e-2
+DCOV_ZERO = 1e-6  # a float64 dCor below this is an exact-zero pair
+DCOV_LARGE = (16384, 8)  # timed beside DCOV_ORACLE; float64 plain version in row blocks
+DCOV_PASSES = ("dcov_rowsum_kernel", "dcov_gram_kernel")  # the single-block form's kernels
 MATRIX_RECORD = ROOT / "BENCH_matrix.json"  # the JAX package's committed static grid
 RECORD_REL = 1e-12  # floats of a cell record against the committed one
 
@@ -245,7 +270,9 @@ def phase_environment(torch):
             if "registers" in line or "spill" in line or "error" in line:
                 say(f"    {line.strip()}")
     for kernel, label, needles in (("flash_attention", "flash wgmma body", ("flash_fwd_wgmma",)),
-                                   ("ssd_scan", "ssd wgmma body", SSD_PHASES)):
+                                   ("ssd_scan", "ssd wgmma body", SSD_PHASES),
+                                   ("dcov", "dcov single-block form, C = 7 and 8",
+                                    tuple(f"{k}ILi{c}E" for c in (7, 8) for k in DCOV_PASSES))):
         if kernel not in log:  # built by an earlier run into build/
             say(f"  {label}: library built by an earlier run, no ptxas report")
             continue
@@ -531,6 +558,105 @@ def dcov_bound(nbytes, ops):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def dcov_block_inputs(torch, n_rows, c, seed):
+    """An (n, C) block at CORAL's column scales."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n_rows, c)) * np.asarray(DCOV_SCALES[:c]) + np.asarray(DCOV_SCALES[:c])
+    return torch.from_numpy(x.astype(np.float32)).cuda()
+
+
+def normalised_gram(torch, g, eps=1e-12):
+    """<A_c,A_d> / sqrt(<A_c,A_c> <A_d,A_d>) in float64 (0 where a column is
+    constant, as ``dcor_from_sums``): dCor^2 before the square root."""
+    g = g.to(torch.float64)
+    d = torch.diagonal(g).clamp_min(0.0).sqrt()
+    den = d[:, None] * d[None, :]
+    return torch.where(den < eps, 0.0, g / den.clamp_min(eps))
+
+
+def dcov_against_f64(torch, gram, ref64, got_dcor=None, want_dcor=None):
+    """The single-block Gram ``gram`` against its float64 plain version
+    ``ref64``: the worst normalised-Gram gap over every pair, the worst dCor
+    gap where the float64 dCor is at least DCOV_DCOR_FLOOR, and the largest
+    dCor the kernel gives where the float64 dCor is below DCOV_ZERO, with
+    the count of such pairs. dCor over every pair c != d of the Gram (the
+    port's float32 ``dcor_from_sums`` on the kernel's Gram), or the given
+    ``got_dcor`` against ``want_dcor``."""
+    from repro_torch.kernels.dcov.ref import dcor_from_sums
+
+    norm_err = (normalised_gram(torch, gram) - normalised_gram(torch, ref64)).abs().max().item()
+    if got_dcor is None:
+        def every_pair(g):
+            diag = torch.diagonal(g)
+            return dcor_from_sums(g, diag[:, None], diag[None, :])
+
+        off = ~torch.eye(gram.shape[0], dtype=torch.bool, device=gram.device)
+        got_dcor, want_dcor = every_pair(gram)[off], every_pair(ref64)[off]
+    got_dcor = got_dcor.to(torch.float64)
+    big, zero = want_dcor >= DCOV_DCOR_FLOOR, want_dcor < DCOV_ZERO
+    dcor_err = (got_dcor - want_dcor).abs()[big].max().item() if big.any() else 0.0
+    zero_worst = got_dcor[zero].max().item() if zero.any() else 0.0
+    return norm_err, dcor_err, zero_worst, int(zero.sum().item())
+
+
+def f64_ok(norm_err, dcor_err):
+    return norm_err <= DCOV_NORM_ATOL and dcor_err <= DCOV_DCOR64_ATOL
+
+
+def profiled_kernels(torch, fn, reps, per_call=None):
+    """The device kernels of ``reps`` calls of ``fn`` under ``torch.profiler``,
+    averaged by name (``key_averages``), the number of windows taken, and
+    how many of the window's lead spin kernels the profiler kept. Late in a
+    run of this script the profiler has kept none of a session's first few
+    kernel records (up to ten, however long each was), so PROFILE_LEAD spin kernels go
+    first and are left out of what is returned; the calls start
+    PROFILE_PAUSE_S later. ``per_call`` maps a needle to the launches one
+    call makes of each kernel whose name holds it: a window in which the
+    profiler recorded another count of such a kernel is redone, up to
+    PROFILE_TRIES windows. Returns None for the kernels if no window was
+    complete."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for tries in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_LEAD):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAUSE_S)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        lead = sum(e.count for e in kern if "spin_kernel" in e.key)
+        kern = [e for e in kern if "spin_kernel" not in e.key]
+        if all(e.count == k * reps for needle, k in (per_call or {}).items()
+               for e in kern if needle in e.key):
+            return kern, tries, lead
+    return None, PROFILE_TRIES, lead
+
+
+def kernel_times(torch, fn, needles, reps=20):
+    """Device ms per call of every kernel whose name holds one of
+    ``needles`` (each launched once per call), keyed by the kernel's name,
+    from ``torch.profiler``: the kernels' own durations, without the launch
+    gaps that ``device_ms`` includes. None where no profiled window recorded
+    every launch."""
+    kern, _, _ = profiled_kernels(torch, fn, reps, per_call=dict.fromkeys(needles, 1))
+    if kern is None:
+        return None
+    times = {}
+    for e in kern:
+        name = re.search("|".join(rf"\w*{re.escape(n)}\w*" for n in needles), e.key)
+        if name:
+            times[name[0]] = times.get(name[0], 0.0) + e.self_device_time_total / 1e3 / reps
+    return times
+
+
 def phase_dcov_check(torch):
     """The windows form and the single-block form against their plain
     versions over the sweep, batch independence, and the times at the
@@ -569,11 +695,11 @@ def phase_dcov_check(torch):
     if apart:
         fail("dcov windows kernel: an episode's Gram depends on the batch")
 
+    worst64 = [0.0, 0.0, 0.0]  # normalised Gram, dCor, dCor at the zero pairs
     for n_rows, c in DCOV_BLOCKS:
-        rng = np.random.default_rng(n_rows + c)
-        x = rng.normal(size=(n_rows, c)) * np.asarray(DCOV_SCALES[:c]) + np.asarray(DCOV_SCALES[:c])
-        x = torch.from_numpy(x.astype(np.float32)).cuda()
+        x = dcov_block_inputs(torch, n_rows, c, seed=n_rows + c)
         gram, ref = dcov_gram(x), dcov_gram_ref(x)
+        ref64 = dcov_gram_ref(x, dtype=torch.float64)
         torch.cuda.synchronize()
         scale = ref.abs().max().item()
         err = (gram - ref).abs().max().item()
@@ -584,24 +710,34 @@ def phase_dcov_check(torch):
             return dcor_from_sums(g[:d, d:], diag[:d, None], diag[None, d:])
 
         corr_err = (dcor_of(gram) - dcor_of(ref)).abs().max().item()
-        ok = err <= DCOV_GRAM_REL * scale and corr_err <= DCOV_DCOR_ATOL
+        norm_err, dcor_err, zero_worst, zeros = dcov_against_f64(torch, gram, ref64)
+        worst64 = [max(a, b) for a, b in zip(worst64, (norm_err, dcor_err, zero_worst))]
+        ok = err <= DCOV_GRAM_REL * scale and corr_err <= DCOV_DCOR_ATOL and f64_ok(norm_err, dcor_err)
         say(f"  dcov gram (n, C)={(n_rows, c)}: max_abs_err {err:.3g} at max|G| {scale:.3g} "
             f"(rel {err / scale:.3g}, tol {DCOV_GRAM_REL}), dCor {corr_err:.3g} "
-            f"(tol {DCOV_DCOR_ATOL}) {'ok' if ok else 'FAIL'}")
+            f"(tol {DCOV_DCOR_ATOL}); against float64: normalised Gram {norm_err:.3g} (tol "
+            f"{DCOV_NORM_ATOL}), dCor {dcor_err:.3g} (tol {DCOV_DCOR64_ATOL} where >= "
+            f"{DCOV_DCOR_FLOOR}), {zeros} zero pairs {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"dcov single-block kernel disagrees with its plain version at {(n_rows, c)}")
+    say(f"  dcov gram over the sweep, against float64: worst normalised Gram {worst64[0]:.3g}, "
+        f"worst dCor {worst64[1]:.3g} where the float64 dCor >= {DCOV_DCOR_FLOOR}, worst dCor "
+        f"at the exact-zero pairs {worst64[2]:.3g}")
 
     # times: the windows form at the grid shape (the main path's launch)
     b, w, c = DCOV_GRID
     ms = device_ms(lambda: dcov_gram_windows(cols, n))
+    own = kernel_times(torch, lambda: dcov_gram_windows(cols, n), ("dcov_windows_kernel",))
+    own = "not measured" if own is None else f"{own['dcov_windows_kernel']:.4f} ms"
     plain_ms = device_ms(lambda: dcov_gram_windows_ref(cols, n))
     pairs = sum(k * (k + 1) // 2 for k in n.tolist())
     nbytes = 4 * (b * w * c + b + b * c * c)
     bound_ms, bound_by = dcov_bound(nbytes, pairs * dcov_pair_ops(c))
-    say(f"  dcov windows at the grid shape {DCOV_GRID}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms, library: none, bound {bound_ms:.6f} ms ({bound_by}; {nbytes / 1e3:.1f} KB, "
-        f"{pairs * dcov_pair_ops(c) / 1e6:.3f} MFLOP)")
-    # the single-block form at ORACLE scale
+    say(f"  dcov windows at the grid shape {DCOV_GRID}: kernel {ms:.4f} ms (the kernel's own "
+        f"duration in the profiler {own}), plain "
+        f"{plain_ms:.4f} ms, library: none, bound {bound_ms:.6f} ms ({bound_by}; "
+        f"{nbytes / 1e3:.1f} KB, {pairs * dcov_pair_ops(c) / 1e6:.3f} MFLOP)")
+    # the single-block form at ORACLE scale, and at n = 16384 held to float64
     n_rows, c = DCOV_ORACLE
     rng = np.random.default_rng(0)
     x = torch.from_numpy((rng.normal(size=(n_rows, c)) * np.asarray(DCOV_SCALES[:c])
@@ -613,6 +749,28 @@ def phase_dcov_check(torch):
     say(f"  dcov gram at ORACLE scale (n, C)={DCOV_ORACLE}: kernel {o_ms:.4f} ms, plain "
         f"{o_plain:.4f} ms, library: none, bound {o_bound:.5f} ms ({o_by}; "
         f"{o_ops / 1e9:.3f} GFLOP)")
+    if not torch.equal(dcov_gram(x), dcov_gram(x)):
+        fail(f"dcov single-block kernel at {DCOV_ORACLE}: two runs give different bits")
+    n_rows, c = DCOV_LARGE
+    x = dcov_block_inputs(torch, n_rows, c, seed=n_rows + c)
+    gram = dcov_gram(x)
+    again = dcov_gram(x)
+    ref64 = dcov_gram_ref(x, dtype=torch.float64)
+    norm_err, dcor_err, zero_worst, zeros = dcov_against_f64(torch, gram, ref64)
+    same = torch.equal(gram, again)
+    l_ms = device_ms(lambda: dcov_gram(x))
+    l_ops = n_rows * (n_rows + 1) // 2 * dcov_pair_ops(c)
+    l_bound, l_by = dcov_bound(4 * (n_rows * c + c * c), l_ops)
+    ok = f64_ok(norm_err, dcor_err) and same and bool(torch.isfinite(gram).all())
+    say(f"  dcov gram at (n, C)={DCOV_LARGE}: kernel {l_ms:.4f} ms, bound {l_bound:.5f} ms "
+        f"({l_by}; {l_ops / 1e9:.3f} GFLOP), library: none; against float64: normalised Gram {norm_err:.3g} (tol {DCOV_NORM_ATOL}), dCor "
+        f"{dcor_err:.3g} (tol {DCOV_DCOR64_ATOL}); two runs bitwise equal: {same} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"dcov single-block kernel at {DCOV_LARGE}: off its float64 plain version, "
+             "non-finite, or not the same bits twice")
+    del x, gram, again, ref64
+    torch.cuda.empty_cache()
     return {
         "max_abs_err": grid_err,
         "ms": ms, "plain_ms": plain_ms, "library_ms": None,
@@ -915,14 +1073,13 @@ def retire_overlap_check(torch):
         fail("two decode slots do not overlap: retire waits on more than its own slot")
 
 
-def profile_window(torch, label, fn, reps, named=()):
+def profile_window(torch, label, fn, reps, named=(), per_call=None):
     """Wall and host-enqueue time of ``reps`` calls of ``fn`` (CUDA events,
     no profiler attached), then device-busy time, kernel count and the
-    heaviest kernels from a second, profiled window, and the device time
-    per call of every kernel whose name holds one of ``named``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    heaviest kernels from a second, profiled window (``profiled_kernels``:
+    with ``per_call``, redone until it holds every launch of those kernels),
+    and the device time per call of every kernel whose name holds one of
+    ``named``."""
     fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -934,24 +1091,28 @@ def profile_window(torch, label, fn, reps, named=()):
     b.record()
     b.synchronize()
     wall_ms = a.elapsed_time(b) / reps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kern, tries, lead = profiled_kernels(torch, fn, reps, per_call)
+    kept = f"the profiler kept {lead} of its {PROFILE_LEAD} lead spin kernels"
+    if kern is None:
+        say(f"  {label}: wall {wall_ms:.3f} ms, host enqueue {host_ms:.3f} ms; device busy not "
+            f"measured: none of {tries} profiled windows recorded every launch of {per_call} "
+            f"({kept} in the last)")
+        return float("nan")
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / reps
     launches = sum(e.count for e in kern) / reps
     idle = 1.0 - busy_ms / wall_ms if busy_ms > 0 else float("nan")
     say(f"  {label}: wall {wall_ms:.3f} ms, host enqueue {host_ms:.3f} ms, device busy "
-        f"{busy_ms:.3f} ms, idle share {idle:.3f}, {launches:.0f} kernels per call")
+        f"{busy_ms:.3f} ms, idle share {idle:.3f}, {launches:.0f} kernels per call"
+        + (f" (profiled window {tries} of at most {PROFILE_TRIES}: the first with every launch "
+           f"of {per_call})" if per_call else "") + f"; {kept}")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:5]:
-        say(f"    {e.self_device_time_total / 1e3 / reps:8.3f} ms  x{e.count // reps:<4d} "
+        say(f"    {e.self_device_time_total / 1e3 / reps:8.3f} ms  x{e.count / reps:<5.4g} "
             f"{e.key[:90]}")
     for needle in named:
         for e in kern:
             if needle in e.key:
-                say(f"    {needle}: {e.self_device_time_total / 1e3 / reps:.3f} ms per call, "
-                    f"{e.count // reps} launches per call, "
+                say(f"    {needle}: {e.self_device_time_total / 1e3 / reps:.4f} ms per call, "
+                    f"{e.count / reps:.4g} launches per call, "
                     f"{e.self_device_time_total / max(e.count, 1):.2f} us each")
     return launches
 
@@ -1037,6 +1198,7 @@ def phase_coral_slice(torch):
     from repro_torch.experiments import matrix, scenarios
     from repro_torch.kernels import runtime
     from repro_torch.kernels.dcov import dcor_all_blocked, dcov_gram_ref
+    from repro_torch.kernels.dcov import ops as dcov_ops
     from repro_torch.kernels.dcov.ref import dcor_from_sums
 
     cells = static_grid()
@@ -1079,29 +1241,49 @@ def phase_coral_slice(torch):
             say(f"    differs: {x}")
         fail("the scalar spec's records differ from the batched engine's")
 
+    grams, launch = [], dcov_ops.dcov_gram
+
+    def kept(cols):  # the Gram of dcor_all_blocked's one launch, for the float64 checks
+        grams.append(launch(cols))
+        return grams[-1]
+
     torch.cuda.synchronize()
     runtime.reset_launch_counts()
-    worst = 0.0
+    worst, worst64, zero_pairs = 0.0, [0.0, 0.0, 0.0], 0
     for cell in cells:
         sim0 = scenarios.cell_simulator(cell, noise=0.0)
         land = np.stack(sim0.exact_all(), axis=1)
         knobs = torch.from_numpy(sim0.space.grid().astype(np.float32)).cuda()
         metrics = torch.from_numpy(land.astype(np.float32)).cuda()
-        got = dcor_all_blocked(knobs, metrics)
-        ref = dcov_gram_ref(torch.cat([knobs, metrics], dim=1))
+        with mock.patch.object(dcov_ops, "dcov_gram", kept):
+            got = dcor_all_blocked(knobs, metrics)
+        cols = torch.cat([knobs, metrics], dim=1)
+        ref = dcov_gram_ref(cols)
         d = knobs.shape[1]
         diag = torch.diagonal(ref)
         want = dcor_from_sums(ref[:d, d:], diag[:d, None], diag[None, d:])
         if got.shape != (d, 2) or not torch.isfinite(got).all():
             fail(f"ORACLE-scale dCor of {cell}: shape {tuple(got.shape)} or non-finite values")
         worst = max(worst, (got - want).abs().max().item())
+        ref64 = dcov_gram_ref(cols, dtype=torch.float64)
+        diag64 = torch.diagonal(ref64)
+        want64 = dcor_from_sums(ref64[:d, d:], diag64[:d, None], diag64[None, d:])
+        norm_err, dcor_err, zero_worst, zeros = dcov_against_f64(
+            torch, grams[-1], ref64, got.flatten(), want64.flatten())
+        worst64 = [max(a, b) for a, b in zip(worst64, (norm_err, dcor_err, zero_worst))]
+        zero_pairs += zeros
     oracle_counts = runtime.launch_counts()
     say(f"  (c) ORACLE-scale dCor over {len(cells)} landscapes (n = 1440 or 1600 rows, 5 knobs "
         f"against tau and p): max_abs_err {worst:.3g} against the plain version (tol "
-        f"{DCOV_DCOR_ATOL}), launches {oracle_counts}")
+        f"{DCOV_DCOR_ATOL}), launches {oracle_counts}; against float64: worst normalised Gram "
+        f"{worst64[0]:.3g} over every pair (tol {DCOV_NORM_ATOL}), worst dCor {worst64[1]:.3g} "
+        f"where the float64 dCor >= {DCOV_DCOR_FLOOR} (tol {DCOV_DCOR64_ATOL}), worst dCor "
+        f"{worst64[2]:.3g} at the {zero_pairs} exact-zero pairs (float64 dCor < {DCOV_ZERO})")
     if not worst <= DCOV_DCOR_ATOL:
         fail("ORACLE-scale dCor through the kernel disagrees with its plain version")
-    if oracle_counts["dcov"] != len(cells):
+    if not f64_ok(worst64[0], worst64[1]):
+        fail("ORACLE-scale dCor through the kernel is off its float64 plain version")
+    if oracle_counts["dcov"] != len(cells) or len(grams) != len(cells):
         fail(f"dcov launched {oracle_counts['dcov']} times in the ORACLE-scale analysis, "
              f"not {len(cells)}")
     return counts["dcov"]
@@ -1110,7 +1292,7 @@ def phase_coral_slice(torch):
 def phase_coral_profile(torch):
     """One batched static call over the grid (tables built and moved, T
     steps on the card, float64 records on the host), and the single-block
-    dcov form at ORACLE scale split into its three passes."""
+    dcov form at ORACLE scale and at n = 16384, split into its two kernels."""
     import numpy as np
 
     from repro_torch.core.episode import run_static_requests
@@ -1126,8 +1308,12 @@ def phase_coral_profile(torch):
     rng = np.random.default_rng(0)
     x = torch.from_numpy((rng.normal(size=(n_rows, c)) * np.asarray(DCOV_SCALES[:c])
                           ).astype(np.float32)).cuda()
+    passes = dict.fromkeys(DCOV_PASSES, 1)
     profile_window(torch, f"dcov gram at ORACLE scale (n, C)={DCOV_ORACLE}",
-                   lambda: dcov_gram(x), reps=20)
+                   lambda: dcov_gram(x), reps=100, named=DCOV_PASSES, per_call=passes)
+    x = dcov_block_inputs(torch, *DCOV_LARGE, seed=sum(DCOV_LARGE))
+    profile_window(torch, f"dcov gram at (n, C)={DCOV_LARGE}", lambda: dcov_gram(x), reps=20,
+                   named=DCOV_PASSES, per_call=passes)
 
 
 def main() -> None:

@@ -9,8 +9,11 @@ _row_sum_batch_kernel`` and ``_gram_batch_kernel`` (entry
   per-episode ``n_valid``, one block per episode (W <= 64, C <= 8): the
   CORAL loop's per-step dCor, for the scalar spec (B = 1) and the batched
   engine alike. Bitwise the plain version's result, whatever B is.
-* :func:`dcov_gram` — one (n, C) block of ORACLE-scale n: row sums, then
-  per-tile-pair partial Grams reduced in a fixed order.
+* :func:`dcov_gram` — one (n, C) block of ORACLE-scale n: a row-sum pass
+  over the whole card, then a persistent Gram pass over the tile pairs
+  whose last CTA adds the per-CTA partials in a fixed order (two
+  launches, the second by programmatic dependent launch; scratch from
+  here).
 
 CUDA tensors launch the kernel or the wrapper raises; CPU tensors take
 the plain versions in ``ref.py``. What bounds each form, and how the
@@ -28,8 +31,6 @@ from repro_torch.kernels.dcov.ref import dcov_gram_ref, dcov_gram_windows_ref
 NAME = "dcov"
 MAX_WINDOW = 64  # rows of one window the windows form takes
 MAX_COLS = 8  # columns both forms take (padded to 8 in shared memory)
-_TILE = 64  # rows per tile of the ORACLE-scale form, fixed by the kernel
-_NPAIR = MAX_COLS * (MAX_COLS + 1) // 2
 
 
 def _entry(symbol: str, argtypes):
@@ -85,19 +86,29 @@ def dcov_gram(cols: torch.Tensor) -> torch.Tensor:
     if not 1 <= c <= MAX_COLS:
         raise ValueError(f"the dcov kernel takes C <= {MAX_COLS} columns, got {c}")
     cols = cols.contiguous()
-    nb = -(-n // _TILE)
+    if cols.data_ptr() % 16:  # the kernel reads x as float4
+        cols = cols.clone()
     dev = cols.device
-    rs = torch.empty((nb * _TILE * MAX_COLS,), dtype=torch.float32, device=dev)
-    tile_tot = torch.empty((nb * MAX_COLS,), dtype=torch.float32, device=dev)
-    partial = torch.empty((nb * (nb + 1) // 2 * _NPAIR,), dtype=torch.float32, device=dev)
-    gram = torch.empty((c, c), dtype=torch.float32, device=dev)
-    lib, fn = _entry("repro_dcov_gram", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+    lib, fn = _entry("repro_dcov_gram", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                      + [ctypes.c_void_p])
+    scratch = torch.empty((_scratch_bytes(lib, n, c),), dtype=torch.uint8, device=dev)
+    gram = torch.empty((c, c), dtype=torch.float32, device=dev)
     runtime.count_launch(NAME)
-    rc = fn(runtime.ptr(cols), runtime.ptr(rs), runtime.ptr(tile_tot), runtime.ptr(partial),
-            runtime.ptr(gram), dev.index, n, c, runtime.stream_handle(dev))
+    rc = fn(runtime.ptr(cols), runtime.ptr(scratch), runtime.ptr(gram), dev.index, n, c,
+            runtime.stream_handle(dev))
     runtime.check(lib, rc, "dcov gram")
     return gram
+
+
+def _scratch_bytes(lib, n: int, c: int) -> int:
+    """Bytes of scratch the single-block form takes at (n, C): the kernel's
+    own plan (row means, tile totals, [pair][CTA] partial Grams, the
+    ticket), from the library."""
+    fn = lib.repro_dcov_gram_scratch_bytes
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_longlong
+    return fn(n, c)
 
 
 def dcov_sums(x: torch.Tensor, y: torch.Tensor):

@@ -12,12 +12,15 @@ wherever the episode sits in the batch, on the CPU as on the card; the
 windows kernel sums in the same order and gives the same bits.
 
 ``dcov_gram_ref`` is the plain version of the ORACLE-scale form: the
-(n, n, C) stack of centred distance matrices materialized, then one
-contraction, as the reference's oracle does.
+(n, n, C) stack of centred distance matrices materialized (in blocks of
+rows where it is large), then contracted, as the reference's oracle
+does, in float32 or float64.
 """
 from __future__ import annotations
 
 import torch
+
+STACK_BYTES = 1 << 30  # the most of dcov_gram_ref's (n, n, C) stack formed at once
 
 
 def dcor_from_sums(
@@ -62,19 +65,29 @@ def dcov_gram_windows_ref(cols: torch.Tensor, n_valid: torch.Tensor) -> torch.Te
     return gram
 
 
-def dcov_gram_ref(cols: torch.Tensor) -> torch.Tensor:
+def dcov_gram_ref(cols: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(C, C) Gram of ⟨A_c, A_c'⟩ sums of one (n, C) block, with the
-    (n, n, C) centred distance stack materialized."""
-    x = cols.to(torch.float32)
-    n = x.shape[0]
-    dist = (x[:, None, :] - x[None, :, :]).abs()
+    (n, n, C) centred distance stack materialized, computed in ``dtype``
+    (the kernel's float32 by default; ``torch.float64`` is the yardstick
+    the kernel is held to where the exact Gram has a zero off the
+    diagonal). The stack is formed in blocks of rows of at most
+    ``STACK_BYTES`` each (one block for a CORAL landscape; n = 16384,
+    C = 8 would be 17 GB whole in float64), the row sums and the Gram
+    summed block by block."""
+    x = cols.to(dtype)
+    n, c = x.shape
+    block = max(1, STACK_BYTES // max(1, n * c * x.element_size()))
+    starts = range(0, n, block)
     inv_n = 1.0 / n
-    row = dist.sum(dim=1, keepdim=True) * inv_n
-    col = row.transpose(0, 1)
-    grand = row.sum(dim=(0, 1)) * inv_n
-    A = dist - row - col + grand[None, None, :]
-    flat = A.reshape(n * n, -1)
-    return flat.T @ flat
+    row = torch.cat([(x[i:i + block, None, :] - x[None, :, :]).abs().sum(dim=1)
+                     for i in starts]) * inv_n  # (n, C); the column means are its transpose
+    grand = row.sum(dim=0) * inv_n
+    gram = torch.zeros((c, c), dtype=dtype, device=x.device)
+    for i in starts:
+        dist = (x[i:i + block, None, :] - x[None, :, :]).abs()
+        flat = (dist - row[i:i + block, None, :] - row[None, :, :] + grand).reshape(-1, c)
+        gram = gram + flat.T @ flat
+    return gram
 
 
 def dcov_sums_ref(x: torch.Tensor, y: torch.Tensor):

@@ -6,8 +6,11 @@ Tolerances. dCor values: atol 1e-6 (float32; the port sums W² terms in
 another order than XLA's matmul). Grams against the Pallas kernel run in
 interpret mode: rtol 1e-4 of max|G| and dCor atol 1e-5, the reference's
 own bounds for its kernel against its oracle
-(tests/test_batched_analytics.py). Batch independence: bitwise.
+(tests/test_batched_analytics.py). Batch independence: bitwise. Float32
+Grams against float64 at exact-zero dCor pairs: see the section below.
 """
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,10 +28,13 @@ from repro_torch.kernels import runtime
 from repro_torch.kernels.dcov import (
     dcor_all_blocked,
     dcor_blocked,
+    dcor_from_sums,
     dcov_gram,
+    dcov_gram_ref,
     dcov_gram_windows,
     dcov_sums,
 )
+from repro_torch.kernels.dcov import ref as dcov_ref
 
 # Column scales of a CORAL window: five knob values, then τ and p.
 SCALES = np.asarray([1500.0, 4.0, 800.0, 2000.0, 3.0, 50.0, 5.0])
@@ -172,3 +178,109 @@ def test_windows_wrapper_rejects_bad_inputs(bad):
         n = n[:1]
     with pytest.raises((ValueError, TypeError)):
         dcov_gram_windows(x, n)
+
+
+# ---------------------------------------------------------------------------
+# Exact-zero dCor pairs. A noise-free landscape is a full factorial grid of
+# the five knobs, so where a metric does not depend on a knob the empirical
+# joint distribution is exactly the product of its marginals and the
+# V-statistic dCov is exactly 0 (a product sub-grid keeps this). There any
+# float32 rounding of <A,B> shows under dCor's square root: 1e-8 in dCor^2
+# is 1e-4 in dCor. So float32 Grams are held to float64 in normalised-Gram
+# terms, <A_c,A_d> / sqrt(<A_c,A_c> <A_d,A_d>) (dCor^2 before the root),
+# within 1e-6 at every pair, and in dCor within 1e-4 only where the float64
+# dCor is at least 1e-2. The JAX package's own kernel is held the same way.
+
+ZERO_PAIRS = [(6, "mem_freq"), (9, "gpu_freq")]  # (cell, knob independent of tau)
+
+
+def landscape_subgrid(cell_index):
+    """A noise-free (n, 7) landscape of knobs, tau and p on a product
+    sub-grid (every other level of each knob with more than 3 levels), and
+    the knob names."""
+    from repro_torch.experiments import scenarios
+
+    cell = scenarios.enumerate_cells(workloads=scenarios.FULL_MATRIX_WORKLOADS)[cell_index]
+    sim0 = scenarios.cell_simulator(cell, noise=0.0)
+    levels = [d.values[::2] if len(d.values) > 3 else d.values for d in sim0.space.dims]
+    grid = np.asarray(list(itertools.product(*levels)), np.float64)
+    land = np.stack(sim0.exact_all(grid), axis=1)
+    return np.concatenate([grid, land], axis=1).astype(np.float32), sim0.space.names
+
+
+def normalised(gram):
+    g = np.asarray(gram, np.float64)
+    d = np.sqrt(np.maximum(np.diag(g), 0.0))
+    return g / (d[:, None] * d[None, :])
+
+
+def dcor_of(gram, d=5):
+    """The (D, 2) knob-by-metric dCor of a (7, 7) Gram, in float64."""
+    g = torch.as_tensor(np.asarray(gram, np.float64))
+    diag = torch.diagonal(g)
+    return dcor_from_sums(g[:d, d:], diag[:d, None], diag[None, d:]).numpy()
+
+
+@pytest.mark.parametrize("cell,knob", ZERO_PAIRS)
+def test_float32_grams_hold_to_float64_at_an_exact_zero_pair(cell, knob):
+    cols, names = landscape_subgrid(cell)
+    assert cols.shape == (216, 7)
+    g64 = dcov_gram_ref(torch.from_numpy(cols), dtype=torch.float64).numpy()
+    want = dcor_of(g64)
+    assert want[names.index(knob), 0] < 1e-6  # tau does not depend on this knob
+    plain = dcov_gram_ref(torch.from_numpy(cols)).numpy()
+    pallas = np.asarray(dcov_gram_pallas(jnp.asarray(cols)))
+    for gram in (plain, pallas):
+        np.testing.assert_allclose(normalised(gram), normalised(g64), atol=1e-6, rtol=0)
+    big = want >= 1e-2
+    for got in (dcor_of(plain),
+                np.asarray(dcor_all_pallas(jnp.asarray(cols[:, :5]), jnp.asarray(cols[:, 5:])))):
+        np.testing.assert_allclose(got[big], want[big], atol=1e-4, rtol=0)
+
+
+def test_reference_kernel_is_nonzero_at_an_exact_zero_pair():
+    """The JAX package's Pallas kernel gives gpu_freq against tau a dCor of
+    6.8e-5 on cell 9's sub-grid where the float64 dCor is 0: the square
+    root of float32 rounding, not a fault of either kernel."""
+    cols, names = landscape_subgrid(9)
+    got = np.asarray(dcor_all_pallas(jnp.asarray(cols[:, :5]), jnp.asarray(cols[:, 5:])))
+    g64 = dcov_gram_ref(torch.from_numpy(cols), dtype=torch.float64).numpy()
+    k = names.index("gpu_freq")
+    assert dcor_of(g64)[k, 0] < 1e-6 < got[k, 0] < 1e-4
+
+
+@pytest.mark.parametrize("stack_bytes", [None, 150 * 4 * 8 * 16], ids=["whole", "in-blocks"])
+def test_plain_gram_takes_float64(monkeypatch, stack_bytes):
+    """dcov_gram_ref(..., dtype=torch.float64) is a float64 computation
+    (the stack whole, or in blocks of 16 rows), not a float32 one cast
+    back."""
+    if stack_bytes is not None:
+        monkeypatch.setattr(dcov_ref, "STACK_BYTES", stack_bytes)
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(150, 4)) * 1000.0 + 5000.0
+    dist = np.abs(x[:, None, :] - x[None, :, :])
+    A = dist - dist.mean(1, keepdims=True) - dist.mean(0, keepdims=True) + dist.mean((0, 1))
+    want = np.einsum("ijc,ijd->cd", A, A)
+    got = dcov_gram_ref(torch.from_numpy(x), dtype=torch.float64)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-12 * np.abs(want).max(), rtol=0)
+    assert dcov_gram_ref(torch.from_numpy(x)).dtype == torch.float32
+
+
+def test_ablation_variants_change_what_they_name():
+    """tools/dcov_ablation.py edits the single-block form by markers in the
+    CUDA source: each variant differs from the source, and a marker that
+    went missing (or now occurs more often) raises instead of timing the
+    unchanged kernel."""
+    from tools import dcov_ablation
+
+    src = dcov_ablation.SOURCE.read_text()
+    v = dcov_ablation.variants(src)
+    assert v["as built"] == src
+    assert all(text != src for name, text in v.items() if name != "as built")
+    assert "double acc[NP];" in v["f64 accumulators"]
+    assert "programmaticStreamSerializationAllowed = 0;" in v["no dependent launch"]
+    with pytest.raises(ValueError, match="marker"):
+        dcov_ablation.variants(src.replace("  if (!last) return;", ""))
+    with pytest.raises(ValueError, match="marker"):
+        dcov_ablation.variants(src + "\n// float (&acc)[C * (C + 1) / 2]\n")

@@ -20,7 +20,11 @@ allows for reordering), and bitwise equal alone and inside a batch; the
 ORACLE-scale form's Gram within 1e-4 of max|G| (float32 sums over n²
 terms, up to 16.8 M, in another order than the materialized plain
 version) and its dCor within 1e-3 (the square root of a ratio: near 0 a
-ratio error of 1e-6 is 1e-3 in dCor).
+ratio error of 1e-6 is 1e-3 in dCor); against the float64 plain version,
+its normalised Gram ⟨A,B⟩/√(⟨A,A⟩⟨B,B⟩) (dCor² before the root) within
+1e-6 at every pair and its dCor within 1e-4 wherever the float64 dCor is
+at least 1e-2 (at an exact zero of dCor, 1e-8 of float32 rounding in dCor²
+is 1e-4 in dCor), and two runs bitwise equal.
 """
 import numpy as np
 import pytest
@@ -351,9 +355,37 @@ def test_dcov_windows_kernel_is_batch_independent(cuda):
         assert torch.equal(alone[0], batch[i]), f"episode {i}"
 
 
+def normalised_gram(g, eps=1e-12):
+    """<A_c,A_d> / sqrt(<A_c,A_c> <A_d,A_d>) in float64, 0 where a column is
+    constant: dCor^2 before the square root."""
+    g = g.to(torch.float64)
+    d = torch.diagonal(g).clamp_min(0.0).sqrt()
+    den = d[:, None] * d[None, :]
+    return torch.where(den < eps, 0.0, g / den.clamp_min(eps))
+
+
+def every_dcor(g):
+    """dCor of every pair c != d of a Gram, as the port computes it."""
+    diag = torch.diagonal(g)
+    off = ~torch.eye(g.shape[0], dtype=torch.bool, device=g.device)
+    return dcor_from_sums(g, diag[:, None], diag[None, :])[off]
+
+
+def assert_near_float64(gram, ref64):
+    """The single-block Gram against its float64 plain version: the
+    normalised Gram within 1e-6 at every pair, dCor within 1e-4 wherever
+    the float64 dCor is at least 1e-2."""
+    gap = (normalised_gram(gram) - normalised_gram(ref64)).abs().max().item()
+    assert gap <= 1e-6, f"normalised Gram {gap:.3g} off float64"
+    got, want = every_dcor(gram).to(torch.float64), every_dcor(ref64)
+    big = want >= 1e-2
+    if big.any():
+        assert (got - want)[big].abs().max().item() <= 1e-4
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [30, 200, 512, 1440, 1600, 2160, 4099])
-@pytest.mark.parametrize("c", [2, 7, 8])
+@pytest.mark.parametrize("n", [1, 2, 30, 63, 65, 200, 512, 1440, 1600, 2160, 4099, 16384])
+@pytest.mark.parametrize("c", [1, 2, 7, 8])
 def test_dcov_gram_kernel_matches_ref(cuda, n, c):
     rng = np.random.default_rng(n + c)
     x = rng.normal(size=(n, c)) * np.asarray(DCOV_SCALES[:c]) + np.asarray(DCOV_SCALES[:c])
@@ -362,10 +394,34 @@ def test_dcov_gram_kernel_matches_ref(cuda, n, c):
     gram = dcov_gram(cols)
     torch.cuda.synchronize()
     assert runtime.launch_counts()["dcov"] == before + 1
+    assert torch.equal(dcov_gram(cols), gram), "two runs give different bits"
     ref = dcov_gram_ref(cols)
     torch.testing.assert_close(gram, ref, atol=1e-4 * ref.abs().max().item(), rtol=0)
+    assert_near_float64(gram, dcov_gram_ref(cols, dtype=torch.float64))
+    if c == 1:
+        return
     d = c - 1
     got = dcor_all_blocked(cols[:, :d], cols[:, d:])
     diag = torch.diagonal(ref)
     want = dcor_from_sums(ref[:d, d:], diag[:d, None], diag[None, d:])
     torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
+
+
+@pytest.mark.gpu
+def test_dcov_gram_kernel_at_an_exact_zero_pair(cuda):
+    """A noise-free landscape (a full factorial grid of the knobs) in which
+    tau does not depend on gpu_freq: their dCor is exactly 0, and any
+    float32 rounding of <A,B> shows under the square root. The kernel is
+    held to float64 in normalised-Gram terms there, and in dCor elsewhere."""
+    from repro_torch.experiments import scenarios
+
+    cell = scenarios.enumerate_cells(workloads=scenarios.FULL_MATRIX_WORKLOADS)[9]
+    sim0 = scenarios.cell_simulator(cell, noise=0.0)
+    land = np.stack(sim0.exact_all(), axis=1)
+    cols = torch.from_numpy(np.concatenate([sim0.space.grid(), land], 1).astype(np.float32))
+    cols = cols.to(cuda)
+    gram = dcov_gram(cols)
+    ref64 = dcov_gram_ref(cols, dtype=torch.float64)
+    g, t = sim0.space.index("gpu_freq"), len(sim0.space.names)  # columns: knobs, tau, p
+    assert normalised_gram(ref64)[g, t].abs().item() < 1e-12  # an exact zero: dCor < 1e-6
+    assert_near_float64(gram, ref64)
