@@ -4,17 +4,21 @@ GPU, from the root of a checkout:
 
     python3 chip_smoke.py
 
-Three main paths, each at full size through its kernel: Qwen2.5-3B served
+Four main paths, each at full size through its kernels: Qwen2.5-3B served
 at full width (prefill attention through ``flash_attention``), Mamba2-2.7B
-served at full width (the SSD chunked scan through ``ssd_scan``), and the
+served at full width (the SSD chunked scan through ``ssd_scan``), the
 CORAL loop over the 54-cell x 3-seed static grid (its windowed dCor
-through ``dcov``). Phases, each of which exits non-zero on failure:
+through ``dcov``), and Hymba-1.5B served at full width (attention and
+Mamba2 heads side by side in every layer: ``flash_attention`` with a
+1024-token window on 29 of its 32 layers and ``ssd_scan`` at N = 16).
+Phases, each of which exits non-zero on failure:
 
 1. Environment: the card's name and power limit, torch and CUDA versions;
    every kernel built from its source in the checkout (one nvcc each,
    started together), with its build time and ptxas report, and the full
    ptxas report (registers, shared memory, spills, warnings) of the flash
-   kernel's wgmma body, of the SSD scan's three wgmma-body kernels and of
+   kernel's wgmma body, of the SSD scan's three wgmma-body kernels (each
+   at N = 128 and N = 16) and of
    the dcov single-block form's two kernels at C = 7 and 8 (a library
    built by an earlier run into build/ has no report to print).
 2. Kernel check: each kernel against its plain version on the card over
@@ -25,14 +29,19 @@ through ``dcov``). Phases, each of which exits non-zero on failure:
    body ``body_for`` names (bf16 with D == Dv in {64, 128}: ``wgmma``),
    and timed at the serving shape (B=4, Hq=16, Hkv=2, S=512, D=128,
    causal, bf16; library: SDPA) on contiguous inputs and on the model's
-   (B, S, H, D) views, and at S=4096 (B=1), SDPA beside each as a
-   yardstick; ``ssd_scan`` against
+   (B, S, H, D) views, at S=4096 (B=1) and at Hymba-1.5B's serving shape
+   (B=4, Hq=25, Hkv=5, S=512, D=64), SDPA beside each as a yardstick;
+   ``ssd_scan`` against
    ``ssd_ref`` in float32 and bfloat16, with a ragged tail, an initial
    state, 16 chunks at S=4096 and chunk 64 at S=1000, and the model's
-   strided views at the full width, each case on the body ``body_for``
-   names (bf16 at hd 64, N 128: ``wgmma``), timed at the serving shape
-   (B=4, S=512, NH=80, hd=64, N=128, chunk 256, bf16) and at S=4096 (B=1),
-   the bound beside each (no library call computes the scan); ``dcov``'s
+   strided views at the full width, at N = 128 and at Hymba's N = 16
+   (NH = 50, a ragged group of heads; 8 chunks at S=2048), each case on
+   the body ``body_for`` names (bf16 at hd 64, N in {16, 128}: ``wgmma``;
+   the bf16 error also in ulps of y), timed at the Mamba2 serving shape
+   (B=4, S=512, NH=80, hd=64, N=128, chunk 256, bf16), at S=4096 (B=1)
+   and at Hymba's (B=4, S=512, NH=50, N=16), there beside the simt body
+   and with each of the wgmma body's three kernels' device time, the
+   bound beside each (no library call computes the scan); ``dcov``'s
    windows form against
    ``dcov_gram_windows_ref`` over B in {1, 3, 162, 1024}, W in {3, 10,
    64}, C in {2, 7, 8} with n_valid from {1, 2, 3, W-1, W}, constant
@@ -56,7 +65,14 @@ through ``dcov``). Phases, each of which exits non-zero on failure:
    own inputs and all 64 launches take the ``wgmma`` body, and the logits
    are printed beside a control (the plain path with half the chunk); in
    float32 the logits are held within
-   5e-2 × max|logit| (``ssm_full_width_check`` says why). Then the CORAL
+   5e-2 × max|logit| (``ssm_full_width_check`` says why). For Hymba-1.5B,
+   (a) runs the reduced model with 4 layers (with ``reduced()``'s 2 both
+   attend globally; with 4, one slides its window), and (b) a prefill of
+   B=2 x 2048, the same way as Mamba2's: in bf16 each of its 32 SSD
+   launches held to ``ssd_ref`` and each of its 32 flash launches to
+   ``attention_ref`` on its own inputs, all on the ``wgmma`` bodies; in
+   float32 the logits through both kernels against both call sites routed
+   to the plain versions (``hybrid_full_width_check``). Then the CORAL
    slice (the main path of ``dcov``): ``run_matrix`` over the 54 static
    cells x 3 seeds on the card as one batched call (10 dcov launches),
    each cell held to ``BENCH_matrix.json`` (configs, flags and counts
@@ -68,9 +84,9 @@ through ``dcov``). Phases, each of which exits non-zero on failure:
 4. Serve (the serving paths): ``serve()`` at full width, 16 requests,
    prompt 512, 32 new tokens, batch 4, at concurrency 1, then 2, with
    launch counts reset just before and read just after each model's runs;
-   each model's kernel must have launched (``flash_attention`` 36 times
-   per prefill, every one on the ``wgmma`` body; ``ssd_scan`` 64 times per
-   prefill, every one on its ``wgmma`` body). For Qwen2.5-3B then the
+   each model's kernels must have launched once per layer and prefill, on
+   the ``wgmma`` bodies (Qwen2.5-3B: 36 flash; Mamba2-2.7B: 64 SSD;
+   Hymba-1.5B: 32 flash and 32 SSD). For Qwen2.5-3B then the
    τ-vs-concurrency probe over c in
    {1, 2, 4} and the retire-overlap check: the real runtime over a
    stand-in engine whose steps take 10 ms of host work and a 10 ms spin
@@ -80,10 +96,10 @@ through ``dcov``). Phases, each of which exits non-zero on failure:
    (B=4, prompt 512) and a decode step (B=4) of each model, and one
    batched static CORAL call over the grid, spend their time — wall time,
    device-busy time and kernel count from ``torch.profiler``, the idle
-   share, and the heaviest kernels; every flash launch of the Qwen
-   prefills there on the ``wgmma`` body, 36 per prefill, and every SSD
-   launch of the Mamba2 prefills on its ``wgmma`` body, 64 per prefill,
-   with the device time of each of the SSD body's three kernels; the
+   share, and the heaviest kernels; every flash and SSD launch of the
+   profiled prefills there on the ``wgmma`` bodies, one per layer (36 for
+   Qwen, 64 for Mamba2, 32 of each for Hymba), with the device time of
+   each of the SSD body's three kernels; the
    dcov single-block form at n=1600, C=7 and n=16384, C=8, with the
    device time of each of its two kernels, from a profiled window that
    holds every launch of both (redone up to PROFILE_TRIES times, else
@@ -95,6 +111,8 @@ It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
+import importlib
 import json
 import re
 import subprocess
@@ -107,6 +125,9 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 ARCH = "qwen2.5-3b"
 SSM_ARCH = "mamba2-2.7b"
+HYBRID_ARCH = "hymba-1.5b"
+HYBRID_REDUCED_LAYERS = 4  # reduced() has 2, both global; with 4, layer 1 slides a window
+HYBRID_PREFILL = (2, 2048)  # the full-width check: windows of 1024 mask, 8 SSD chunks
 SERVE_SHAPE = dict(b=4, hq=16, hkv=2, s=512, d=128, dv=128, causal=True, window=None)
 SWEEP = [  # the card tests' sweep (tests/test_torch_kernels_gpu.py), then the serving shape
     dict(b=1, hq=2, hkv=2, s=64, d=32, dv=32, causal=True, window=None),
@@ -118,15 +139,20 @@ SWEEP = [  # the card tests' sweep (tests/test_torch_kernels_gpu.py), then the s
     dict(b=2, hq=4, hkv=2, s=48, d=32, dv=64, causal=True, window=None),
     dict(b=2, hq=16, hkv=2, s=300, d=128, dv=128, causal=True, window=None),
     dict(b=1, hq=25, hkv=5, s=1536, d=64, dv=64, causal=True, window=1024),
+    dict(b=4, hq=25, hkv=5, s=512, d=64, dv=64, causal=True, window=1024),
+    dict(b=2, hq=25, hkv=5, s=2048, d=64, dv=64, causal=True, window=1024),
     dict(b=1, hq=16, hkv=2, s=4096, d=128, dv=128, causal=True, window=None),
     dict(b=2, hq=4, hkv=2, s=200, d=128, dv=128, causal=False, window=None),
 ]
 LONG_SHAPE = dict(b=1, hq=16, hkv=2, s=4096, d=128, dv=128, causal=True, window=None)
-QWEN_FLASH_PER_PREFILL = 36  # one flash launch per Qwen2.5-3B layer
+# Hymba-1.5B's prefill (B=4 x 512): its window of 1024 masks nothing at S = 512
+HYMBA_FLASH = dict(b=4, hq=25, hkv=5, s=512, d=64, dv=64, causal=True, window=None)
 # (b, s, nh, hd, n, chunk, initial state): the CPU tests' sweep
 # (tests/test_torch_ssd_scan.py), a ragged tail, the reduced Mamba2,
 # full-width heads (hd 64, N 128, the wgmma body in bf16), ragged, 16
-# chunks at the full width (state passing), chunk 64 over 16 ragged chunks
+# chunks at the full width (state passing), chunk 64 over 16 ragged chunks;
+# then Hymba's N = 16: NH = 50 (a ragged group of two heads), two ragged
+# chunks, chunk 64, 8 chunks with an initial state, 16 ragged chunks
 SSD_SWEEP = [
     (1, 32, 2, 16, 8, 8, False),
     (2, 64, 4, 16, 16, 16, False),
@@ -140,15 +166,24 @@ SSD_SWEEP = [
     (2, 200, 3, 64, 128, 64, False),
     (1, 4096, 80, 64, 128, 256, True),
     (2, 1000, 8, 64, 128, 64, False),
+    (4, 512, 50, 64, 16, 256, True),
+    (1, 300, 4, 64, 16, 256, False),
+    (2, 200, 3, 64, 16, 64, True),
+    (1, 2048, 50, 64, 16, 256, True),
+    (2, 1000, 50, 64, 16, 64, False),
 ]
 SSD_SERVE = (4, 512, 80, 64, 128, 256, False)  # Mamba2-2.7B prefill, B=4 x 512
 SSD_LONG = (1, 4096, 80, 64, 128, 256, False)  # a 4096-token Mamba2-2.7B prefill
+SSD_HYMBA = (4, 512, 50, 64, 16, 256, False)  # Hymba-1.5B prefill, B=4 x 512
 # the SSD wgmma body's kernels (ssd_scan.cu), in launch order
 SSD_PHASES = ("ssd_chunk_states", "ssd_state_passing", "ssd_chunk_outputs")
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 ATOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# a flash launch inside a model: the bf16 sweep's 3e-2 is for outputs of
+# magnitude <= 2, so 1.5e-2 of max|out| where outputs are larger
+FLASH_MODEL_REL = 1.5e-2
 SPIN_CYCLES_PER_MS = 1_980_000  # >= 1 ms at the H100's top SM clock of 1.98 GHz
 SPIN_MS_MIN = 30.0  # the shortest spin ahead of a timed round
 SPIN_TRIES = 4  # rounds whose enqueue outran the spin, each redone with twice the spin
@@ -384,6 +419,14 @@ def phase_flash_check(torch):
                                ls["d"], ls["dv"], seed=len(SWEEP) + 1)
     flash_times(torch, q, k, v, f"S={ls['s']}, B={ls['b']}, contiguous")
     del q, k, v
+    hs = HYMBA_FLASH
+    q, k, v = attention_inputs(torch, torch.bfloat16, hs["b"], hs["hq"], hs["hkv"], hs["s"],
+                               hs["d"], hs["dv"], seed=len(SWEEP) + 2)
+    hymba_plain = device_ms(lambda: attention_ref(q, k, v, causal=True))
+    say(f"  flash plain version at Hymba-1.5B's serving shape: {hymba_plain:.4f} ms")
+    flash_times(torch, q, k, v, "Hymba-1.5B serving shape (B=4, Hq=25, Hkv=5, S=512, D=64; its "
+                "window of 1024 masks nothing at S=512), contiguous")
+    del q, k, v
     torch.cuda.empty_cache()
     return {"max_abs_err": worst[("bfloat16", len(SWEEP))], "plain_ms": plain_ms, **row}
 
@@ -429,17 +472,43 @@ def ssd_work(b, s, nh, hd, n, chunk, x_bytes, state):
 
 
 def ssd_want_body(torch, x, Bm, Cm, chunk):
-    """The body the SSD serving conditions call for: wgmma for bf16 at
-    hd 64, N 128, chunk % 64 == 0 with 16-byte aligned rows, else simt."""
+    """The body the SSD serving conditions call for: wgmma for bf16 at an
+    (hd, N) the body is compiled for (``WGMMA_WIDTHS``), chunk % 64 == 0
+    with 16-byte aligned rows, else simt."""
+    from repro_torch.kernels.ssd_scan.ssd_scan import WGMMA_WIDTHS
+
     aligned = all(t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:-1])
                   for t in (x, Bm, Cm))
-    return ("wgmma" if x.dtype == torch.bfloat16 and x.shape[-1] == 64 and Bm.shape[-1] == 128
+    return ("wgmma" if x.dtype == torch.bfloat16 and (x.shape[-1], Bm.shape[-1]) in WGMMA_WIDTHS
             and chunk % 64 == 0 and aligned else "simt")
+
+
+def bf16_ulps(torch, y, y_ref):
+    """The bf16 values between y and y_ref, element by element: the
+    distance of their bit patterns once mapped to a monotone integer
+    scale (sign and magnitude to two's complement)."""
+    def order(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return (order(y) - order(y_ref)).abs()
+
+
+def ulps_note(torch, y, y_ref):
+    """y's worst error in ulps of the bf16 y it lands on, at the element of
+    the largest absolute error, and the share of elements more than one ulp
+    apart (near zero an error that is small against max|y| spans many ulps,
+    and a change of sign all the small values between)."""
+    err = (y.float() - y_ref.float()).abs().flatten()
+    at = err.argmax()
+    ulps = bf16_ulps(torch, y, y_ref).flatten()
+    return (f" = {ulps[at].item()} ulps of y at |y| {y_ref.float().abs().flatten()[at].item():.4g}"
+            f" ({(ulps > 1).float().mean().item():.3%} of y more than 1 ulp apart)")
 
 
 def ssd_held(torch, args, s0, chunk, label):
     """One ssd_scan call on the body body_for names, held to ssd_ref;
-    returns y's max_abs_err."""
+    returns y's max_abs_err. A bf16 y's error is also given in ulps."""
     from repro_torch.kernels.ssd_scan import ssd_ref, ssd_scan
     from repro_torch.kernels.ssd_scan.ssd_scan import body_for, body_launches
 
@@ -461,7 +530,8 @@ def ssd_held(torch, args, s0, chunk, label):
     s_err = (st - s_ref).abs().max().item()
     y_tol, s_tol = ssd_tolerances(torch, y_ref, s_ref)
     ok = y_err <= y_tol and s_err <= s_tol
-    say(f"  ssd {label} ({body} body): y max_abs_err {y_err:.3g} (tol {y_tol:.3g}), state "
+    ulps = ulps_note(torch, y, y_ref) if y.dtype == torch.bfloat16 else ""
+    say(f"  ssd {label} ({body} body): y max_abs_err {y_err:.3g}{ulps} (tol {y_tol:.3g}), state "
         f"{s_err:.3g} (tol {s_tol:.3g}) {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"ssd kernel disagrees with ssd_ref at {label}")
@@ -470,7 +540,8 @@ def ssd_held(torch, args, s0, chunk, label):
 
 def ssd_views(torch, dtype, b, s, nh, hd, n, seed):
     """x, B and C as views of one (B, S, NH·hd + 2N) tensor, as the model's
-    convolution output hands them in (row stride 5376 at the full width)."""
+    convolution output hands them in (row stride 5376 at Mamba2-2.7B's full
+    width, 3232 at Hymba-1.5B's)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -511,10 +582,11 @@ def phase_ssd_check(torch):
             if case is SSD_SERVE and dtype == torch.bfloat16:
                 serve_err = err
             del args, s0
-        # the model's strided views at the full width (row stride 5376)
-        b, s, nh, hd, n, chunk, _ = SSD_SERVE
-        ssd_held(torch, ssd_views(torch, dtype, 2, 300, nh, hd, n, seed=7), None, chunk,
-                 f"{dname} model views (2, 300, {nh}, {hd}, {n}, {chunk})")
+        # the models' strided views at the full width (row stride 5376, 3232)
+        for case in (SSD_SERVE, SSD_HYMBA):
+            b, s, nh, hd, n, chunk, _ = case
+            ssd_held(torch, ssd_views(torch, dtype, 2, 300, nh, hd, n, seed=7), None, chunk,
+                     f"{dname} model views (2, 300, {nh}, {hd}, {n}, {chunk})")
     torch.cuda.empty_cache()
 
     # times, bf16: the serving shape, its model views, and S = 4096
@@ -528,8 +600,33 @@ def phase_ssd_check(torch):
     args, _ = ssd_inputs(torch, torch.bfloat16, b, s, nh, hd, n, state, seed=len(SSD_SWEEP) + 1)
     ssd_times(torch, args, chunk, f"S={s}, B={b}")
     del args
+    ssd_hymba_times(torch)
     torch.cuda.empty_cache()
     return {"max_abs_err": serve_err, **row}
+
+
+def ssd_hymba_times(torch):
+    """At Hymba-1.5B's serving shape (N = 16), bf16: the kernel (wgmma
+    body), its three kernels' own device times, the simt body on the same
+    inputs (``body_for`` pointed at it), the plain version and the bound."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    module = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
+    b, s, nh, hd, n, chunk, state = SSD_HYMBA
+    args, _ = ssd_inputs(torch, torch.bfloat16, b, s, nh, hd, n, state, seed=len(SSD_SWEEP) + 2)
+    row = ssd_times(torch, args, chunk, f"Hymba-1.5B serving shape {SSD_HYMBA[:6]}, contiguous "
+                    f"({module.body_for(args[0], args[3], args[4], chunk)} body)")
+    per = kernel_times(torch, lambda: ssd_scan(*args, chunk=chunk), SSD_PHASES)
+    per = ("not measured" if per is None else
+           ", ".join(f"{k} {t:.4f} ms" for k, t in sorted(per.items(), key=lambda kv: kv[0])))
+    with mock.patch.object(module, "body_for", lambda *a: "simt"):
+        simt_ms = device_ms(lambda: ssd_scan(*args, chunk=chunk))
+    say(f"  ssd Hymba-1.5B serving shape: wgmma body {row['ms']:.4f} ms (its kernels: {per}), "
+        f"simt body {simt_ms:.4f} ms, plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} "
+        f"ms; simt / wgmma {simt_ms / row['ms']:.2f}")
+    b, s, nh, hd, n, chunk, _ = SSD_HYMBA
+    ssd_times(torch, ssd_views(torch, torch.bfloat16, b, s, nh, hd, n, seed=9), chunk,
+              "Hymba-1.5B serving shape, the model's views")
 
 
 def dcov_windows_inputs(torch, b, w, c, seed):
@@ -778,17 +875,45 @@ def phase_dcov_check(torch):
     }
 
 
+def launches_per_prefill(arch):
+    """(flash, SSD) launches one prefill of ``arch`` makes: one per
+    attention layer and one per Mamba2 layer (a hybrid layer has both)."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(arch)
+    return (0 if cfg.arch_type == "ssm" else cfg.n_layers,
+            cfg.n_layers if cfg.arch_type in ("ssm", "hybrid") else 0)
+
+
 def plain_route(arch):
-    """A context in which the model's one call site of its kernel is
-    pointed at the kernel's plain version: a comparison, not a fallback."""
+    """A context in which the model's call sites of its kernels (flash
+    attention, the SSD scan, or both for a hybrid) are pointed at the
+    kernels' plain versions: a comparison, not a fallback."""
+    import contextlib
+
     from repro_torch.kernels.flash_attention import attention_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ssd_ref
 
-    if arch == SSM_ARCH:
-        return mock.patch.object(ssd_ops, "ssd_scan", ssd_ref)
-    return mock.patch.object(fa_ops, "flash_attention_bhsd", attention_ref)
+    flash, ssd = launches_per_prefill(arch)
+    stack = contextlib.ExitStack()
+    if flash:
+        stack.enter_context(mock.patch.object(fa_ops, "flash_attention_bhsd", attention_ref))
+    if ssd:
+        stack.enter_context(mock.patch.object(ssd_ops, "ssd_scan", ssd_ref))
+    return stack
+
+
+def reduced_config(arch):
+    """The reduced model of ``arch`` the slice checks run: ``reduced()``,
+    with HYBRID_REDUCED_LAYERS layers for the hybrid (module note)."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(arch).reduced()
+    if cfg.arch_type == "hybrid":
+        cfg = dataclasses.replace(cfg, n_layers=HYBRID_REDUCED_LAYERS)
+    return cfg
 
 
 def phase_slice_check(torch, arch, reduced_len):
@@ -801,7 +926,7 @@ def phase_slice_check(torch, arch, reduced_len):
     from repro_torch.serving.engine import cast_for_compute
 
     # (a) reduced, float32: the card's path (kernel) against the CPU's
-    cfg = get_config(arch).reduced()
+    cfg = reduced_config(arch)
     ctx = ApplyCtx(cfg, RunConfig(compute_dtype="float32", use_kernels=True))
     params = init_model_params(cfg, ctx.rcfg, torch.Generator().manual_seed(0), "cpu")
     tokens = np.random.default_rng(0).integers(0, cfg.vocab, (2, reduced_len), dtype=np.int32)
@@ -810,13 +935,16 @@ def phase_slice_check(torch, arch, reduced_len):
         card_params = _to(params, "cuda")
         _, card = prefill(ctx, card_params, {"tokens": torch.from_numpy(tokens).cuda()})
     err = (card.cpu() - cpu).abs().max().item()
-    say(f"  reduced {arch} fp32 prefill (2x{reduced_len}), card vs CPU: max_abs_err "
-        f"{err:.3g} (tol {SLICE_FP32_TOL})")
+    say(f"  reduced {arch} ({cfg.n_layers} layers) fp32 prefill (2x{reduced_len}), card vs CPU: "
+        f"max_abs_err {err:.3g} (tol {SLICE_FP32_TOL})")
     if not err <= SLICE_FP32_TOL:
         fail(f"reduced {arch} fp32 prefill on the card disagrees with the CPU path")
 
     if arch == SSM_ARCH:
         ssm_full_width_check(torch)
+        return
+    if arch == HYBRID_ARCH:
+        hybrid_full_width_check(torch)
         return
     # (b) full width, bf16: through the kernel vs through its plain version
     cfg = get_config(arch)
@@ -829,8 +957,7 @@ def phase_slice_check(torch, arch, reduced_len):
     with torch.inference_mode():
         runtime.reset_launch_counts()
         _, via_kernel = prefill(ctx, params, {"tokens": tok})
-        check_flash_bodies(runtime.launch_counts()["flash_attention"], 1,
-                           f"the full-width {arch} prefill")
+        check_bodies(arch, 1, f"the full-width {arch} prefill")
         with plain_route(arch):
             _, via_ref = prefill(ctx, params, {"tokens": tok})
     a, b = via_kernel.float(), via_ref.float()
@@ -847,31 +974,23 @@ def phase_slice_check(torch, arch, reduced_len):
     torch.cuda.empty_cache()
 
 
-def check_flash_bodies(launches, prefills, what):
-    """Every flash launch since the counts were reset took the wgmma body,
-    36 per Qwen2.5-3B prefill."""
-    from repro_torch.kernels.flash_attention import body_launches
+def check_bodies(arch, prefills, what):
+    """Since the counts were reset, flash attention and the SSD scan each
+    launched as often as ``prefills`` prefills of ``arch`` make
+    (``launches_per_prefill``), every launch on its wgmma body."""
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.flash_attention import body_launches as flash_bodies
+    from repro_torch.kernels.ssd_scan.ssd_scan import body_launches as ssd_bodies
 
-    bodies = body_launches()
-    want = QWEN_FLASH_PER_PREFILL * prefills
-    say(f"  flash launches in {what}: {launches} over {prefills} prefills, by body {bodies}")
-    if not launches == bodies["wgmma"] == want:
-        fail(f"{what}: {launches} flash launches, {bodies['wgmma']} on the wgmma body; "
-             f"want {want}, all on the wgmma body")
-
-
-def check_ssd_bodies(launches, prefills, what):
-    """Every SSD launch since the counts were reset took the wgmma body,
-    64 per Mamba2-2.7B prefill (one per layer)."""
-    from repro_torch.configs.registry import get_config
-    from repro_torch.kernels.ssd_scan.ssd_scan import body_launches
-
-    bodies = body_launches()
-    want = get_config(SSM_ARCH).n_layers * prefills
-    say(f"  ssd launches in {what}: {launches} over {prefills} prefills, by body {bodies}")
-    if not launches == bodies["wgmma"] == want:
-        fail(f"{what}: {launches} ssd launches, {bodies['wgmma']} on the wgmma body; "
-             f"want {want}, all on the wgmma body")
+    counts = runtime.launch_counts()
+    for name, per, bodies in zip(("flash_attention", "ssd_scan"), launches_per_prefill(arch),
+                                 (flash_bodies(), ssd_bodies())):
+        want = per * prefills
+        say(f"  {name} launches in {what}: {counts[name]} over {prefills} prefills, by body "
+            f"{bodies}")
+        if not counts[name] == bodies["wgmma"] == want:
+            fail(f"{what}: {counts[name]} {name} launches, {bodies['wgmma']} on the wgmma body; "
+                 f"want {want}, all on the wgmma body")
 
 
 def logits_gap(torch, a, b):
@@ -928,8 +1047,7 @@ def ssm_full_width_check(torch):
         runtime.reset_launch_counts()
         with mock.patch.object(ssd_ops, "ssd_scan", held_to_plain):
             _, via_kernel = prefill(ctx, params, {"tokens": tok})
-        check_ssd_bodies(runtime.launch_counts()["ssd_scan"], 1,
-                         f"the full-width {SSM_ARCH} bf16 prefill")
+        check_bodies(SSM_ARCH, 1, f"the full-width {SSM_ARCH} bf16 prefill")
         with plain_route(SSM_ARCH):
             _, via_ref = prefill(ctx, params, {"tokens": tok})
         with mock.patch.object(ssd_ops, "ssd_scan", half_chunk):
@@ -967,6 +1085,111 @@ def ssm_full_width_check(torch):
     torch.cuda.empty_cache()
 
 
+def hybrid_full_width_check(torch):
+    """Hymba-1.5B at full width, random weights, one prefill of
+    HYBRID_PREFILL (B=2 x 2048: the 29 windowed layers mask keys older than
+    1024, and the scan carries its state over 8 chunks of 256).
+
+    bf16: the prefill through both kernels, each of its 32 SSD launches
+    held to ``ssd_ref`` and each of its 32 flash launches to
+    ``attention_ref`` on that launch's own inputs (flash within
+    max(3e-2, FLASH_MODEL_REL x max|out|)), every launch on its wgmma
+    body; the logits printed beside the plain route's and beside a
+    control, the plain route with the SSD chunk halved. The bf16 model
+    carries rounding differences to its logits as Mamba2's does
+    (``ssm_full_width_check``), so the logits are held in float32: the
+    same prefill through both kernels and through both call sites routed
+    to the plain versions, within PREFILL_REL_TOL of max|logit|."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.runtime import RunConfig
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention_bhsd
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ssd_ref, ssd_scan
+    from repro_torch.models.transformer import ApplyCtx, init_model_params, prefill
+    from repro_torch.serving.engine import cast_for_compute
+
+    cfg = get_config(HYBRID_ARCH)
+    b, s = HYBRID_PREFILL
+    tok = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab, (b, s), dtype=np.int32)).cuda()
+    ssd_worst, flash_worst, windows = [], [], []
+
+    def ssd_held_to_plain(x, dt, A, Bm, Cm, *, chunk, initial_state=None):
+        y, st = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state)
+        y_ref, s_ref = ssd_ref(x, dt, A, Bm, Cm, chunk, initial_state)
+        y_tol, s_tol = ssd_tolerances(torch, y_ref, s_ref)
+        ssd_worst.append(max((y.float() - y_ref.float()).abs().max().item() / y_tol,
+                             (st - s_ref).abs().max().item() / s_tol))
+        return y, st
+
+    def flash_held_to_plain(q, k, v, *, causal=True, window=None):
+        out = flash_attention_bhsd(q, k, v, causal=causal, window=window)
+        ref = attention_ref(q, k, v, causal=causal, window=window).float()
+        tol = max(ATOL["bfloat16"], FLASH_MODEL_REL * ref.abs().max().item())
+        flash_worst.append((out.float() - ref).abs().max().item() / tol)
+        windows.append(window)
+        return out
+
+    def half_chunk(x, dt, A, Bm, Cm, *, chunk, initial_state=None):
+        return ssd_ref(x, dt, A, Bm, Cm, chunk // 2, initial_state)
+
+    ctx = ApplyCtx(cfg, RunConfig(compute_dtype="bfloat16", use_kernels=True))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = cast_for_compute(init_model_params(cfg, ctx.rcfg, gen, "cuda"), torch.bfloat16)
+    with torch.inference_mode():
+        runtime.reset_launch_counts()
+        with mock.patch.object(ssd_ops, "ssd_scan", ssd_held_to_plain), \
+                mock.patch.object(fa_ops, "flash_attention_bhsd", flash_held_to_plain):
+            _, via_kernel = prefill(ctx, params, {"tokens": tok})
+        check_bodies(HYBRID_ARCH, 1, f"the full-width {HYBRID_ARCH} bf16 prefill")
+        with plain_route(HYBRID_ARCH):
+            _, via_ref = prefill(ctx, params, {"tokens": tok})
+            with mock.patch.object(ssd_ops, "ssd_scan", half_chunk):
+                _, via_ref_half = prefill(ctx, params, {"tokens": tok})
+    if via_kernel.shape != (b, 1, cfg.vocab) or not torch.isfinite(via_kernel).all():
+        fail(f"full-width {HYBRID_ARCH} prefill logits: shape {tuple(via_kernel.shape)} "
+             "or non-finite values")
+    say(f"  full-width {HYBRID_ARCH} bf16 prefill ({b}x{s}): {len(ssd_worst)} ssd launches against "
+        f"ssd_ref, worst error / tolerance {max(ssd_worst):.3g}; {len(flash_worst)} flash launches "
+        f"({sum(w is not None for w in windows)} with window {cfg.sliding_window}) against "
+        f"attention_ref, worst error / tolerance {max(flash_worst):.3g}")
+    if len(ssd_worst) != cfg.n_layers or not max(ssd_worst) <= 1.0:
+        fail(f"an ssd launch inside the full-width {HYBRID_ARCH} prefill disagrees with ssd_ref")
+    if len(flash_worst) != cfg.n_layers or not max(flash_worst) <= 1.0:
+        fail(f"a flash launch inside the full-width {HYBRID_ARCH} prefill disagrees with "
+             "attention_ref")
+    err, scale, agree = logits_gap(torch, via_kernel, via_ref)
+    c_err, _, c_agree = logits_gap(torch, via_ref_half, via_ref)
+    say(f"  full-width {HYBRID_ARCH} bf16 logits: kernels vs plain max_abs_err {err:.4g} "
+        f"(argmax agreement {agree:.2f}); control, plain with SSD chunk "
+        f"{cfg.ssm.chunk_size // 2} vs {cfg.ssm.chunk_size}: {c_err:.4g} "
+        f"({c_agree:.2f}); max|logit| {scale:.4g}")
+    del params, via_kernel, via_ref, via_ref_half
+    torch.cuda.empty_cache()
+
+    ctx = ApplyCtx(cfg, RunConfig(compute_dtype="float32", use_kernels=True))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_model_params(cfg, ctx.rcfg, gen, "cuda")
+    with torch.inference_mode():
+        _, via_kernel = prefill(ctx, params, {"tokens": tok})
+        with plain_route(HYBRID_ARCH):
+            _, via_ref = prefill(ctx, params, {"tokens": tok})
+    if not torch.isfinite(via_kernel).all():
+        fail(f"full-width {HYBRID_ARCH} fp32 prefill logits are not finite")
+    err, scale, agree = logits_gap(torch, via_kernel, via_ref)
+    say(f"  full-width {HYBRID_ARCH} fp32 prefill ({b}x{s}): max_abs_err {err:.4g} vs max|logit| "
+        f"{scale:.4g} (rel tol {PREFILL_REL_TOL}), argmax agreement {agree:.2f}")
+    if not err <= PREFILL_REL_TOL * scale:
+        fail(f"full-width {HYBRID_ARCH} fp32 prefill through the kernels disagrees with their "
+             "plain versions")
+    del params, via_kernel, via_ref
+    torch.cuda.empty_cache()
+
+
 def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
@@ -1000,18 +1223,13 @@ def phase_serve(torch):
     from repro_torch.launch.serve import build_engine
     from repro_torch.serving import measure_concurrency_curve
 
-    flash_counts, flash_prefills = serve_runs(torch, ARCH)
-    if flash_counts["flash_attention"] == 0:
-        fail(f"flash_attention never launched on the {ARCH} main path")
-    check_flash_bodies(flash_counts["flash_attention"], flash_prefills,
-                       f"the {ARCH} serve() runs")
-    ssd_counts, prefills = serve_runs(torch, SSM_ARCH)
-    per_prefill = get_config(SSM_ARCH).n_layers  # one launch per Mamba2 layer
-    if ssd_counts["ssd_scan"] != per_prefill * prefills:
-        fail(f"ssd_scan launched {ssd_counts['ssd_scan']} times on the {SSM_ARCH} main path, "
-             f"not {per_prefill} per prefill over {prefills} prefills")
-    check_ssd_bodies(ssd_counts["ssd_scan"], prefills, f"the {SSM_ARCH} serve() runs")
-    missing = [k for k in ("flash_attention", "ssd_scan") if flash_counts[k] + ssd_counts[k] == 0]
+    totals = dict.fromkeys(("flash_attention", "ssd_scan"), 0)
+    for arch in (ARCH, SSM_ARCH, HYBRID_ARCH):
+        counts, prefills = serve_runs(torch, arch)
+        check_bodies(arch, prefills, f"the {arch} serve() runs")
+        for name in totals:
+            totals[name] += counts[name]
+    missing = [k for k, n in totals.items() if n == 0]
     if missing:
         fail(f"kernels never launched on the serving paths: {missing}")
 
@@ -1025,7 +1243,7 @@ def phase_serve(torch):
         f"{used} interleaved rounds): " + ", ".join(f"c={c}: {t:.2f}" for c, t in best.items()))
     del engine
     retire_overlap_check(torch)
-    return {"flash_attention": flash_counts["flash_attention"], "ssd_scan": ssd_counts["ssd_scan"]}
+    return totals
 
 
 class SpinEngine:
@@ -1133,13 +1351,8 @@ def phase_profile(torch, arch):
 
     runtime.reset_launch_counts()
     profile_window(torch, f"{arch} prefill 4x512", prefill, reps=3,
-                   named=SSD_PHASES if arch == SSM_ARCH else ())
-    if arch == ARCH:
-        check_flash_bodies(runtime.launch_counts()["flash_attention"], state["prefills"],
-                           f"the profiled {arch} prefills")
-    else:
-        check_ssd_bodies(runtime.launch_counts()["ssd_scan"], state["prefills"],
-                         f"the profiled {arch} prefills")
+                   named=SSD_PHASES if launches_per_prefill(arch)[1] else ())
+    check_bodies(arch, state["prefills"], f"the profiled {arch} prefills")
     tok = np.zeros((4, 1), np.int32)
 
     def decode():
@@ -1335,12 +1548,14 @@ def main() -> None:
     say("== phase 3: slice check")
     phase_slice_check(torch, ARCH, 96)
     phase_slice_check(torch, SSM_ARCH, 93)
+    phase_slice_check(torch, HYBRID_ARCH, 40)
     counts = {"dcov": phase_coral_slice(torch)}
     say("== phase 4: serve")
     counts.update(phase_serve(torch))
     say("== phase 5: profile")
     phase_profile(torch, ARCH)
     phase_profile(torch, SSM_ARCH)
+    phase_profile(torch, HYBRID_ARCH)
     phase_coral_profile(torch)
     say(f"== done in {time.perf_counter() - t0:.1f} s")
     sources = {

@@ -23,11 +23,12 @@
 // axis in VMEM scratch. Two bodies; the wrapper (ssd_scan.py::body_for)
 // names one and the entry launches exactly that one or returns an error:
 //
-// * wgmma — bf16 at the Mamba2 widths (hd = 64, N = 128), chunk a multiple
-//   of 64, rows 16-byte aligned (the serving path): the chunk-parallel
-//   split of the SSD algorithm in three kernels (chunk states, state
-//   passing, outputs) on TMA and wgmma, C . B^T formed once per CTA for a
-//   group of heads; see the note above it.
+// * wgmma — bf16 at hd = 64 with N = 128 (Mamba2) or N = 16 (Hymba), chunk
+//   a multiple of 64, rows 16-byte aligned (the serving paths): the
+//   chunk-parallel split of the SSD algorithm in three kernels (chunk
+//   states, state passing, outputs) on TMA and wgmma, C . B^T formed once
+//   per CTA for a group of heads, each kernel a template on N; see the note
+//   above it.
 // * simt — every other case (float32, other widths, unaligned views): one
 //   thread block per (b, h) walks its chunks in order, carrying S; a chunk
 //   is cut into 64-row query tiles and, for query tile qi, the key tiles
@@ -41,7 +42,8 @@
 // hd=64, N=128, Q=256, bf16 x/B/C) the function moves ~54 MB (x and y 21 MB
 // each, final state 10.5 MB) and needs ~8.1 GFLOP (the causal half of the
 // intra-chunk products, C . B^T once per batch row since B and C are shared
-// by all heads), so its roofline is the memory side, ~16 us. The wgmma body
+// by all heads), so its roofline is the memory side, ~16 us; at Hymba's
+// (NH=50, N=16) ~27.6 MB and ~2.1 GFLOP, ~8.2 us. The wgmma body
 // adds traffic of its own (the chunk states, 21 MB in float32, written and
 // read again; the entering states in bf16; C and B reread per CTA, x per
 // query tile) and tensor work of its own (the state products' high/low
@@ -307,8 +309,8 @@ __global__ void __launch_bounds__(NT) ssd_fwd_simt(Params p) {
 }
 
 // ------------------------------------------------------------ wgmma body
-// bf16 x, B and C at the Mamba2 widths (hd = 64, N = 128), chunk a multiple
-// of 64, rows 16-byte aligned: the serving path. Three kernels, launched
+// bf16 x, B and C at hd = 64 and N in {16, 128}, chunk a multiple of 64,
+// rows 16-byte aligned: the serving paths. Three kernels, launched
 // one after the other on the caller's stream, in the SSD algorithm's own
 // order (arXiv:2405.21060 sections 6-7; ref.py computes the same split):
 //
@@ -316,14 +318,15 @@ __global__ void __launch_bounds__(NT) ssd_fwd_simt(Params p) {
 //    cumulative sum cs of dt * A, written to scratch with dt (zero past the
 //    sequence end) for phases 2 and 3, and its end state from zero,
 //    S_c = sum_j (dt_j seg_j x_j) (x) B_j with seg_j = exp(cs_last - cs_j),
-//    a 64 x 128 float32 product of depth Q on wgmma m64n64k16 (two per
-//    k-step, one per 64-column box of B). The weighted x is the A operand
+//    a 64 x N float32 product of depth Q on wgmma (N = 128: m64n64k16, two
+//    per k-step, one per 64-column box of B; N = 16: one m64n16k16). The
+//    weighted x is the A operand
 //    from registers, split into a bf16 high and low part (two products),
 //    so S_c keeps about 16 bits; B is read MN-major through the
 //    descriptor's transpose bit. A producer warp keeps a two-stage ring of
 //    (B, x) tiles in flight by TMA: 52 KB of shared memory and 123
-//    registers let three CTAs share an SM (four stages, two CTAs, were
-//    slower; so was splitting N over two CTAs).
+//    registers let three CTAs share an SM at N = 128 (four stages, two
+//    CTAs, were slower; so was splitting N over two CTAs).
 // 2. ssd_state_passing, elementwise over (b, h) and the state's elements,
 //    sequential over chunks: S_enter(c+1) = exp(cs_last(c)) S_enter(c) +
 //    S_c in float32, the same recurrence in the same order as ref.py. It
@@ -345,17 +348,21 @@ __global__ void __launch_bounds__(NT) ssd_fwd_simt(Params p) {
 //    per SM). y leaves through the idle rings, swizzled, by one TMA store
 //    per head. Heavy query tiles (most key tiles) are scheduled first.
 //
-// Every tile is a TMA box of 64 columns (128 bytes) x 64 rows in the
-// 128-byte swizzle; the tensor maps are built over the strided views as
-// given (the model's views of the convolution output are read in place).
+// Every tile of x and y is a TMA box of 64 columns (128 bytes) x 64 rows in
+// the 128-byte swizzle. The tiles of B, C and the entering states are 64
+// rows x N columns (WgN below): at N = 128 two such 64-column boxes, at
+// N = 16 one box of 16 columns (32-byte rows) in the 32-byte swizzle, read
+// by wgmma through descriptors of the matching layout; there C . B^T and
+// C . S_enter^T take one k-step. The tensor maps are built over the strided
+// views as given (the model's views of the convolution output are read in
+// place).
 // The scratch (cs and dt, the chunk states in float32, the entering states
 // in bf16) is allocated by the wrapper; no atomics, no order that depends
 // on the schedule: two runs give the same bits.
 constexpr int SCAN_G = 4;           // heads per phase-3 CTA
 constexpr int WG_HD = 64;           // head width the body is compiled for
-constexpr int WG_N = 128;           // state width the body is compiled for
 constexpr int WG_T = 64;            // rows of every tile
-constexpr uint32_t BOX = 64 * 128;  // one 64-row x 64-column bf16 box: 8 KB
+constexpr uint32_t BOX = 64 * 128;  // one 64-row x 64-column bf16 box (x, y): 8 KB
 constexpr int P1_STAGES = 2;        // phase-1 ring of (B tile, x tile)
 constexpr int P1_THREADS = 160;     // one consumer warpgroup and a producer warp
 constexpr int P3_WIDE = 2;          // phase-3 ring of 16 KB slots (S_enter, B tiles)
@@ -365,23 +372,47 @@ constexpr int P2_THREADS = 128;     // phase 2: four state elements a thread
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int PDL = 1;  // launch phases 2 and 3 with programmatic dependent launch
 
-// Shared memory, in bytes from a 1024-aligned base (+ 1024 to align).
-// Phase 1: P1_STAGES x (B 16 KB + x 8 KB), the barriers, then dt, cs and
-// the weights dt seg over the chunk.
-constexpr uint32_t P1_BAR = P1_STAGES * 3 * BOX;
-constexpr uint32_t P1_FLOATS = P1_BAR + 16 * P1_STAGES;
-// Phase 3: C (16 KB), the wide and narrow rings, the barriers, then cs
-// (times log2 e) and dt of the CTA's heads over the chunk.
-constexpr uint32_t P3_WIDE_OFF = 2 * BOX;
-constexpr uint32_t P3_NARROW_OFF = P3_WIDE_OFF + P3_WIDE * 2 * BOX;
-constexpr uint32_t P3_BAR = P3_NARROW_OFF + P3_NARROW * BOX;
-constexpr uint32_t P3_FLOATS = P3_BAR + 8 * (1 + 2 * P3_WIDE + 2 * P3_NARROW);
+// The layout of a 64-row x N-column bf16 tile (B, C, an entering state)
+// for the state width N the body is compiled for: TMA boxes of BOX_COLS
+// columns, NBOX to a row, in the swizzle of their row width (128 bytes at
+// N = 128, 32 bytes at N = 16), read by wgmma descriptors of layout type
+// LAYOUT (1: B128, 3: B32) whose 8-row core matrices lie ATOM bytes apart.
+template <int N>
+struct WgN {
+  static_assert(N == 16 || N == 128, "the wgmma body is compiled for N in {16, 128}");
+  static constexpr int BOX_COLS = N < 64 ? N : 64;
+  static constexpr int NBOX = N / BOX_COLS;
+  static constexpr uint32_t ROW = 2 * BOX_COLS;          // bytes of a box row
+  static constexpr uint32_t NBOX_BYTES = WG_T * ROW;     // one box: 8 KB or 2 KB
+  static constexpr uint32_t TILE = NBOX * NBOX_BYTES;    // a tile: 16 KB or 2 KB
+  static constexpr uint32_t ATOM = 8 * ROW;              // 8 rows of a box
+  static constexpr uint64_t LAYOUT = ROW == 128 ? 1 : 3;
+  static constexpr int KSTEPS = N / 16;                  // k-steps of depth N
+  static constexpr int ACC = BOX_COLS / 2;               // floats of an m64 x BOX_COLS sum
+  // Shared memory, in bytes from a 1024-aligned base (+ 1024 to align).
+  // Phase 1: P1_STAGES x (B tile + x box), the barriers, then dt, cs and
+  // the weights dt seg over the chunk.
+  static constexpr uint32_t P1_SLOT = TILE + BOX;
+  static constexpr uint32_t P1_BAR = P1_STAGES * P1_SLOT;
+  static constexpr uint32_t P1_FLOATS = P1_BAR + 16 * P1_STAGES;
+  // Phase 3: C, the wide (entering states, B tiles) and narrow (x) rings,
+  // the barriers, then cs (times log2 e) and dt of the CTA's heads over
+  // the chunk.
+  static constexpr uint32_t P3_WIDE_OFF = TILE;
+  static constexpr uint32_t P3_NARROW_OFF = P3_WIDE_OFF + P3_WIDE * TILE;
+  static constexpr uint32_t P3_BAR = P3_NARROW_OFF + P3_NARROW * BOX;
+  static constexpr uint32_t P3_FLOATS = P3_BAR + 8 * (1 + 2 * P3_WIDE + 2 * P3_NARROW);
+  static_assert(P1_SLOT % 1024 == 0 && TILE % 1024 == 0, "boxes stay 1024-byte aligned");
+  static_assert(WG_HD * N / 4 % P2_THREADS == 0, "phase 2 covers the state in whole blocks");
+};
 
+template <int N>
 inline size_t p1_smem_bytes(int chunk) {
-  return 1024 + P1_FLOATS + sizeof(float) * 3 * size_t(chunk);
+  return 1024 + WgN<N>::P1_FLOATS + sizeof(float) * 3 * size_t(chunk);
 }
+template <int N>
 inline size_t p3_smem_bytes(int chunk) {
-  return 1024 + P3_FLOATS + sizeof(float) * 2 * SCAN_G * size_t(chunk);
+  return 1024 + WgN<N>::P3_FLOATS + sizeof(float) * 2 * SCAN_G * size_t(chunk);
 }
 
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
@@ -480,22 +511,31 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap& map) {
                : "memory");
 }
 
-// wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout B128.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// wgmma shared-memory descriptor for a swizzled operand: start address,
+// leading and stride byte offsets (16-byte units), layout type (1: B128,
+// 3: B32).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout = 1) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | (1ull << 62);
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | (layout << 62);
 }
 
-// K-major operand (rows of 128 columns, two boxes): k-step kk of 16 columns
+// K-major operand, a 64 x N tile of WgN<N> (C, B, an entering state):
+// k-step kk of 16 columns
+template <int N>
 __device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
-  return smem_desc(tile + (kk / 4) * BOX + (kk % 4) * 32, 16, 1024);
+  using L = WgN<N>;
+  constexpr int per_box = L::BOX_COLS / 16;
+  return smem_desc(tile + (kk / per_box) * L::NBOX_BYTES + (kk % per_box) * 32, 16, L::ATOM,
+                   L::LAYOUT);
 }
 
-// MN-major operand (64 columns, one box): k-step kk of 16 rows
+// MN-major operand, one box of ROW-byte rows (x: 128; B at N = 16: 32):
+// k-step kk of 16 rows
+template <uint32_t ROW = 128>
 __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t box, int kk) {
-  return smem_desc(box + kk * 2048, BOX, 1024);
+  return smem_desc(box + kk * 16 * ROW, WG_T * ROW, 8 * ROW, ROW == 128 ? 1 : 3);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -550,7 +590,29 @@ __device__ __forceinline__ void wgmma_n64_rs(float (&d)[32], const uint32_t (&a)
       : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+
+// d (64 x 16, f32) += A (64 x 16, bf16 registers) * B (16 x 16, smem, MN-major)
+__device__ __forceinline__ void wgmma_n16_rs(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : F8(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 #undef F8
+
+// The register-A product into a 64 x NC accumulator (NC = 64 or 16)
+template <int NC>
+__device__ __forceinline__ void wgmma_rs(float (&d)[NC / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (NC == 64)
+    wgmma_n64_rs(d, a, db);
+  else
+    wgmma_n16_rs(d, a, db);
+}
 
 // Named barrier 1: the consumer warpgroup alone (128 threads).
 __device__ __forceinline__ void consumers_sync() {
@@ -576,8 +638,9 @@ __device__ __forceinline__ float fast_exp2(float x) {
 __device__ __forceinline__ long long cs_at(int b, int h, int c, int nh, int nc, int q) {
   return ((long long)(b * nh + h) * nc + c) * q;
 }
+template <int N>
 __device__ __forceinline__ long long state_at(int b, int c, int h, int nh, int nc) {
-  return ((long long)(b * nc + c) * nh + h) * (WG_HD * WG_N);
+  return ((long long)(b * nc + c) * nh + h) * (WG_HD * N);
 }
 
 struct Scratch {
@@ -588,20 +651,22 @@ struct Scratch {
 };
 
 // ---- phase 1: the chunk's cs and its end state from zero
+template <int N>
 __global__ void __launch_bounds__(P1_THREADS)
     ssd_chunk_states(const __grid_constant__ Params p, const __grid_constant__ CUtensorMap tx,
                      const __grid_constant__ CUtensorMap tb, Scratch sc) {
+  using L = WgN<N>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  float* dts = reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)) + P1_FLOATS);
+  float* dts = reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)) + L::P1_FLOATS);
   const int Q = p.chunk;
   float* cs = dts + Q;
   float* w = cs + Q;
   const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z, nc = gridDim.y;
   const int t0 = c * Q, rows = min(Q, p.seqlen - t0);
   const int nk = (rows + WG_T - 1) / WG_T;  // key tiles past the sequence end add 0
-  auto full = [&](int st) { return base + P1_BAR + 8 * st; };
-  auto empty = [&](int st) { return base + P1_BAR + 8 * (P1_STAGES + st); };
+  auto full = [&](int st) { return base + L::P1_BAR + 8 * st; };
+  auto empty = [&](int st) { return base + L::P1_BAR + 8 * (P1_STAGES + st); };
 
   if (threadIdx.x == 0) {
     for (int st = 0; st < P1_STAGES; ++st) {
@@ -618,12 +683,13 @@ __global__ void __launch_bounds__(P1_THREADS)
       prefetch_map(tb);
       for (int kt = 0; kt < nk; ++kt) {
         const int st = kt % P1_STAGES, row = t0 + kt * WG_T;
-        const uint32_t slot = base + st * 3 * BOX;
+        const uint32_t slot = base + st * L::P1_SLOT;
         mbar_wait(empty(st), ((kt / P1_STAGES) & 1) ^ 1);
-        mbar_expect_tx(full(st), 3 * BOX);
-        tma_load3(slot, tb, 0, row, b, full(st));
-        tma_load3(slot + BOX, tb, 64, row, b, full(st));
-        tma_load4(slot + 2 * BOX, tx, 0, row, h, b, full(st));
+        mbar_expect_tx(full(st), L::P1_SLOT);
+#pragma unroll
+        for (int cb = 0; cb < L::NBOX; ++cb)
+          tma_load3(slot + cb * L::NBOX_BYTES, tb, cb * L::BOX_COLS, row, b, full(st));
+        tma_load4(slot + L::TILE, tx, 0, row, h, b, full(st));
       }
     }
     return;
@@ -646,11 +712,11 @@ __global__ void __launch_bounds__(P1_THREADS)
 
   const int lane = threadIdx.x % 32, wr = threadIdx.x / 32;
   const int g = lane / 4, t = lane % 4;
-  float acc[2][32];
+  float acc[L::NBOX][L::ACC];
 #pragma unroll
-  for (int cb = 0; cb < 2; ++cb)
+  for (int cb = 0; cb < L::NBOX; ++cb)
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[cb][i] = 0.f;
+    for (int i = 0; i < L::ACC; ++i) acc[cb][i] = 0.f;
   // this lane's ldmatrix row within a 16-key step, and its 16-byte chunk
   // of the 64-wide x row (rows 16 wr .. of x^T, the A operand)
   const int lrow = lane % 8 + (lane / 16) * 8;
@@ -658,14 +724,14 @@ __global__ void __launch_bounds__(P1_THREADS)
 
   for (int kt = 0; kt < nk; ++kt) {
     const int st = kt % P1_STAGES;
-    const uint32_t slot = base + st * 3 * BOX;
+    const uint32_t slot = base + st * L::P1_SLOT;
     mbar_wait(full(st), (kt / P1_STAGES) & 1);
     uint32_t hi[4][4], lo[4][4];
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
       const int j = ks * 16 + lrow;
       uint32_t xa[4];
-      ldsm_x4_t(xa, slot + 2 * BOX + j * 128 + ((lchunk ^ (j & 7)) << 4));
+      ldsm_x4_t(xa, slot + L::TILE + j * 128 + ((lchunk ^ (j & 7)) << 4));
       // element pairs of xa[r] sit at keys 2t (+1), + 8 for r >= 2
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
@@ -677,20 +743,21 @@ __global__ void __launch_bounds__(P1_THREADS)
         lo[ks][r] = pack_bf16(w0 - hv.x, w1 - hv.y);
       }
     }
-    fence_regs(acc[0]);
-    fence_regs(acc[1]);
+#pragma unroll
+    for (int cb = 0; cb < L::NBOX; ++cb) fence_regs(acc[cb]);
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
-      for (int cb = 0; cb < 2; ++cb) {
-        wgmma_n64_rs(acc[cb], hi[ks], mnmajor_desc(slot + cb * BOX, ks));
-        wgmma_n64_rs(acc[cb], lo[ks], mnmajor_desc(slot + cb * BOX, ks));
+      for (int cb = 0; cb < L::NBOX; ++cb) {
+        const uint64_t db = mnmajor_desc<L::ROW>(slot + cb * L::NBOX_BYTES, ks);
+        wgmma_rs<L::BOX_COLS>(acc[cb], hi[ks], db);
+        wgmma_rs<L::BOX_COLS>(acc[cb], lo[ks], db);
       }
     wgmma_commit();
     wgmma_wait_all();
-    fence_regs(acc[0]);
-    fence_regs(acc[1]);
+#pragma unroll
+    for (int cb = 0; cb < L::NBOX; ++cb) fence_regs(acc[cb]);
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
       fence_regs(hi[ks]);
@@ -700,30 +767,33 @@ __global__ void __launch_bounds__(P1_THREADS)
   }
 
   // element 4 nb + e of box cb: state row 16 wr + g + 8 (e / 2), column
-  // 64 cb + 8 nb + 2 t + e % 2
-  float* out = sc.states + state_at(b, c, h, p.nh, nc);
+  // BOX_COLS cb + 8 nb + 2 t + e % 2
+  float* out = sc.states + state_at<N>(b, c, h, p.nh, nc);
 #pragma unroll
-  for (int cb = 0; cb < 2; ++cb)
+  for (int cb = 0; cb < L::NBOX; ++cb)
 #pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
+    for (int nb = 0; nb < L::BOX_COLS / 8; ++nb)
 #pragma unroll
       for (int r = 0; r < 2; ++r)
-        *reinterpret_cast<float2*>(out + (16 * wr + g + 8 * r) * WG_N + 64 * cb + 8 * nb + 2 * t) =
+        *reinterpret_cast<float2*>(out + (16 * wr + g + 8 * r) * N + L::BOX_COLS * cb + 8 * nb +
+                                   2 * t) =
             make_float2(acc[cb][4 * nb + 2 * r], acc[cb][4 * nb + 2 * r + 1]);
 }
 
-// ---- phase 2: the states entering each chunk, and the final state
+// ---- phase 2: the states entering each chunk, and the final state; each
+// thread carries 4 of a (b, h)'s hd x N state elements
+template <int N>
 __global__ void __launch_bounds__(P2_THREADS)
     ssd_state_passing(const __grid_constant__ Params p, Scratch sc, int nc) {
   grid_dependency_wait();  // phase 1's states and cs
-  constexpr int E = WG_HD * WG_N;
+  constexpr int E = WG_HD * N;
   const int e = (blockIdx.x * P2_THREADS + threadIdx.x) * 4;
   const int b = blockIdx.y / p.nh, h = blockIdx.y % p.nh;
   const long long bh = (long long)blockIdx.y * E;
   float4 s = p.s0 != nullptr ? *reinterpret_cast<const float4*>(p.s0 + bh + e)
                              : make_float4(0.f, 0.f, 0.f, 0.f);
   for (int c = 0; c < nc; ++c) {
-    const long long at = state_at(b, c, h, p.nh, nc) + e;
+    const long long at = state_at<N>(b, c, h, p.nh, nc) + e;
     if (c > 0 || p.s0 != nullptr) {
       const __nv_bfloat162 lo = __floats2bfloat162_rn(s.x, s.y), hi = __floats2bfloat162_rn(s.z, s.w);
       uint2 v;
@@ -740,16 +810,18 @@ __global__ void __launch_bounds__(P2_THREADS)
 }
 
 // ---- phase 3: y for one 64-row query tile of one chunk, SCAN_G heads
+template <int N>
 __global__ void __launch_bounds__(P3_THREADS, 2)
     ssd_chunk_outputs(const __grid_constant__ Params p, const __grid_constant__ CUtensorMap tx,
                       const __grid_constant__ CUtensorMap tb,
                       const __grid_constant__ CUtensorMap tc,
                       const __grid_constant__ CUtensorMap ts,
                       const __grid_constant__ CUtensorMap ty, Scratch sc) {
+  using L = WgN<N>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const int Q = p.chunk, nq = Q / WG_T;
-  float* cs2 = reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)) + P3_FLOATS);
+  float* cs2 = reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)) + L::P3_FLOATS);
   float* dts = cs2 + SCAN_G * Q;
   const int nc = (p.seqlen + Q - 1) / Q, nhg = (p.nh + SCAN_G - 1) / SCAN_G;
   // heavy first: blockIdx.y = 0 takes the last query tile, which has the
@@ -760,15 +832,21 @@ __global__ void __launch_bounds__(P3_THREADS, 2)
   const int t0 = c * Q, rows = min(Q, p.seqlen - t0), i0 = qt * WG_T;
   if (i0 >= rows) return;  // a query tile wholly past the sequence end
   const bool carry = c > 0 || p.s0 != nullptr;  // a state enters this chunk
-  const uint32_t c_bar = base + P3_BAR;
-  auto wide_full = [&](int st) { return base + P3_BAR + 8 * (1 + st); };
-  auto wide_empty = [&](int st) { return base + P3_BAR + 8 * (1 + P3_WIDE + st); };
-  auto narrow_full = [&](int st) { return base + P3_BAR + 8 * (1 + 2 * P3_WIDE + st); };
+  const uint32_t c_bar = base + L::P3_BAR;
+  auto wide_full = [&](int st) { return base + L::P3_BAR + 8 * (1 + st); };
+  auto wide_empty = [&](int st) { return base + L::P3_BAR + 8 * (1 + P3_WIDE + st); };
+  auto narrow_full = [&](int st) { return base + L::P3_BAR + 8 * (1 + 2 * P3_WIDE + st); };
   auto narrow_empty = [&](int st) {
-    return base + P3_BAR + 8 * (1 + 2 * P3_WIDE + P3_NARROW + st);
+    return base + L::P3_BAR + 8 * (1 + 2 * P3_WIDE + P3_NARROW + st);
   };
-  auto wide = [&](int st) { return base + P3_WIDE_OFF + st * 2 * BOX; };
-  auto narrow = [&](int st) { return base + P3_NARROW_OFF + st * BOX; };
+  auto wide = [&](int st) { return base + L::P3_WIDE_OFF + st * L::TILE; };
+  auto narrow = [&](int st) { return base + L::P3_NARROW_OFF + st * BOX; };
+  // one 64 x N tile of a 3-D (B, C) or 4-D (entering state) map, box by box
+  auto load_tile3 = [&](uint32_t dst, const CUtensorMap& map, int row, int batch, uint32_t bar) {
+#pragma unroll
+    for (int cb = 0; cb < L::NBOX; ++cb)
+      tma_load3(dst + cb * L::NBOX_BYTES, map, cb * L::BOX_COLS, row, batch, bar);
+  };
 
   if (threadIdx.x == 0) {
     mbar_init(c_bar, 1);
@@ -792,27 +870,27 @@ __global__ void __launch_bounds__(P3_THREADS, 2)
       prefetch_map(tb);
       prefetch_map(tc);
       prefetch_map(ts);
-      mbar_expect_tx(c_bar, 2 * BOX);
-      tma_load3(base, tc, 0, t0 + i0, b, c_bar);
-      tma_load3(base + BOX, tc, 64, t0 + i0, b, c_bar);
+      mbar_expect_tx(c_bar, L::TILE);
+      load_tile3(base, tc, t0 + i0, b, c_bar);
       grid_dependency_wait();  // the entering states of phase 2
       int wi = 0, ni = 0;  // loads issued into each ring
       if (carry)
         for (int hh = 0; hh < ng; ++hh, ++wi) {
           const int st = wi % P3_WIDE, h = h0 + hh;
           mbar_wait(wide_empty(st), ((wi / P3_WIDE) & 1) ^ 1);
-          mbar_expect_tx(wide_full(st), 2 * BOX);
-          tma_load4(wide(st), ts, 0, 0, h, b * nc + c, wide_full(st));
-          tma_load4(wide(st) + BOX, ts, 64, 0, h, b * nc + c, wide_full(st));
+          mbar_expect_tx(wide_full(st), L::TILE);
+#pragma unroll
+          for (int cb = 0; cb < L::NBOX; ++cb)
+            tma_load4(wide(st) + cb * L::NBOX_BYTES, ts, cb * L::BOX_COLS, 0, h, b * nc + c,
+                      wide_full(st));
         }
       for (int kt = 0; kt <= qt; ++kt) {
         const int row = t0 + kt * WG_T;
         {
           const int st = wi % P3_WIDE;
           mbar_wait(wide_empty(st), ((wi / P3_WIDE) & 1) ^ 1);
-          mbar_expect_tx(wide_full(st), 2 * BOX);
-          tma_load3(wide(st), tb, 0, row, b, wide_full(st));
-          tma_load3(wide(st) + BOX, tb, 64, row, b, wide_full(st));
+          mbar_expect_tx(wide_full(st), L::TILE);
+          load_tile3(wide(st), tb, row, b, wide_full(st));
           ++wi;
         }
         for (int hh = 0; hh < ng; ++hh, ++ni) {
@@ -859,8 +937,8 @@ __global__ void __launch_bounds__(P3_THREADS, 2)
       fence_regs(y[hh]);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < WG_N / 16; ++kk)
-        wgmma_n64_ss(y[hh], kmajor_desc(base, kk), kmajor_desc(wide(st), kk), 1);
+      for (int kk = 0; kk < L::KSTEPS; ++kk)
+        wgmma_n64_ss(y[hh], kmajor_desc<N>(base, kk), kmajor_desc<N>(wide(st), kk), 1);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(y[hh]);
@@ -880,8 +958,8 @@ __global__ void __launch_bounds__(P3_THREADS, 2)
       mbar_wait(wide_full(st), (wi / P3_WIDE) & 1);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < WG_N / 16; ++kk)
-        wgmma_n64_ss(cb, kmajor_desc(base, kk), kmajor_desc(wide(st), kk), kk > 0);
+      for (int kk = 0; kk < L::KSTEPS; ++kk)
+        wgmma_n64_ss(cb, kmajor_desc<N>(base, kk), kmajor_desc<N>(wide(st), kk), kk > 0);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(cb);
@@ -931,7 +1009,7 @@ __global__ void __launch_bounds__(P3_THREADS, 2)
   // 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8), so the
   // fragment writes hit 32 distinct banks), then one TMA store per head;
   // rows past the sequence end are clipped by the tensor map
-  static_assert(SCAN_G * BOX <= P3_BAR - P3_WIDE_OFF, "y tiles fit the idle rings");
+  static_assert(SCAN_G * BOX <= L::P3_BAR - L::P3_WIDE_OFF, "y tiles fit the idle rings");
 #pragma unroll
   for (int hh = 0; hh < SCAN_G; ++hh) {
     if (hh >= ng) continue;
@@ -939,7 +1017,7 @@ __global__ void __launch_bounds__(P3_THREADS, 2)
     for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const uint32_t at = base + P3_WIDE_OFF + hh * BOX + (lr0 + 8 * r) * 128 + ((nb ^ g) << 4) + 4 * t;
+        const uint32_t at = base + L::P3_WIDE_OFF + hh * BOX + (lr0 + 8 * r) * 128 + ((nb ^ g) << 4) + 4 * t;
         __nv_bfloat162 v = __floats2bfloat162_rn(y[hh][4 * nb + 2 * r], y[hh][4 * nb + 2 * r + 1]);
         asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at), "r"(*reinterpret_cast<uint32_t*>(&v))
                      : "memory");
@@ -949,7 +1027,7 @@ __global__ void __launch_bounds__(P3_THREADS, 2)
   consumers_sync();
   if (threadIdx.x == 0) {
     for (int hh = 0; hh < ng; ++hh)
-      tma_store4(ty, base + P3_WIDE_OFF + hh * BOX, 0, t0 + i0, h0 + hh, b);
+      tma_store4(ty, base + L::P3_WIDE_OFF + hh * BOX, 0, t0 + i0, h0 + hh, b);
     tma_store_drain();
   }
 }
@@ -1016,28 +1094,30 @@ int encode_tiled(EncodeTiled* fn) {
 
 // A bf16 tensor of `rank` (3 or 4) dims, innermost first, with element
 // strides for dims 1.. and a contiguous dim 0, as a tensor map read in
-// boxes of 64 columns x 64 rows with the 128-byte swizzle. The strides are
-// taken as they are: strided views are read without a copy.
+// boxes of `cols` columns x 64 rows: 64 columns (128-byte rows) in the
+// 128-byte swizzle, 16 columns (32-byte rows) in the 32-byte swizzle. The
+// strides are taken as they are: strided views are read without a copy.
 int encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int rank,
-               const long long* dims, const long long* strides) {
+               const long long* dims, const long long* strides, int cols = 64) {
   cuuint64_t d[4], s[3];
   for (int i = 0; i < rank; ++i) d[i] = cuuint64_t(dims[i]);
   for (int i = 0; i + 1 < rank; ++i) s[i] = cuuint64_t(strides[i]) * 2;
-  const cuuint32_t box[4] = {64, WG_T, 1, 1};
+  const cuuint32_t box[4] = {cuuint32_t(cols), WG_T, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
                               d, s, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP + static_cast<int>(res);
 }
 
-// The wgmma body's conditions: the widths it is compiled for, whole 64-row
-// tiles, its shared memory, and 16-byte aligned rows of x, B, C and y (TMA
-// boxes).
+// The wgmma body's conditions at state width N: whole 64-row tiles, its
+// shared memory, and 16-byte aligned rows of x, B, C and y (TMA boxes).
+template <int N>
 bool wgmma_takes(const Params& p) {
-  if (p.hd != WG_HD || p.n != WG_N || p.chunk % WG_T != 0) return false;
-  if (p1_smem_bytes(p.chunk) > MAX_SMEM || p3_smem_bytes(p.chunk) > MAX_SMEM) return false;
+  if (p.hd != WG_HD || p.n != N || p.chunk % WG_T != 0) return false;
+  if (p1_smem_bytes<N>(p.chunk) > MAX_SMEM || p3_smem_bytes<N>(p.chunk) > MAX_SMEM) return false;
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(p.x) | reinterpret_cast<uintptr_t>(p.bm) |
                          reinterpret_cast<uintptr_t>(p.cm);
   const long long strides = p.x_sb | p.x_ss | p.x_sh | p.b_sb | p.b_ss | p.c_sb | p.c_ss;
@@ -1046,9 +1126,11 @@ bool wgmma_takes(const Params& p) {
          y_strides % 8 == 0;
 }
 
+template <int N>
 int launch_wgmma(const Params& p, const Scratch& sc, int batch, cudaStream_t stream) {
-  if (!wgmma_takes(p) || !sc.cs || !sc.dt || !sc.states || !sc.senter)
+  if (!wgmma_takes<N>(p) || !sc.cs || !sc.dt || !sc.states || !sc.senter)
     return cudaErrorInvalidValue;
+  constexpr int cols = WgN<N>::BOX_COLS;
   EncodeTiled encode;
   int rc = encode_tiled(&encode);
   if (rc != 0) return rc;
@@ -1056,24 +1138,24 @@ int launch_wgmma(const Params& p, const Scratch& sc, int batch, cudaStream_t str
   CUtensorMap tx, tb, tc, ts, ty;
   {
     const long long xd[4] = {WG_HD, p.seqlen, p.nh, batch}, xs[3] = {p.x_ss, p.x_sh, p.x_sb};
-    const long long bd[3] = {WG_N, p.seqlen, batch}, bs[2] = {p.b_ss, p.b_sb};
+    const long long bd[3] = {N, p.seqlen, batch}, bs[2] = {p.b_ss, p.b_sb};
     const long long cs[2] = {p.c_ss, p.c_sb}, ys[3] = {p.y_ss, p.y_sh, p.y_sb};
-    const long long sd[4] = {WG_N, WG_HD, p.nh, (long long)batch * nc};
-    const long long ss[3] = {WG_N, WG_HD * WG_N, (long long)p.nh * WG_HD * WG_N};
+    const long long sd[4] = {N, WG_HD, p.nh, (long long)batch * nc};
+    const long long ss[3] = {N, WG_HD * N, (long long)p.nh * WG_HD * N};
     if ((rc = encode_map(encode, &tx, p.x, 4, xd, xs)) ||
-        (rc = encode_map(encode, &tb, p.bm, 3, bd, bs)) ||
-        (rc = encode_map(encode, &tc, p.cm, 3, bd, cs)) ||
-        (rc = encode_map(encode, &ts, sc.senter, 4, sd, ss)) ||
+        (rc = encode_map(encode, &tb, p.bm, 3, bd, bs, cols)) ||
+        (rc = encode_map(encode, &tc, p.cm, 3, bd, cs, cols)) ||
+        (rc = encode_map(encode, &ts, sc.senter, 4, sd, ss, cols)) ||
         (rc = encode_map(encode, &ty, p.y, 4, xd, ys)))
       return rc;
   }
-  const size_t smem1 = p1_smem_bytes(p.chunk), smem3 = p3_smem_bytes(p.chunk);
+  const size_t smem1 = p1_smem_bytes<N>(p.chunk), smem3 = p3_smem_bytes<N>(p.chunk);
   static size_t granted1 = 48 * 1024, granted3 = 48 * 1024;
-  cudaError_t err = grant_smem(ssd_chunk_states, smem1, granted1);
-  if (err == cudaSuccess) err = grant_smem(ssd_chunk_outputs, smem3, granted3);
+  cudaError_t err = grant_smem(ssd_chunk_states<N>, smem1, granted1);
+  if (err == cudaSuccess) err = grant_smem(ssd_chunk_outputs<N>, smem3, granted3);
   if (err != cudaSuccess) return err;
 
-  ssd_chunk_states<<<dim3(p.nh, nc, batch), P1_THREADS, smem1, stream>>>(p, tx, tb, sc);
+  ssd_chunk_states<N><<<dim3(p.nh, nc, batch), P1_THREADS, smem1, stream>>>(p, tx, tb, sc);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   // phases 2 and 3 by programmatic dependent launch: each may be scheduled
   // while the kernel before it drains, and waits for it in the kernel
@@ -1084,23 +1166,22 @@ int launch_wgmma(const Params& p, const Scratch& sc, int batch, cudaStream_t str
   cfg.stream = stream;
   cfg.attrs = &pdl;
   cfg.numAttrs = 1;
-  const int e4 = WG_HD * WG_N / 4;
-  cfg.gridDim = dim3((e4 + P2_THREADS - 1) / P2_THREADS, batch * p.nh);
+  cfg.gridDim = dim3(WG_HD * N / 4 / P2_THREADS, batch * p.nh);
   cfg.blockDim = dim3(P2_THREADS);
   cfg.dynamicSmemBytes = 0;
-  if ((err = cudaLaunchKernelEx(&cfg, ssd_state_passing, p, sc, nc)) != cudaSuccess) return err;
+  if ((err = cudaLaunchKernelEx(&cfg, ssd_state_passing<N>, p, sc, nc)) != cudaSuccess) return err;
   const int nhg = (p.nh + SCAN_G - 1) / SCAN_G;
   cfg.gridDim = dim3(batch * nc * nhg, p.chunk / WG_T);
   cfg.blockDim = dim3(P3_THREADS);
   cfg.dynamicSmemBytes = smem3;
-  return cudaLaunchKernelEx(&cfg, ssd_chunk_outputs, p, tx, tb, tc, ts, ty, sc);
+  return cudaLaunchKernelEx(&cfg, ssd_chunk_outputs<N>, p, tx, tb, tc, ts, ty, sc);
 }
 
 }  // namespace
 
 // The body is chosen by the caller (ssd_scan.py::body_for): 0 simt
 // (float32 or bfloat16, hd <= 128, any N and chunk whose tiles fit), 1 wgmma
-// (bfloat16, hd 64, N 128, chunk a multiple of 64, rows 16-byte aligned;
+// (bfloat16, hd 64, N 16 or 128, chunk a multiple of 64, rows 16-byte aligned;
 // needs the scratch cs and dtc (B, NH, NC, chunk) float32, states (B, NC,
 // NH, hd, N) float32 and senter (B, NC, NH, hd, N) bf16). A body asked for a case it
 // does not take returns cudaErrorInvalidValue; nothing here picks another
@@ -1132,13 +1213,14 @@ extern "C" int repro_ssd_scan_fwd(
       if (dtype == 0) return dispatch_simt<float>(p, batch, s);
       if (dtype == 1) return dispatch_simt<__nv_bfloat16>(p, batch, s);
       return cudaErrorInvalidValue;
-    case 1:
+    case 1: {
       if (dtype != 1) return cudaErrorInvalidValue;
-      return launch_wgmma(p,
-                          Scratch{static_cast<float*>(cs), static_cast<float*>(dtc),
-                                  static_cast<float*>(states),
-                                  static_cast<__nv_bfloat16*>(senter)},
-                          batch, s);
+      const Scratch sc{static_cast<float*>(cs), static_cast<float*>(dtc),
+                       static_cast<float*>(states), static_cast<__nv_bfloat16*>(senter)};
+      if (n == 128) return launch_wgmma<128>(p, sc, batch, s);
+      if (n == 16) return launch_wgmma<16>(p, sc, batch, s);
+      return cudaErrorInvalidValue;
+    }
     default:
       return cudaErrorInvalidValue;
   }

@@ -7,15 +7,17 @@ dual form (C·Bᵀ ⊙ L)·(dt ⊙ x), the inter-chunk term exp(cs) ⊙ C·Sᵀ,
 the (hd × N) float32 state S carried from chunk to chunk; ngroups = 1, an
 optional initial state, the ragged tail masked.
 
-What bounds it on the card: at the serving shape (B=4, S=512, NH=80,
-hd=64, N=128, chunk 256, bf16) the least time is the memory side, about
-54 MB at 3.35 TB/s = 16 µs; the causal half of the intra-chunk products at
-the bf16 tensor-core rate takes less. The kernel has two bodies, and
+What bounds it on the card: at the Mamba2-2.7B serving shape (B=4, S=512,
+NH=80, hd=64, N=128, chunk 256, bf16) the least time is the memory side,
+about 54 MB at 3.35 TB/s = 16 µs; the causal half of the intra-chunk
+products at the bf16 tensor-core rate takes less. At Hymba-1.5B's (NH=50,
+N=16) it is about 28 MB, 8 µs. The kernel has two bodies, and
 :func:`body_for` names the one a call takes; the C entry launches exactly
 that one or fails:
 
-* ``"wgmma"`` — bf16 at the Mamba2 widths (hd 64, N 128), chunk a multiple
-  of 64, rows 16-byte aligned (the serving path): the SSD algorithm's
+* ``"wgmma"`` — bf16 at hd 64 with N 128 (Mamba2) or N 16 (Hymba), chunk a
+  multiple of 64, rows 16-byte aligned (the serving paths), each of its
+  kernels compiled for both N: the SSD algorithm's
   chunk-parallel split, three kernels in one call. (1) Chunk states in
   parallel over (batch, chunk, head): cs and each chunk's end state from
   zero on ``wgmma``, the weighted x split into a bf16 high and low part so
@@ -28,9 +30,12 @@ that one or fails:
   rounding applied in registers (as the flash kernel rounds P), then the
   products with x and, where a state enters, exp(cs)·C·S_enterᵀ, on
   ``wgmma``, with tiles brought by TMA into shared-memory rings and y
-  written by TMA. The scratch (cs and dt per chunk, the chunk states, the
-  entering states) is allocated here with ``torch.empty``. About 4× its
-  bound at the serving shape; see PERF.md.
+  written by TMA. The tiles of B, C and the entering states are 64 × N:
+  two 64-column boxes in the 128-byte swizzle at N = 128, one 16-column
+  box in the 32-byte swizzle at N = 16. The scratch (cs and dt per chunk,
+  the chunk states, the entering states) is allocated here with
+  ``torch.empty``. About 4× its bound at the Mamba2 serving shape; see
+  PERF.md.
 * ``"simt"`` — every other case (float32, other widths, unaligned views):
   one block per (batch, head) walks the chunks in order carrying S,
   float32 FMAs on the CUDA cores.
@@ -57,14 +62,22 @@ BODIES = ("simt", "wgmma")  # the C entry's body codes 0, 1
 MAX_HEAD_DIM = 128
 MAX_SMEM_BYTES = 232_448  # what one Hopper block may use
 _TILE = 64  # rows per query / key tile, fixed by the compiled kernel
-WGMMA_WIDTHS = (64, 128)  # (hd, N) the wgmma body is compiled for
-# the wgmma body's shared memory (mirrors ssd_scan.cu): 64 x 64 bf16 boxes
-# of 8 KB; phase 1 a ring of 2 (B, x) stages, phase 3 C, 2 wide (16 KB) and
-# 4 narrow (8 KB) slots and cs, dt of SCAN_G = 4 heads; + 1024 to align
+WGMMA_WIDTHS = ((64, 16), (64, 128))  # the (hd, N) the wgmma body is compiled for
+# the wgmma body's shared memory (mirrors ssd_scan.cu): x boxes of 64 x 64
+# bf16 (8 KB), tiles of B, C and the entering states of 64 x N bf16 (2 KB at
+# N = 16, 16 KB at N = 128); phase 1 a ring of 2 (B tile, x box) stages and
+# its 4 barriers, phase 3 C, 2 wide (tile) and 4 narrow (box) slots, its 13
+# barriers and cs, dt of SCAN_G = 4 heads; + 1024 to align
 _BOX = 8192
-_P1_FIXED = 1024 + 2 * 3 * _BOX + 16 * 2
-_P3_FIXED = 1024 + (2 + 2 * 2 + 4) * _BOX + 8 * (1 + 2 * 2 + 2 * 4)
 _SCAN_G = 4
+
+
+def _wgmma_fixed(n: int) -> Tuple[int, int]:
+    """The wgmma body's shared memory besides the per-row floats: phase 1's,
+    phase 3's."""
+    tile = 64 * n * 2
+    return (1024 + 2 * (tile + _BOX) + 16 * 2,
+            1024 + (1 + 2) * tile + 4 * _BOX + 8 * (1 + 2 * 2 + 2 * 4))
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 12  # x, dt, A, B, C, s0, y, sfin; scratch cs, dt, states, senter
@@ -81,9 +94,11 @@ def smem_bytes(chunk: int, hd: int, n: int, body: str = "simt") -> int:
     and the state. ``"wgmma"``: the larger of its chunk-states kernel (a
     ring of two B and x tiles, then dt, cs and the weights over the chunk)
     and its outputs kernel (C, the rings of entering states or B tiles and
-    of x tiles, then cs and dt of a group of heads over the chunk)."""
+    of x tiles, then cs and dt of a group of heads over the chunk), at the
+    ``n`` given."""
     if body == "wgmma":
-        return max(_P1_FIXED + 12 * chunk, _P3_FIXED + 8 * _SCAN_G * chunk)
+        p1, p3 = _wgmma_fixed(n)
+        return max(p1 + 12 * chunk, p3 + 8 * _SCAN_G * chunk)
     qp = -(-chunk // _TILE) * _TILE
     hdp = 16 * next(c for c in (1, 2, 4, 8) if 16 * c >= hd)
     floats = 3 * qp + 2 * _TILE * (n + 1) + _TILE * hdp + _TILE * (_TILE + 1) + hdp * (n + 1)
@@ -92,14 +107,15 @@ def smem_bytes(chunk: int, hd: int, n: int, body: str = "simt") -> int:
 
 def body_for(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, chunk: int) -> str:
     """The body of the kernel that a call takes: ``"wgmma"`` for bf16 x, B
-    and C with (hd, N) == :data:`WGMMA_WIDTHS` and a chunk that is a
+    and C with (hd, N) in :data:`WGMMA_WIDTHS` and a chunk that is a
     multiple of 64 whose tiles fit in shared memory, only where every base
     pointer is 16-byte aligned and every stride is a positive multiple of
     8 elements with the last axis contiguous (TMA boxes); ``"simt"``
     otherwise. A function of shapes, dtypes and strides alone, so the CPU
     tests can ask it too."""
-    if (x.dtype != torch.bfloat16 or (x.shape[-1], Bm.shape[-1]) != WGMMA_WIDTHS
-            or chunk % _TILE or smem_bytes(chunk, *WGMMA_WIDTHS, "wgmma") > MAX_SMEM_BYTES):
+    widths = (x.shape[-1], Bm.shape[-1])
+    if (x.dtype != torch.bfloat16 or widths not in WGMMA_WIDTHS
+            or chunk % _TILE or smem_bytes(chunk, *widths, "wgmma") > MAX_SMEM_BYTES):
         return "simt"
     aligned = all(
         t.data_ptr() % 16 == 0 and t.stride(-1) == 1

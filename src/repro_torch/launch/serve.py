@@ -4,13 +4,16 @@ knob (the counterpart of ``repro/launch/serve.py``).
 Serves the full configuration on the card through the hand-written
 kernels: prefill attention through the flash attention kernel for a dense
 decoder (``qwen2.5-3b``), the SSD chunked scan through its kernel for
-Mamba2 (``mamba2-2.7b``). ``--reduced`` serves ``cfg.reduced()`` instead
+Mamba2 (``mamba2-2.7b``), and both, side by side in every layer, for the
+hybrid Hymba (``hymba-1.5b``). ``--reduced`` serves ``cfg.reduced()`` instead
 (the reference hard-codes it, because it runs on a CPU); the CPU tests
 pass ``reduced=True, device="cpu"``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
       --requests 16 --prompt-len 512 --new-tokens 32 --batch 4 --concurrency 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+      --requests 16 --prompt-len 512 --new-tokens 32 --batch 4 --concurrency 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
       --requests 16 --prompt-len 512 --new-tokens 32 --batch 4 --concurrency 2
 """
 from __future__ import annotations
@@ -37,7 +40,7 @@ def build_engine(
 ) -> ServingEngine:
     """A bf16 serving engine over random weights drawn from a
     ``torch.Generator`` seeded with ``seed``, with the model's kernels on
-    (``use_kernels``: flash attention or the SSD scan in prefill)."""
+    (``use_kernels``: flash attention and/or the SSD scan in prefill)."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -84,8 +87,8 @@ def serve(
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
-                    help="a ported config: a dense decoder (e.g. qwen2.5-3b) or "
-                         "Mamba2 (mamba2-2.7b)")
+                    help="a ported config: a dense decoder (e.g. qwen2.5-3b), "
+                         "Mamba2 (mamba2-2.7b) or the hybrid Hymba (hymba-1.5b)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)

@@ -7,10 +7,10 @@ Three execution paths, in the reference's dispatch order:
               (``repro_torch.kernels.flash_attention``; its plain version
               on CPU tensors);
   * blocked — online softmax over (block_q × block_k) tiles, for long
-              sequences, so the S×S score matrix never materialises;
+              sequences, so the S×S score matrix never materialises; a
+              sliding-window prefill (``_blocked_swa``) visits only the
+              key tiles that cover each query tile's window;
   * direct  — one einsum, for short KV (decode steps, smoke tests).
-The reference's ``_blocked_swa`` (static KV slicing for sliding-window
-prefill) waits for a sliding-window model (ROADMAP queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -49,13 +49,10 @@ def _direct(q, k, v, q_pos, kv_pos, causal, window, scale):
     return torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
 
 
-def _blocked(q, k, v, q_pos, kv_pos, causal, window, scale, bq, bk):
-    """Online-softmax attention over q/kv tiles (flash-style, plain torch)."""
-    b, sq, hkv, g, d = q.shape
-    skv, dv = k.shape[1], v.shape[-1]
-    bq = min(bq, sq)
-    bk = min(bk, skv)
-    pq, pk = (-sq) % bq, (-skv) % bk
+def _pad_to_tiles(q, k, v, q_pos, kv_pos, bq, bk):
+    """Pad the query axis to a multiple of ``bq`` (position 0) and the KV
+    axis to one of ``bk`` (position -1, masked out)."""
+    pq, pk = (-q.shape[1]) % bq, (-k.shape[1]) % bk
     if pq:
         q = F.pad(q, (0, 0, 0, 0, 0, 0, 0, pq))
         q_pos = F.pad(q_pos, (0, pq), value=0)
@@ -63,28 +60,64 @@ def _blocked(q, k, v, q_pos, kv_pos, causal, window, scale, bq, bk):
         k = F.pad(k, (0, 0, 0, 0, 0, pk))
         v = F.pad(v, (0, 0, 0, 0, 0, pk))
         kv_pos = F.pad(kv_pos, (0, pk), value=-1)
-    nq, nk = (sq + pq) // bq, (skv + pk) // bk
+    return q, k, v, q_pos, kv_pos
+
+
+def _online_softmax(qi, qpi, k, v, kv_pos, tiles, bk, causal, window, scale):
+    """One query tile qi (B,bq,Hkv,G,D) against the key tiles ``tiles`` of
+    (padded) k/v, by online softmax in float32; returns (B,bq,Hkv,G,Dv)."""
+    b, bq, hkv, g, _ = qi.shape
+    qi = qi.float()
+    acc = torch.zeros((b, hkv, g, bq, v.shape[-1]), dtype=torch.float32, device=qi.device)
+    mx = torch.full((b, hkv, g, bq), NEG_INF, dtype=torch.float32, device=qi.device)
+    dn = torch.zeros((b, hkv, g, bq), dtype=torch.float32, device=qi.device)
+    for j in tiles:
+        ki = k[:, j * bk:(j + 1) * bk].float()
+        vi = v[:, j * bk:(j + 1) * bk].float()
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qi, ki) * scale
+        m = _mask(qpi, kv_pos[:, j * bk:(j + 1) * bk], causal, window)
+        s = torch.where(m[:, None, None, :, :], s, NEG_INF)
+        mx_new = torch.maximum(mx, s.amax(dim=-1))
+        corr = torch.exp(mx - mx_new)
+        p = torch.exp(s - mx_new[..., None])
+        dn = dn * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vi)
+        mx = mx_new
+    out = acc / torch.clamp_min(dn, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4)
+
+
+def _blocked(q, k, v, q_pos, kv_pos, causal, window, scale, bq, bk):
+    """Online-softmax attention over q/kv tiles (flash-style, plain torch)."""
+    sq, skv = q.shape[1], k.shape[1]
+    bq, bk = min(bq, sq), min(bk, skv)
+    q, k, v, q_pos, kv_pos = _pad_to_tiles(q, k, v, q_pos, kv_pos, bq, bk)
+    nq, nk = q.shape[1] // bq, k.shape[1] // bk
+    out = torch.cat([
+        _online_softmax(q[:, i * bq:(i + 1) * bq], q_pos[:, i * bq:(i + 1) * bq], k, v, kv_pos,
+                        range(nk), bk, causal, window, scale)
+        for i in range(nq)
+    ], dim=1)
+    return out[:, :sq].to(v.dtype)
+
+
+def _blocked_swa(q, k, v, q_pos, kv_pos, window, scale, bq, bk):
+    """Sliding-window causal attention over the key tiles each query tile
+    can see: for a window W and contiguous positions (prefill), query tile
+    i visits the min(⌊(W + bq) / bk⌋ + 2, nk) key tiles from
+    clip(⌊(i·bq − W) / bk⌋, 0, nk − span), O(S·W) work in place of a masked
+    O(S²) grid, as the reference's ``_blocked_swa``."""
+    sq, skv = q.shape[1], k.shape[1]
+    bq, bk = min(bq, sq), min(bk, skv)
+    q, k, v, q_pos, kv_pos = _pad_to_tiles(q, k, v, q_pos, kv_pos, bq, bk)
+    nq, nk = q.shape[1] // bq, k.shape[1] // bk
+    nspan = min((window + bq) // bk + 2, nk)
     blocks = []
     for i in range(nq):
-        qi = q[:, i * bq:(i + 1) * bq].float()  # (B,bq,Hkv,G,D)
-        qpi = q_pos[:, i * bq:(i + 1) * bq]
-        acc = torch.zeros((b, hkv, g, bq, dv), dtype=torch.float32, device=q.device)
-        mx = torch.full((b, hkv, g, bq), NEG_INF, dtype=torch.float32, device=q.device)
-        dn = torch.zeros((b, hkv, g, bq), dtype=torch.float32, device=q.device)
-        for j in range(nk):
-            ki = k[:, j * bk:(j + 1) * bk].float()
-            vi = v[:, j * bk:(j + 1) * bk].float()
-            s = torch.einsum("bqhgd,bkhd->bhgqk", qi, ki) * scale
-            m = _mask(qpi, kv_pos[:, j * bk:(j + 1) * bk], causal, window)
-            s = torch.where(m[:, None, None, :, :], s, NEG_INF)
-            mx_new = torch.maximum(mx, s.amax(dim=-1))
-            corr = torch.exp(mx - mx_new)
-            p = torch.exp(s - mx_new[..., None])
-            dn = dn * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vi)
-            mx = mx_new
-        out = acc / torch.clamp_min(dn, 1e-30)[..., None]
-        blocks.append(out.permute(0, 3, 1, 2, 4))  # (B,bq,Hkv,G,Dv)
+        start = min(max((i * bq - window) // bk, 0), nk - nspan)
+        blocks.append(_online_softmax(
+            q[:, i * bq:(i + 1) * bq], q_pos[:, i * bq:(i + 1) * bq], k, v, kv_pos,
+            range(start, start + nspan), bk, True, window, scale))
     out = torch.cat(blocks, dim=1)
     return out[:, :sq].to(v.dtype)
 
@@ -115,14 +148,15 @@ def attention(
         )
     elif sq * k.shape[1] > rcfg.attn_blocked_threshold**2:
         if causal and isinstance(window, int) and sq == k.shape[1] and window < sq:
-            raise NotImplementedError(
-                "sliding-window blocked prefill (_blocked_swa) waits for a "
-                "sliding-window model: ROADMAP queue 1 item 13"
+            out = _blocked_swa(
+                qg, k, v, q_pos, kv_pos, window, scale,
+                rcfg.attn_block_q, rcfg.attn_block_k,
             )
-        out = _blocked(
-            qg, k, v, q_pos, kv_pos, causal, window, scale,
-            rcfg.attn_block_q, rcfg.attn_block_k,
-        )
+        else:
+            out = _blocked(
+                qg, k, v, q_pos, kv_pos, causal, window, scale,
+                rcfg.attn_block_q, rcfg.attn_block_k,
+            )
     else:
         out = _direct(qg, k, v, q_pos, kv_pos, causal, window, scale)
     return out.reshape(b, sq, hq, v.shape[-1]).to(v.dtype)

@@ -1,5 +1,6 @@
-"""Model assembly for the dense decoder and the Mamba2 (SSM) stack (the
-counterpart of ``repro/models/transformer.py``).
+"""Model assembly for the dense decoder, the Mamba2 (SSM) stack and the
+hybrid attention + Mamba2 stack (the counterpart of
+``repro/models/transformer.py``).
 
 Parameters keep the reference's tree: per-layer tensors carry a leading
 ``layers`` axis, so ``repro_torch.models.convert.params_from_jax`` maps
@@ -14,11 +15,16 @@ Entry points:
 Cache. As in the reference, every cached tensor is bfloat16 whatever the
 compute dtype. A dense model keeps K and V, (L, B, W, Hkv, D), the slot
 axis padded with zeros to ``capacity``; decode writes ring slot ``t % W``
-and masks by ``_ring_kv_pos``. A Mamba2 model keeps no K/V but the SSM
-state ``ssm`` (L, B, nh, hd, N) and the conv state ``conv``
+and masks by ``_ring_kv_pos`` and the layer's window, every layer over the
+one cache width W, window or global. A Mamba2 model keeps no K/V but the
+SSM state ``ssm`` (L, B, nh, hd, N) and the conv state ``conv``
 (L, B, d_conv - 1, conv_dim); prefill stores the float32 final state
 rounded to bf16, and decode widens it to float32, steps, and stores it
-rounded again, at the reference's places. Where the reference builds a
+rounded again, at the reference's places. A hybrid (Hymba) layer keeps
+both: K/V for its attention heads and ``ssm`` / ``conv`` for its Mamba2
+heads, which read the same normed input side by side; their outputs are
+mixed by ``sigmoid(mix_gate)`` in float32 and cast back to the compute
+dtype, as in the reference. Where the reference builds a
 new cache with ``jnp.pad`` and ``dynamic_update_slice``, this port
 preallocates the cache at prefill and writes each layer's entries and
 each step's K/V or states in place, so ``decode_step`` mutates the
@@ -26,9 +32,11 @@ tensors of the cache it is given (the returned dict shares them).
 ``length`` is a Python int, so decode needs no device sync to find its
 slot.
 
-The dense decoder and the pure SSM stack are ported. The MoE, hybrid,
-MLA, encoder-decoder (audio) and M-RoPE (vision) branches raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+The dense decoder, the pure SSM stack and the hybrid stack are ported.
+The MoE, MLA, encoder-decoder (audio) and M-RoPE (vision) branches raise
+``NotImplementedError`` naming the ROADMAP item that ports them. Hymba's
+meta tokens and cross-layer KV sharing are not in the reference, so not
+here either.
 """
 from __future__ import annotations
 
@@ -63,11 +71,6 @@ class ApplyCtx:
 
 def require_ported(cfg: ModelConfig) -> None:
     """Raise for architecture branches this port does not have yet."""
-    if cfg.arch_type == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: the hybrid attention + Mamba2 layer (mixing gate, "
-            "SWA ring decode) waits for ROADMAP queue 1 item 12"
-        )
     waits = {
         "MoE FFN (models/moe.py)": cfg.moe is not None,
         "MLA attention (models/mla.py)": cfg.mla is not None,
@@ -124,12 +127,13 @@ def _layer_specs(cfg: ModelConfig, n: int) -> dict:
     ln1 = ParamSpec((n, cfg.d_model), lx + (None,), init="ones")
     if cfg.arch_type == "ssm":  # the Mamba2 block is the whole mixer
         return {"ln1": ln1, "ssm": ssm.ssm_param_specs(cfg, n)}
-    return {
-        "ln1": ln1,
-        "attn": _attn_specs(cfg, n),
-        "ln2": ParamSpec((n, cfg.d_model), lx + (None,), init="ones"),
-        "ffn": _ffn_specs(cfg, n),
-    }
+    s = {"ln1": ln1, "attn": _attn_specs(cfg, n)}
+    if cfg.arch_type == "hybrid":  # Mamba2 heads beside the attention heads
+        s["ssm"] = ssm.ssm_param_specs(cfg, n)
+        s["mix_gate"] = ParamSpec((n, 2), lx + (None,), init="ones")
+    s["ln2"] = ParamSpec((n, cfg.d_model), lx + (None,), init="ones")
+    s["ffn"] = _ffn_specs(cfg, n)
+    return s
 
 
 def param_specs(cfg: ModelConfig) -> dict:
@@ -213,6 +217,14 @@ def attn_full(
     return out @ ap["wo"].to(x.dtype), (k, v)
 
 
+def _mix(lp: dict, attn_out: torch.Tensor, ssm_out: torch.Tensor, dtype) -> torch.Tensor:
+    """A hybrid layer's ``sigmoid(mix_gate)``-weighted sum of its attention
+    and Mamba2 outputs, in float32 (the reference's float32 gate promotes
+    the products), cast to ``dtype``."""
+    g = torch.sigmoid(lp["mix_gate"].float())
+    return (g[0] * attn_out.float() + g[1] * ssm_out.float()).to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # Full-sequence layer body (prefill)
 # ---------------------------------------------------------------------------
@@ -228,20 +240,26 @@ def layer_full(
 ) -> torch.Tensor:
     """One layer over the whole sequence; returns the new hidden state.
     With ``lcache`` (this layer's cache tensors), writes its entries in
-    place: K/V to slots [0, S), or the SSM and conv states."""
+    place: K/V to slots [0, S), the SSM and conv states, or both."""
     cfg = ctx.cfg
     hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
-    if cfg.arch_type == "ssm":
+
+    def mamba2():
         out, state, proj = ssm.mamba2_prefill(cfg, lp["ssm"], hn, ctx.rcfg)
         if lcache is not None:
             lcache["ssm"].copy_(state)  # rounded to the bf16 cache
             lcache["conv"].copy_(ssm.conv_tail(cfg, proj))
-        return h + out
+        return out
+
+    if cfg.arch_type == "ssm":
+        return h + mamba2()
     attn_out, (k, v) = attn_full(ctx, lp["attn"], hn, positions, window)
     if lcache is not None:
         s = h.shape[1]
         lcache["k"][:, :s] = k
         lcache["v"][:, :s] = v
+    if cfg.arch_type == "hybrid":
+        attn_out = _mix(lp, attn_out, mamba2(), hn.dtype)
     h = h + attn_out
     hn2 = rms_norm(h, lp["ln2"], cfg.norm_eps)
     fp = lp["ffn"]
@@ -288,22 +306,22 @@ def unembed(ctx: ApplyCtx, params, h: torch.Tensor) -> torch.Tensor:
 
 def _empty_cache(cfg: ModelConfig, b: int, w: int, dev) -> Dict[str, torch.Tensor]:
     """The stacked bf16 cache tensors of a batch of ``b`` rows: K/V with
-    ``w`` slots, zero-filled, or an SSM model's states (every layer's
-    prefill overwrites them, so they start uninitialised)."""
+    ``w`` slots, zero-filled, and/or the SSM and conv states of a Mamba2
+    or hybrid model (every layer's prefill overwrites them, so they start
+    uninitialised)."""
     n = cfg.n_layers
-    if cfg.arch_type == "ssm":
+    cache = {}
+    if cfg.arch_type != "ssm":
+        shape = (n, b, w, cfg.n_kv_heads, cfg.resolved_head_dim)
+        cache["k"] = torch.zeros(shape, dtype=KV_DTYPE, device=dev)
+        cache["v"] = torch.zeros(shape, dtype=KV_DTYPE, device=dev)
+    if cfg.arch_type in ("ssm", "hybrid"):
         s = cfg.ssm
         nh = s.n_ssm_heads(cfg.d_model)
         conv_dim = s.inner(cfg.d_model) + 2 * s.d_state
-        return {
-            "ssm": torch.empty((n, b, nh, s.headdim, s.d_state), dtype=KV_DTYPE, device=dev),
-            "conv": torch.empty((n, b, s.d_conv - 1, conv_dim), dtype=KV_DTYPE, device=dev),
-        }
-    shape = (n, b, w, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=KV_DTYPE, device=dev),
-        "v": torch.zeros(shape, dtype=KV_DTYPE, device=dev),
-    }
+        cache["ssm"] = torch.empty((n, b, nh, s.headdim, s.d_state), dtype=KV_DTYPE, device=dev)
+        cache["conv"] = torch.empty((n, b, s.d_conv - 1, conv_dim), dtype=KV_DTYPE, device=dev)
+    return cache
 
 
 def prefill(ctx: ApplyCtx, params, batch, capacity: Optional[int] = None):
@@ -345,18 +363,23 @@ def layer_decode(
     ctx: ApplyCtx, lp: dict, window, lcache: dict, h: torch.Tensor, pos, t: int
 ) -> torch.Tensor:
     """One-token decode through one layer at position ``t``: writes this
-    step's K/V into ring slot ``t % W`` of ``lcache``, or an SSM layer's new
-    states over its old ones (in place), and returns the new hidden state."""
+    step's K/V into ring slot ``t % W`` of ``lcache`` and/or a Mamba2
+    layer's new states over its old ones (in place), and returns the new
+    hidden state."""
     cfg = ctx.cfg
     b = h.shape[0]
     hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
-    if cfg.arch_type == "ssm":
+
+    def mamba2():
         out, st, cv = ssm.mamba2_decode(
             cfg, lp["ssm"], hn, lcache["ssm"].float(), lcache["conv"].to(hn.dtype)
         )
         lcache["ssm"].copy_(st)  # rounded to the bf16 cache
         lcache["conv"].copy_(cv)
-        return h + out
+        return out
+
+    if cfg.arch_type == "ssm":
+        return h + mamba2()
     q, k, v = _qkv(cfg, lp["attn"], hn)
     q, k = _rope_qk(cfg, q, k, pos)
     kc, vc = lcache["k"], lcache["v"]
@@ -369,7 +392,10 @@ def layer_decode(
         q, kc.to(hn.dtype), vc.to(hn.dtype), pos, kv_pos,
         causal=True, window=window, rcfg=ctx.rcfg,
     )
-    h = h + attn_out.reshape(b, 1, -1) @ lp["attn"]["wo"].to(hn.dtype)
+    attn_out = attn_out.reshape(b, 1, -1) @ lp["attn"]["wo"].to(hn.dtype)
+    if cfg.arch_type == "hybrid":
+        attn_out = _mix(lp, attn_out, mamba2(), hn.dtype)
+    h = h + attn_out
     hn2 = rms_norm(h, lp["ln2"], cfg.norm_eps)
     fp = lp["ffn"]
     return h + swiglu(hn2, fp["wg"], fp["wu"], fp["wd"])

@@ -15,7 +15,8 @@ deterministic, and the model's per-use ``.to(dtype)`` is then a no-op).
 What the reference reads in float32 stays float32, since a round trip
 through bf16 would not be exact: the norm weights (``rms_norm`` widens
 them, Mamba2's ``norm_w`` too), Mamba2's ``dt_bias`` (added to the
-float32 dt) and ``A_log`` (cast to float32 before ``exp``).
+float32 dt) and ``A_log`` (cast to float32 before ``exp``), and a hybrid
+layer's ``mix_gate`` (cast to float32 before ``sigmoid``).
 
 Logits reach the host without waiting on other slots
 (``fetch_last``): at dispatch, the last position is cast to float32 and
@@ -35,8 +36,9 @@ from repro_torch.models.transformer import ApplyCtx, decode_step, prefill
 
 # parameters the reference reads in float32 at use: the norm weights
 # (rms_norm widens them), Mamba2's dt_bias (added to the float32 dt) and
-# A_log (cast to float32 before exp)
-_FLOAT32_KEYS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "norm_w", "dt_bias", "A_log")
+# A_log (cast to float32 before exp), the hybrid mix_gate (before sigmoid)
+_FLOAT32_KEYS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "norm_w", "dt_bias", "A_log",
+                 "mix_gate")
 
 
 def cast_for_compute(params: dict, dtype: torch.dtype) -> dict:

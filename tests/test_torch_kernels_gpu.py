@@ -11,9 +11,10 @@ magnitude <= ~2). SSD scan: y in float32 atol max(1e-4, 1e-5 × max|y|)
 (the reference's 1e-4 on the small sweep; summation order only, whose
 error grows with the magnitude of y, up to ~10 at the serving shape), y
 in bfloat16 1e-2 × max|y| (both sides round one float32 result to bf16,
-so they may differ by one bf16 ulp, 2^-7 of the value), and the float32
-final state 1e-4 × max(1, max|S|) (summation order only, in either input
-dtype). dcov: the windows form's Grams within 1e-6 of each episode's
+so they may differ by one bf16 ulp, 2^-7 of the value; the bf16 cases
+also print the worst error in ulps of y, the bf16 values between kernel
+and reference), and the float32 final state 1e-4 × max(1, max|S|)
+(summation order only, in either input dtype). dcov: the windows form's Grams within 1e-6 of each episode's
 max|G| (float32; the kernel sums in the plain version's order without
 fused multiply-adds, so it should agree to the bit, and the bound only
 allows for reordering), and bitwise equal alone and inside a batch; the
@@ -63,6 +64,8 @@ SWEEP = [
     (4, 16, 2, 512, 128, 128, True, None),  # Qwen2.5-3B prefill
     (2, 16, 2, 300, 128, 128, True, None),  # ragged tail in the query and key tiles
     (1, 25, 5, 1536, 64, 64, True, 1024),  # Hymba's widths: GQA group 5, a long window
+    (4, 25, 5, 512, 64, 64, True, 1024),  # Hymba-1.5B serving prefill, B=4 x 512
+    (2, 25, 5, 2048, 64, 64, True, 1024),  # Hymba-1.5B prefill of 2048: the window masks
     (1, 16, 2, 4096, 128, 128, True, None),  # long prefill
     (2, 4, 2, 200, 128, 128, False, None),  # bidirectional, ragged
 ]
@@ -183,7 +186,8 @@ def test_unaligned_views_take_the_general_body(cuda):
 
 
 # (b, s, nh, hd, n, chunk): tests/test_kernels.py's sweep, a ragged tail,
-# the reduced Mamba2 and the Mamba2-2.7B serving shape
+# the reduced Mamba2 and the Mamba2-2.7B serving shape, then Hymba-1.5B's
+# N = 16 (every case with and without an initial state)
 SSD_SWEEP = [
     (1, 32, 2, 16, 8, 8),
     (2, 64, 4, 16, 16, 16),
@@ -195,7 +199,23 @@ SSD_SWEEP = [
     (4, 512, 80, 64, 128, 256),  # Mamba2-2.7B prefill
     (1, 4096, 80, 64, 128, 256),  # 16 chunks at the full width: state passing
     (2, 1000, 8, 64, 128, 64),  # chunk 64, ragged, 16 chunks
+    (4, 512, 50, 64, 16, 256),  # Hymba-1.5B prefill: NH = 50, a ragged head group of 2
+    (1, 300, 4, 64, 16, 256),  # two chunks, ragged tail
+    (2, 200, 3, 64, 16, 64),  # chunk 64, ragged
+    (1, 2048, 50, 64, 16, 256),  # 8 chunks: state passing
+    (2, 1000, 50, 64, 16, 64),  # chunk 64, 16 chunks, ragged
 ]
+
+
+def bf16_ulps(y, y_ref):
+    """The bf16 values between y and y_ref, element by element: the
+    distance of their bit patterns once mapped to a monotone integer
+    scale (sign and magnitude to two's complement)."""
+    def order(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return (order(y) - order(y_ref)).abs()
 
 
 def _ssd_inputs(device, dtype, b, s, nh, hd, n, seed=0, state=False):
@@ -214,12 +234,12 @@ def _ssd_inputs(device, dtype, b, s, nh, hd, n, seed=0, state=False):
 
 def _ssd_body(x, Bm, Cm, chunk):
     """The body body_for names, which must be wgmma exactly where the
-    serving conditions hold (bf16, hd 64, N 128, chunk % 64 == 0,
+    serving conditions hold (bf16, hd 64, N 128 or 16, chunk % 64 == 0,
     16-byte aligned rows)."""
     body = ssd_body_for(x, Bm, Cm, chunk)
     aligned = all(t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:-1])
                   for t in (x, Bm, Cm))
-    want = x.dtype == torch.bfloat16 and x.shape[-1] == 64 and Bm.shape[-1] == 128 \
+    want = x.dtype == torch.bfloat16 and x.shape[-1] == 64 and Bm.shape[-1] in (16, 128) \
         and chunk % 64 == 0 and aligned
     assert body == ("wgmma" if want else "simt")
     return body
@@ -229,6 +249,13 @@ def _ssd_close(y, st, y_ref, st_ref):
     assert y.shape == y_ref.shape and y.dtype == y_ref.dtype and st.dtype == torch.float32
     y_max = y_ref.float().abs().max().item()
     tol = max(1e-4, 1e-5 * y_max) if y.dtype == torch.float32 else 1e-2 * y_max
+    if y.dtype == torch.bfloat16:
+        err = (y.float() - y_ref.float()).abs()
+        at = err.argmax()
+        ulps = bf16_ulps(y, y_ref)
+        print(f"y max_abs_err {err.max().item():.4g} at |y| {y_ref.float().abs().flatten()[at]:.4g}"
+              f" = {ulps.flatten()[at].item()} ulps of y; "
+              f"{(ulps > 1).float().mean().item():.3%} of y more than 1 ulp apart")
     y, y_ref = y.float(), y_ref.float()
     torch.testing.assert_close(y, y_ref, atol=tol, rtol=0)
     torch.testing.assert_close(st, st_ref, atol=1e-4 * max(1.0, st_ref.abs().max().item()),
@@ -253,14 +280,16 @@ def test_ssd_kernel_matches_ref(cuda, b, s, nh, hd, n, chunk, dtype, state):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("nh,hd,n,chunk", [(4, 16, 16, 16), (2, 64, 128, 256), (80, 64, 128, 256)])
+@pytest.mark.parametrize("nh,hd,n,chunk", [(4, 16, 16, 16), (2, 64, 128, 256), (80, 64, 128, 256),
+                                           (50, 64, 16, 256), (50, 64, 16, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("offset", [0, 1])
 def test_ssd_kernel_takes_the_models_strided_views(cuda, nh, hd, n, chunk, dtype, offset):
     """x, B and C as views of one (B, S, conv_dim) tensor, as the model
-    hands them in: the kernel reads them through their strides. With
-    ``offset`` 1 the rows are not 16-byte aligned, which the bf16
-    tensor-core body does not take: the CUDA-core body computes them."""
+    hands them in: the kernel reads them through their strides (Hymba's
+    conv_dim 3232, B and C at 3200 and 3216). With ``offset`` 1 the rows
+    are not 16-byte aligned, which the bf16 tensor-core body does not take:
+    the CUDA-core body computes them."""
     rng = np.random.default_rng(3)
     b, s = 2, 300
     di = nh * hd
@@ -281,7 +310,9 @@ def test_ssd_kernel_takes_the_models_strided_views(cuda, nh, hd, n, chunk, dtype
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", [(4, 512, 80, 64, 128, 256), (1, 4096, 80, 64, 128, 256)])
+@pytest.mark.parametrize("case", [(4, 512, 80, 64, 128, 256), (1, 4096, 80, 64, 128, 256),
+                                  (4, 512, 50, 64, 16, 256), (1, 2048, 50, 64, 16, 256),
+                                  (2, 1000, 50, 64, 16, 64)])
 def test_ssd_wgmma_body_is_deterministic(cuda, case):
     """No float atomics and no order that depends on the schedule: two
     launches on the same inputs give the same bits, y and final state."""

@@ -113,10 +113,10 @@ def test_attention_paths_match_jax(sq, skv, window, threshold):
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b",
                                   "deepseek-v2-236b", "whisper-medium",
-                                  "qwen2-vl-72b", "hymba-1.5b"])
+                                  "qwen2-vl-72b"])
 def test_unported_branches_raise(arch):
     cfg = REGISTRY[arch].reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1[23]"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
         param_specs(cfg)
     ctx = ApplyCtx(cfg, RunConfig())
     with pytest.raises(NotImplementedError):

@@ -201,6 +201,16 @@ def test_wrapper_refuses_tiles_beyond_shared_memory():
         ssd_scan(xb, dt, A, Bb, Cb, chunk=16384)
 
 
+def test_wgmma_shared_memory_at_both_widths():
+    """The wgmma body's shared memory mirrors the CUDA source at N = 128 and
+    N = 16: phase 3 sets it at chunk 256, 1024 of alignment, C and the two
+    wide slots (64 x N bf16 tiles each), four 8 KB x boxes, 13 barriers and
+    cs, dt of four heads over the chunk."""
+    for n, tile in ((128, 16384), (16, 2048)):
+        assert smem_bytes(256, 64, n, "wgmma") == 1024 + 3 * tile + 4 * 8192 + 8 * 13 + 8 * 4 * 256
+    assert smem_bytes(256, 64, 16, "wgmma") < smem_bytes(256, 64, 128, "wgmma")
+
+
 def test_wrapper_refuses_devices_it_cannot_serve():
     """Neither CPU nor CUDA: no silent move, no plain-version fallback."""
     x, dt, A, Bm, Cm = (torch.zeros(s, device="meta") for s in
@@ -327,14 +337,15 @@ def _bf16(*shape):
 
 def _xbc_views(b, s, nh, hd, n, offset=0):
     """x, B and C as views of one (B, S, offset + NH·hd + 2N) tensor, as the
-    model hands them in (row stride 5376 at the Mamba2-2.7B widths)."""
+    model hands them in (row stride 5376 at the Mamba2-2.7B widths, 3232 at
+    Hymba-1.5B's, with B and C at 3200 and 3216)."""
     di = nh * hd
     xbc = _bf16(b, s, offset + di + 2 * n)[..., offset:]
     return xbc[..., :di].reshape(b, s, nh, hd), xbc[..., di:di + n], xbc[..., di + n:]
 
 
-# (x, B, C, chunk, body): the serving shape contiguous and in the model's
-# views, and the cases the wgmma body does not take
+# (x, B, C, chunk, body): the serving shapes (N 128 and N 16) contiguous
+# and in the model's views, and the cases the wgmma body does not take
 SSD_BODY_CASES = [
     ("serving-contiguous", lambda: (_bf16(4, 512, 80, 64), _bf16(4, 512, 128),
                                     _bf16(4, 512, 128)), 256, "wgmma"),
@@ -344,7 +355,19 @@ SSD_BODY_CASES = [
     ("float32", lambda: (torch.zeros(1, 64, 2, 64), torch.zeros(1, 64, 128),
                          torch.zeros(1, 64, 128)), 64, "simt"),
     ("hd-32", lambda: (_bf16(1, 64, 2, 32), _bf16(1, 64, 128), _bf16(1, 64, 128)), 64, "simt"),
-    ("n-16", lambda: (_bf16(1, 64, 2, 64), _bf16(1, 64, 16), _bf16(1, 64, 16)), 64, "simt"),
+    ("n-16", lambda: (_bf16(1, 64, 2, 64), _bf16(1, 64, 16), _bf16(1, 64, 16)), 64, "wgmma"),
+    ("hymba-contiguous", lambda: (_bf16(4, 512, 50, 64), _bf16(4, 512, 16),
+                                  _bf16(4, 512, 16)), 256, "wgmma"),
+    ("hymba-model-views", lambda: _xbc_views(4, 512, 50, 64, 16), 256, "wgmma"),
+    ("hymba-views-chunk-64", lambda: _xbc_views(2, 2048, 50, 64, 16), 64, "wgmma"),
+    ("hymba-one-element-in", lambda: _xbc_views(1, 64, 50, 64, 16, offset=1), 256, "simt"),
+    ("hymba-float32", lambda: (torch.zeros(1, 64, 2, 64), torch.zeros(1, 64, 16),
+                               torch.zeros(1, 64, 16)), 64, "simt"),
+    ("hymba-chunk-96", lambda: _xbc_views(1, 96, 50, 64, 16), 96, "simt"),
+    ("n-32", lambda: (_bf16(1, 64, 2, 64), _bf16(1, 64, 32), _bf16(1, 64, 32)), 64, "simt"),
+    ("n-64", lambda: (_bf16(1, 64, 2, 64), _bf16(1, 64, 64), _bf16(1, 64, 64)), 64, "simt"),
+    ("hd-32-n-16", lambda: (_bf16(1, 64, 2, 32), _bf16(1, 64, 16), _bf16(1, 64, 16)), 64,
+     "simt"),
     ("chunk-96", lambda: (_bf16(1, 96, 2, 64), _bf16(1, 96, 128), _bf16(1, 96, 128)),
      96, "simt"),
     ("one-element-in", lambda: _xbc_views(1, 64, 2, 64, 128, offset=1), 64, "simt"),

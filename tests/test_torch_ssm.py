@@ -189,11 +189,3 @@ def test_prompts_shorter_than_the_conv_window(np_params, prompt_len):
     np.testing.assert_allclose(conv, jcache["main"]["conv"], rtol=CACHE_RTOL, atol=CACHE_ATOL)
     for step, (ref, out) in enumerate(pairs):
         np.testing.assert_allclose(out, ref, atol=ATOL if step == 0 else DECODE_ATOL)
-
-
-def test_hybrid_still_raises():
-    cfg = REGISTRY["hymba-1.5b"].reduced()
-    with pytest.raises(NotImplementedError, match="hybrid.*ROADMAP queue 1 item 12"):
-        param_specs(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        prefill(ApplyCtx(cfg, RunConfig()), {}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
