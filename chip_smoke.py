@@ -7,8 +7,9 @@ GPU, from the root of a checkout:
 Four main paths, each at full size through its kernels: Qwen2.5-3B served
 at full width (prefill attention through ``flash_attention``), Mamba2-2.7B
 served at full width (the SSD chunked scan through ``ssd_scan``), the
-CORAL loop over the 54-cell x 3-seed static grid (its windowed dCor
-through ``dcov``), and Hymba-1.5B served at full width (attention and
+CORAL loop over the 54-cell x 3-seed static grid, the 6 drift cells and
+the 6 fault cells (its windowed dCor through ``dcov``), and Hymba-1.5B
+served at full width (attention and
 Mamba2 heads side by side in every layer: ``flash_attention`` with a
 1024-token window on 29 of its 32 layers and ``ssd_scan`` at N = 16).
 Phases, each of which exits non-zero on failure:
@@ -73,14 +74,22 @@ Phases, each of which exits non-zero on failure:
    ``attention_ref`` on its own inputs, all on the ``wgmma`` bodies; in
    float32 the logits through both kernels against both call sites routed
    to the plain versions (``hybrid_full_width_check``). Then the CORAL
-   slice (the main path of ``dcov``): ``run_matrix`` over the 54 static
-   cells x 3 seeds on the card as one batched call (10 dcov launches),
-   each cell held to ``BENCH_matrix.json`` (configs, flags and counts
-   exactly, floats at rel 1e-12) and its summary; the same cells through
-   the scalar spec, records identical (one launch per ``correlations()``
-   call with n >= 3); dCor of each cell's noise-free landscape through the
-   single-block form, held to its plain version and to its float64
-   version as in phase 2 (54 launches).
+   slice (the main paths of ``dcov``): (a) ``run_matrix`` over the 54
+   static cells x 3 seeds on the card as one batched call (10 dcov
+   launches), each cell held to ``BENCH_matrix.json`` (configs, flags and
+   counts exactly, floats at rel 1e-12) and its summary; (b) the same
+   cells through the scalar spec, records identical (one launch per
+   ``correlations()`` call with n >= 3); (c) dCor of each cell's
+   noise-free landscape through the single-block form, held to its plain
+   version and to its float64 version as in phase 2 (54 launches); (d)
+   the 6 drift cells x 3 seeds x {adaptive, static} as one batched call
+   (64 launches, one per interval) and (e) the 6 fault cells x 3 seeds x
+   {hardened, ablation} as one batched call (40 launches; the ablation's
+   windows hold NaN from dropped samples), each launch's Gram held bit
+   for bit to the plain version on its own inputs, each cell to the
+   record's ``drift_cells`` / ``fault_cells`` and the summary keys; (f)
+   the 12 cells through the scalar spec, records identical to (d) and
+   (e), launches equal to the counted ``correlations()`` calls.
 4. Serve (the serving paths): ``serve()`` at full width, 16 requests,
    prompt 512, 32 new tokens, batch 4, at concurrency 1, then 2, with
    launch counts reset just before and read just after each model's runs;
@@ -94,7 +103,9 @@ Phases, each of which exits non-zero on failure:
    if retire waits on its own slot alone.
 5. Profile (after the counts are read): where a full-width prefill
    (B=4, prompt 512) and a decode step (B=4) of each model, and one
-   batched static CORAL call over the grid, spend their time — wall time,
+   batched CORAL call of each kind (static over the grid, drift over the
+   6 drift cells, fault over the 6 fault cells), spend their time — wall
+   time,
    device-busy time and kernel count from ``torch.profiler``, the idle
    share, and the heaviest kernels; every flash and SSD launch of the
    profiled prefills there on the ``wgmma`` bodies, one per layer (36 for
@@ -1370,32 +1381,77 @@ def static_grid():
     return scenarios.enumerate_cells(workloads=scenarios.FULL_MATRIX_WORKLOADS)
 
 
-def held_to_record(rec, label):
-    """Every cell of ``rec`` against the JAX package's committed record
-    (configs, flags and counts exactly, floats at RECORD_REL), then the
-    static summary."""
+# the record's arrays the port runs, each with its summary keys
+RECORD_FAMILIES = {
+    "cells": ("n_cells", "mean_coral_score", "min_single_target_score",
+              "dual_power_violations", "dual_tau_miss_cells"),
+    "drift_cells": ("n_drift_cells", "min_drift_adaptive_score", "max_drift_static_score",
+                    "min_drift_separation"),
+    "fault_cells": ("n_fault_cells", "min_fault_hardened_score", "fault_power_violations",
+                    "fault_feasible_ablations"),
+}
+
+
+def held_to_record(rec, label, family="cells"):
+    """Every cell of ``rec[family]`` ("cells", "drift_cells" or
+    "fault_cells") against the JAX package's committed record (configs,
+    flags and counts exactly, floats at RECORD_REL), then that family's
+    summary keys."""
     from repro_torch.experiments import matrix
 
     want = json.loads(MATRIX_RECORD.read_text())
-    if len(rec["cells"]) != len(want["cells"]):
-        fail(f"{label}: {len(rec['cells'])} cells against {len(want['cells'])} in the record")
+    got_cells, want_cells = rec[family], want[family]
+    if len(got_cells) != len(want_cells):
+        fail(f"{label}: {len(got_cells)} {family} against {len(want_cells)} in the record")
     diffs, apart = [], 0
-    for got, ref in zip(rec["cells"], want["cells"]):
+    for got, ref in zip(got_cells, want_cells):
         d = matrix.diff_records(got, ref, rel=RECORD_REL)
         apart += bool(d)
         diffs += [f"{got['device']}/{got['model']}/{got['workload']}/{got['regime']}{x}" for x in d]
+    keys = RECORD_FAMILIES[family]
+    summary = {k: rec["summary"][k] for k in keys}
     diffs += ["summary" + x for x in matrix.diff_records(
-        rec["summary"], {k: want["summary"][k] for k in rec["summary"]}, rel=RECORD_REL)]
-    sm = rec["summary"]
-    say(f"  {label}: {len(rec['cells']) - apart} of {len(rec['cells'])} cells equal "
-        f"{MATRIX_RECORD.name} (floats at rel {RECORD_REL}); mean CORAL score "
-        f"{sm['mean_coral_score']:.4f}, min single-target {sm['min_single_target_score']:.4f}, "
-        f"dual power violations {sm['dual_power_violations']}, dual tau-miss cells "
-        f"{sm['dual_tau_miss_cells']}")
+        summary, {k: want["summary"][k] for k in keys}, rel=RECORD_REL)]
+    say(f"  {label}: {len(got_cells) - apart} of {len(got_cells)} {family} equal "
+        f"{MATRIX_RECORD.name} (floats at rel {RECORD_REL}); summary {json.dumps(summary)}")
     for x in diffs[:20]:
         say(f"    differs: {x}")
     if diffs:
-        fail(f"{label}: the static grid does not reproduce {MATRIX_RECORD.name}")
+        fail(f"{label}: the port does not reproduce {MATRIX_RECORD.name} {family}")
+
+
+def held_per_launch(torch, fn, label):
+    """Run ``fn`` with every launch of the dcov windows kernel kept, then
+    hold each launch's Gram against the plain version on its own inputs,
+    bit for bit with NaN at the same places (the comparison launches no
+    kernel of ours). Returns fn's result, the launches and whether a
+    window held NaN in a valid row."""
+    from repro_torch.core import dcov as core_dcov
+    from repro_torch.kernels.dcov import dcov_gram_windows_ref
+
+    kept, gram = [], core_dcov.dcov_gram_windows
+
+    def keep(cols, n_valid):
+        out = gram(cols, n_valid)
+        kept.append((cols.clone(), n_valid.clone(), out))
+        return out
+
+    with mock.patch.object(core_dcov, "dcov_gram_windows", keep):
+        out = fn()
+    apart, nan_windows = 0, 0
+    for cols, n_valid, got in kept:
+        ref = dcov_gram_windows_ref(cols, n_valid)
+        nan = torch.isnan(ref)
+        apart += not (torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan], ref[~nan]))
+        rows = torch.arange(cols.shape[1], device=cols.device)[None, :] < n_valid[:, None]
+        nan_windows += int((torch.isnan(cols).any(dim=2) & rows).any(dim=1).sum())
+    shape = tuple(kept[0][0].shape) if kept else None
+    say(f"  {label}: {len(kept)} windows-kernel launches at (B, W, C) = {shape}, "
+        f"{len(kept) - apart} bitwise equal to the plain version on their own inputs "
+        f"(NaN at the same places); {nan_windows} episode windows held NaN in a valid row")
+    if apart:
+        fail(f"{label}: {apart} dcov windows launches differ from the plain version")
+    return out, len(kept), nan_windows
 
 
 def phase_coral_slice(torch):
@@ -1403,8 +1459,14 @@ def phase_coral_slice(torch):
     one batched call; (b) the same cells through the scalar spec, records
     identical to (a); (c) the ORACLE-scale analysis, dCor of the D knobs
     against (tau, p) over each cell's noise-free landscape, through the
-    single-block kernel and held to its plain version. Launch counts are
-    reset just before and read just after each part."""
+    single-block kernel and held to its plain version; (d) the 6 drift
+    cells x 3 seeds x {adaptive, static}, one batched call of 64 steps;
+    (e) the 6 fault cells x 3 seeds x {hardened, ablation}, one batched
+    call of 40 steps; (f) the 12 cells of (d) and (e) through the scalar
+    spec, records identical to theirs. Launch counts are reset just before
+    and read just after each part; (d) and (e) hold every windows-kernel
+    launch to its plain version on its own inputs. Returns the dcov
+    launches of the three batched main paths, (a), (d) and (e)."""
     import numpy as np
 
     from repro_torch.core.coral import CORAL
@@ -1499,17 +1561,74 @@ def phase_coral_slice(torch):
     if oracle_counts["dcov"] != len(cells) or len(grams) != len(cells):
         fail(f"dcov launched {oracle_counts['dcov']} times in the ORACLE-scale analysis, "
              f"not {len(cells)}")
-    return counts["dcov"]
+
+    main = {"static": counts["dcov"]}
+    for part, family, steps, kw in (
+        ("d", "drift_cells", scenarios.DRIFT_INTERVALS, dict(cells=list(scenarios.MATRIX_DRIFT_CELLS))),
+        ("e", "fault_cells", scenarios.FAULT_INTERVALS,
+         dict(cells=[], fault_cells=scenarios.MATRIX_FAULT_CELLS)),
+    ):
+        torch.cuda.synchronize()
+        runtime.reset_launch_counts()
+        t0 = time.perf_counter()
+        rec, kept, nan_windows = held_per_launch(
+            torch, lambda: matrix.run_matrix(**kw, device="cuda"), f"({part}) {family}")
+        wall = time.perf_counter() - t0
+        part_counts = runtime.launch_counts()
+        n_eps = 6 * len(rec["seeds"]) * 2
+        say(f"  ({part}) run_matrix, {len(rec[family])} {family} x 3 seeds x 2 variants "
+            f"({n_eps} episodes), batched on the card: {wall:.3f} s (phases "
+            f"{json.dumps({k: round(v, 4) for k, v in rec['wall_clock_s'].items() if v > 1e-3})}), "
+            f"launches {part_counts}")
+        if part_counts["dcov"] != steps or kept != steps:
+            fail(f"dcov launched {part_counts['dcov']} times in the batched {family} call, "
+                 f"not {steps} (one per step)")
+        if family == "fault_cells" and nan_windows == 0:
+            fail("no fault ablation window held NaN: the NaN path was not driven")
+        held_to_record(rec, f"({part}) batched", family)
+        main[family] = (part_counts["dcov"], rec)
+
+    calls[0] = 0
+    torch.cuda.synchronize()
+    runtime.reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(CORAL, "correlations", counted):
+        scalar = matrix.run_matrix(list(scenarios.MATRIX_DRIFT_CELLS),
+                                   fault_cells=scenarios.MATRIX_FAULT_CELLS,
+                                   engine="scalar", device="cuda")
+    wall = time.perf_counter() - t0
+    scalar_counts = runtime.launch_counts()
+    apart = [f"{family}{d}" for family in ("drift_cells", "fault_cells")
+             for d in matrix.diff_records(scalar[family], main[family][1][family], rel=0.0)]
+    say(f"  (f) run_matrix, the 12 drift and fault cells through the scalar spec on the card: "
+        f"{wall:.3f} s, launches {scalar_counts} over {calls[0]} correlations() calls with "
+        f"n >= 3; records equal to (d) and (e): {not apart}")
+    if scalar_counts["dcov"] != calls[0] or calls[0] == 0:
+        fail("the scalar spec's dcov launches do not match its correlations() calls")
+    if apart:
+        for x in apart[:20]:
+            say(f"    differs: {x}")
+        fail("the scalar spec's drift and fault records differ from the batched engine's")
+    total = main["static"] + main["drift_cells"][0] + main["fault_cells"][0]
+    say(f"  dcov launches on the main paths: {total} (static {main['static']}, drift "
+        f"{main['drift_cells'][0]}, fault {main['fault_cells'][0]})")
+    return total
 
 
 def phase_coral_profile(torch):
-    """One batched static call over the grid (tables built and moved, T
-    steps on the card, float64 records on the host), and the single-block
-    dcov form at ORACLE scale and at n = 16384, split into its two kernels."""
+    """One batched static call over the grid, one batched drift call over
+    the 6 drift cells and one batched fault call over the 6 fault cells
+    (tables built and moved, T steps on the card, float64 records on the
+    host), and the single-block dcov form at ORACLE scale and at n =
+    16384, split into its two kernels."""
     import numpy as np
 
-    from repro_torch.core.episode import run_static_requests
-    from repro_torch.experiments import matrix
+    from repro_torch.core.episode import (
+        run_drift_requests,
+        run_fault_requests,
+        run_static_requests,
+    )
+    from repro_torch.experiments import matrix, scenarios
     from repro_torch.kernels.dcov import dcov_gram
 
     reqs = [r for c in static_grid() for r in matrix._static_requests(matrix._prep_cell(c), (0, 1, 2))]
@@ -1517,6 +1636,20 @@ def phase_coral_profile(torch):
         torch, f"CORAL batched static call, {len(reqs)} episodes x 10 steps",
         lambda: run_static_requests(reqs, device="cuda"), reps=3)
     say(f"    {launches / 10:.1f} kernels per engine step")
+    seeds, steps = (0, 1, 2), scenarios.DRIFT_INTERVALS
+    reqs = [r for c in scenarios.MATRIX_DRIFT_CELLS for a in (True, False)
+            for r in matrix._drift_requests(matrix._prep_drift_cell(c, steps), seeds, a)]
+    launches = profile_window(
+        torch, f"CORAL batched drift call, {len(reqs)} episodes x {steps} steps",
+        lambda: run_drift_requests(reqs, intervals=steps, device="cuda"), reps=3)
+    say(f"    {launches / steps:.1f} kernels per engine step")
+    steps = scenarios.FAULT_INTERVALS
+    reqs = [r for c in scenarios.MATRIX_FAULT_CELLS for h in (True, False)
+            for r in matrix._fault_requests(matrix._prep_fault_cell(c, steps, seeds), seeds, h)]
+    launches = profile_window(
+        torch, f"CORAL batched fault call, {len(reqs)} episodes x {steps} steps",
+        lambda: run_fault_requests(reqs, iters=steps, device="cuda"), reps=3)
+    say(f"    {launches / steps:.1f} kernels per engine step")
     n_rows, c = DCOV_ORACLE
     rng = np.random.default_rng(0)
     x = torch.from_numpy((rng.normal(size=(n_rows, c)) * np.asarray(DCOV_SCALES[:c])

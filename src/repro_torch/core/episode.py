@@ -1,20 +1,28 @@
-"""Batched episode engine: a batch of static CORAL episodes as one torch
-step over B episodes, looped over T on the device.
+"""Batched episode engine: a batch of CORAL episodes as one torch step
+over B episodes, looped over T on the device.
 
-The port of ``repro.core.episode``'s static path. The reference lifts a
-``lax.scan`` over one episode with ``vmap`` and compiles it; here the
-batch axis is written out, every carry field leads with B, and the step
-runs eagerly T times. Its parts translate one for one:
+The port of ``repro.core.episode``'s static, drift and fault paths. The
+reference lifts a ``lax.scan`` over one episode with ``vmap`` and
+compiles it; here the batch axis is written out, every carry field leads
+with B, and the step runs eagerly T times with no host sync (the host
+reads the results once, after the last step). Three step kinds share the
+pieces below: static (``run_static_requests``: propose → measure →
+observe), drift (``run_drift_requests``: commanded budget, held config,
+CUSUM monitor and bounded re-exploration; adaptive and static ablation
+are (B,) data of one call) and fault (``run_fault_requests``: watchdog
+guard, faulty actuation, the MAD ingest gate; hardened and its blind
+ablation are (B,) data of one call). Their parts translate one for one:
 
   - history: one ``(B, T+W, D+4)`` append-only observation block — config
     values, τ, p, then the clock stamp and grid-row index as exact-
     integer float32 columns. Recording an observation is one indexed
     write over ``arange(B)`` (the reference's ``.at[].set``); the window
     is a (B, W) row gather at ``lo = max(epoch_start, n_obs − W)`` (the
-    reference's ``lax.dynamic_slice``), so unwritten rows are the scalar
-    path's zero padding and the window goes to the same dCor as the scalar
-    spec's (``core.dcov.dcor_all_cols``, one dcov kernel launch per step
-    for the whole batch on the card).
+    reference's ``lax.dynamic_slice``; a drift episode also drops rows
+    older than three halflives on the clock column), so unwritten rows are
+    the scalar path's zero padding and the window goes to the same dCor as
+    the scalar spec's (``core.dcov.dcor_all_cols``, one dcov kernel launch
+    per step for the whole batch on the card).
   - seen tag: one ``(B, N)`` int32 over ``space.grid()`` rows — a row is
     prohibited forever at ``INT_MAX`` (Alg. 1) or visited-this-epoch at
     the current ``epoch_id``; ``tag >= epoch_id`` is the whole revisit
@@ -24,22 +32,27 @@ runs eagerly T times. Its parts translate one for one:
     index on ties, as the reference's does.
   - anchors: best / second / last as (row-index, τ, p, reward) scalars
     with validity flags, replacing ``Observation`` objects; every update
-    is a leaf gate (``where(cond, new, old)``).
-  - the device twin is folded in as data: ``(B, T, N)`` float32
-    measurement tables — the float64 landscape times the seed's exact
-    numpy noise stream, built on the host and moved to the device once —
-    so a measurement is one gather.
+    is a leaf gate (``where(cond, new, old)``), and an observation is
+    gated by ``taken`` (the fault step's ingest gate, the drift step's
+    exploring-or-seed flag).
+  - the device twin is folded in as data: ``(U, T, N)`` float32
+    measurement tables — the float64 landscape (per interval, for drift)
+    times the seed's exact numpy noise stream, with a fault episode's
+    spikes and NaN baked in, built on the host and moved to the device
+    once — so a measurement is one gather; episodes address their table
+    by ``table_id``, and the variants of one (cell, seed) share it.
 
 Decisions run in float32 on the device (``_reward``, Alg. 2 through
-``search.alg2_levels``'s torch branch, the escape argmin); the records
-are float64, rebuilt on the host from the landscape × noise products
-(``_trace_f64``, ``_f64_reward``, ``_f64_result``), so the τ/p traces
+``search.alg2_levels``'s torch branch, the escape argmin, the CUSUM
+monitor, the MAD gate); the records are float64, rebuilt on the host from
+the landscape × noise products (``_trace_f64``, ``fault_trace_f64``,
+``_f64_reward``, ``_f64_result``, ``fault_pick``), so the τ/p traces
 equal the scalar loop's measurements bit for bit. The engine holds the
-scalar spec's selections exactly (tests/test_torch_episode.py).
+scalar spec's selections exactly (tests/test_torch_episode.py,
+tests/test_torch_drift.py, tests/test_torch_faults.py).
 
-Not ported yet: the drift, fault and fleet engines (ROADMAP queue 1
-items 7, 8, 11), and the reference's ``REPRO_CONTRACTS``/``REPRO_CHECKIFY``
-lanes (item 17).
+Not ported yet: the fleet engine (ROADMAP queue 1 item 11), and the
+reference's ``REPRO_CONTRACTS``/``REPRO_CHECKIFY`` lanes (item 17).
 """
 from __future__ import annotations
 
@@ -55,6 +68,7 @@ import torch
 from repro_torch.core import search
 from repro_torch.core.baselines import Outcome
 from repro_torch.core.dcov import dcor_all_cols
+from repro_torch.core.faults import RobustConfig, mad_reject_batch
 from repro_torch.core.space import (
     CONCURRENCY_DIM,
     CORES_DIM_CANDIDATES,
@@ -81,8 +95,27 @@ class EngineSpec:
     device once and selected per episode by ``space_id``."""
 
     spaces: Tuple[ConfigSpace, ...]
-    iters: int  # episode length T
+    iters: int  # episode length T (intervals for drift episodes)
     window: int  # dCor sliding window W
+    drift: bool = False  # epoch-structured drift episode
+    explore_budget: int = 10
+    halflife: Optional[float] = None  # dCor age horizon (drift: window)
+    calibration: int = 8
+    k_sigma: float = 1.25
+    h_sigma: float = 9.0
+    max_retries: int = 2
+    p_min: float = 0.0
+    # fault episodes: static episodes whose measurement tables carry
+    # spikes/NaN and whose actuation path can stick or firmware-reset;
+    # the robustness constants mirror core.faults.RobustConfig (one
+    # hardened-vs-ablation pair shares a call — ``hardened`` itself is
+    # episode data)
+    fault: bool = False
+    gate_g: float = 2.5
+    gate_eps: float = 0.7
+    min_accept: int = 5
+    watchdog: int = 3
+    act_retries: int = 3
 
     @property
     def n(self) -> int:
@@ -175,14 +208,17 @@ def _device_consts(spec: EngineSpec, device: str) -> Dict[str, torch.Tensor]:
 
 
 # ---------------------------------------------------------------------------
-# Carry construction
+# Carry construction and (flat, gated) epoch reset
 # ---------------------------------------------------------------------------
 
 
-def _init_carry(spec: EngineSpec, pad_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+def _init_carry(spec: EngineSpec, ep: Dict, pad_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Fixed-size carry of B episodes, every field leading with B:
     ``hist_sm`` (B, T+W, D+4) float32, ``seen_tag`` (B, N) int32, and
-    (B,) float32 / int32 / bool anchor and bookkeeping scalars."""
+    (B,) float32 / int32 / bool anchor and bookkeeping scalars; a drift
+    episode adds its commanded budget, held config, CUSUM monitor and
+    retry/reset counters, a fault episode the config in force and the
+    watchdog's dark counter."""
     t, w, d = spec.iters, spec.window, spec.d
     b, dev = pad_mask.shape[0], pad_mask.device
     f32, i32 = torch.float32, torch.int32
@@ -190,7 +226,7 @@ def _init_carry(spec: EngineSpec, pad_mask: torch.Tensor) -> Dict[str, torch.Ten
     def full(v, dtype):
         return torch.full((b,), v, dtype=dtype, device=dev)
 
-    return {
+    c = {
         # one (T+W, D+4) observation block per episode: config values, τ,
         # p, then the clock stamp and the grid-row index as exact-integer
         # float32 columns; the leading D+2 columns are the dCor window
@@ -201,7 +237,8 @@ def _init_carry(spec: EngineSpec, pad_mask: torch.Tensor) -> Dict[str, torch.Ten
         "clock": full(0, i32),
         # a row is prohibited forever at INT_MAX (padding rows are born
         # there) or visited this epoch at epoch_id: tag >= epoch_id is the
-        # whole revisit test
+        # whole revisit test, and re-exploration resets it by bumping
+        # epoch_id
         "seen_tag": torch.where(pad_mask, int(_INT_MAX), -1).to(i32),
         "best_idx": full(-1, i32),
         "best_tau": full(0.0, f32),
@@ -221,6 +258,51 @@ def _init_carry(spec: EngineSpec, pad_mask: torch.Tensor) -> Dict[str, torch.Ten
         "probed_for": full(-1, i32),
         "probe_done": full(False, torch.bool),
     }
+    if spec.drift:
+        c.update(
+            p_budget=ep["p_budget0"].clone(),
+            mon_sigma=torch.clamp_min(ep["sigma"], 1e-6),
+            held_idx=full(-1, i32),
+            held_tau=full(0.0, f32),
+            held_p=full(0.0, f32),
+            held_valid=full(False, torch.bool),
+            mon_ref_tau=full(1.0, f32),
+            mon_ref_p=full(1.0, f32),
+            mon_calib=full(0, i32),
+            mon_pos_tau=full(0.0, f32),
+            mon_neg_tau=full(0.0, f32),
+            mon_pos_p=full(0.0, f32),
+            mon_neg_p=full(0.0, f32),
+            mon_active=full(False, torch.bool),
+            retries=full(0, i32),
+            resets=full(0, i32),
+        )
+    if spec.fault:
+        # a rebooted device is on its firmware default row; the watchdog
+        # counter starts calm
+        c.update(applied_idx=ep["boot_idx"].clone(), dark=full(0, i32))
+    return c
+
+
+def _re_explore(c: Dict, cond) -> Dict:
+    """CORAL.re_explore gated by ``cond`` (B,): fresh epoch for anchors,
+    window, probe and revisit state, prohibited memory kept. Revisit
+    tracking resets by bumping ``epoch_id``."""
+    c = dict(c)
+    c["epoch_start"] = torch.where(cond, c["n_obs"], c["epoch_start"])
+    c["epoch_id"] = c["epoch_id"] + cond.to(torch.int32)
+    for name in ("best", "sec", "last"):
+        c[f"{name}_valid"] = c[f"{name}_valid"] & ~cond
+    c["best_r"] = torch.where(cond, -float("inf"), c["best_r"])
+    c["sec_r"] = torch.where(cond, -float("inf"), c["sec_r"])
+    c["aside"] = c["aside"] & ~cond
+    c["probed_for"] = torch.where(cond, -1, c["probed_for"])
+    c["probe_done"] = c["probe_done"] & ~cond
+    if "held_valid" in c:
+        c["held_valid"] = c["held_valid"] & ~cond
+        c["mon_active"] = c["mon_active"] & ~cond
+        c["resets"] = c["resets"] + cond.to(torch.int32)
+    return c
 
 
 # ---------------------------------------------------------------------------
@@ -228,25 +310,68 @@ def _init_carry(spec: EngineSpec, pad_mask: torch.Tensor) -> Dict[str, torch.Ten
 # ---------------------------------------------------------------------------
 
 
+def _feasible(thr, tau, p, tau_target, p_budget):
+    """Feasibility under the current constraints (in throughput mode
+    ``tau_target`` carries the +inf sentinel and is never consulted —
+    matching CORAL._feasible)."""
+    return torch.where(thr, p <= p_budget, (tau >= tau_target) & (p <= p_budget))
+
+
 def _reward(thr, tau, p, tau_target, p_budget):
     """Alg. 1 in float32, spelled as ``core.reward`` spells it:
-    (reward, infeasible)."""
+    (reward, infeasible). For the NaN missing-sample sentinel (the fault
+    ablation swallows it raw) the reward is NaN and nothing is
+    prohibited, as in the scalar ``reward``."""
     infeas = torch.where(thr, p > p_budget, (tau < tau_target) | (p > p_budget))
     penalty = -(p / torch.clamp_min(tau, 1e-9))
     gain = torch.where(thr, tau, tau / torch.clamp_min(p, 1e-9))
     return torch.where(infeas, penalty, gain), infeas
 
 
+def _result(c: Dict, thr, tau_target, p_budget):
+    """CORAL.result() for B episodes: the best feasible observation of the
+    epoch (dual: by τ/p, throughput: by τ), falling back to the epoch's
+    best by reward. Returns (row, τ, p, valid), each (B,)."""
+    taus, powers = c["hist_sm"][:, :, -4], c["hist_sm"][:, :, -3]  # (B, T+W)
+    rows = torch.arange(taus.shape[1], device=taus.device)[None, :]
+    valid = (rows >= c["epoch_start"][:, None]) & (rows < c["n_obs"][:, None])
+    feas = valid & _feasible(
+        thr[:, None], taus, powers, tau_target[:, None], p_budget[:, None]
+    )
+    val = torch.where(thr[:, None], taus, taus / torch.clamp_min(powers, 1e-9))
+    any_feas = feas.any(dim=1)
+    pick = torch.argmax(torch.where(feas, val, -float("inf")), dim=1)
+    ar = torch.arange(taus.shape[0], device=taus.device)
+    idx = torch.where(any_feas, c["hist_sm"][ar, pick, -1].to(torch.int32), c["best_idx"])
+    tau = torch.where(any_feas, taus[ar, pick], c["best_tau"])
+    p = torch.where(any_feas, powers[ar, pick], c["best_p"])
+    return idx, tau, p, any_feas | c["best_valid"]
+
+
+def _window(spec: EngineSpec, k: Dict, c: Dict):
+    """The (B, W, D+2) dCor window and its valid row counts (B,): the
+    rows from ``lo = max(epoch_start, n_obs − W)`` (the reference's
+    ``lax.dynamic_slice``), unwritten rows the scalar path's zero padding.
+    With a halflife, rows older than three halflives on the float32 clock
+    column drop out of the window's front first."""
+    w, d = spec.window, spec.d
+    ar, offs = k["ar"][:, None], k["offs"][None, :]
+    lo = torch.maximum(c["epoch_start"], c["n_obs"] - w)
+    if spec.halflife is not None:
+        horizon = 3.0 * spec.halflife  # compared in float32, as the reference's
+        t_win = c["hist_sm"][ar, lo[:, None] + offs, d + 2]  # (B, W)
+        in_win = offs < (c["n_obs"] - lo)[:, None]
+        fresh = (c["clock"].to(torch.float32)[:, None] - t_win) <= horizon
+        lo = c["n_obs"] - (in_win & fresh).sum(dim=1).to(torch.int32)
+    win = c["hist_sm"][ar, lo[:, None] + offs, : d + 2]
+    return win, c["n_obs"] - lo
+
+
 def _propose(spec: EngineSpec, k: Dict, c: Dict, thr, tau_target, p_budget):
     """CORAL.propose() for B episodes: returns (row indices (B,), probe
     bookkeeping updates)."""
-    w, d = spec.window, spec.d
-    ar = k["ar"]
-    lo = torch.maximum(c["epoch_start"], c["n_obs"] - w)
-    rows = lo[:, None] + torch.arange(w, device=lo.device)[None, :]  # (B, W)
-    win = c["hist_sm"][ar[:, None], rows, : d + 2]  # (B, W, D+2)
-    n_valid = c["n_obs"] - lo
-    corr = dcor_all_cols(win, torch.clamp_min(n_valid, 1), d)  # (B, D, 2)
+    win, n_valid = _window(spec, k, c)
+    corr = dcor_all_cols(win, torch.clamp_min(n_valid, 1), spec.d)  # (B, D, 2)
     uniform = (n_valid < 3)[:, None]
     alpha = torch.where(uniform, 1.0, corr[:, :, 0])
     beta = torch.where(uniform, 1.0, corr[:, :, 1])
@@ -256,10 +381,10 @@ def _propose(spec: EngineSpec, k: Dict, c: Dict, thr, tau_target, p_budget):
 def _propose_tail(spec: EngineSpec, k: Dict, c: Dict, thr, tau_target, p_budget,
                   alpha, beta):
     """Steps 3+ of CORAL.propose — everything downstream of the window
-    correlations. The power floor p_min is run_regime's, 0."""
+    correlations."""
     ar = k["ar"]
     epoch_n = c["n_obs"] - c["epoch_start"]
-    p_min = 0.0
+    p_min = spec.p_min
 
     # ---- power-probe policy (CORAL.propose, budget_aware default) -----
     new_best = c["best_idx"] != c["probed_for"]
@@ -320,20 +445,25 @@ def _propose_tail(spec: EngineSpec, k: Dict, c: Dict, thr, tau_target, p_budget,
     return cand, probe_updates
 
 
-def _observe(k: Dict, c: Dict, cand, tau, p, thr, tau_target, p_budget):
-    """CORAL.observe() for B episodes, in the scalar method's statement
-    order (``aside`` reads the *old* best before the anchors shift). The
-    (B, N) seen tags and the history block are written in place."""
+def _observe(k: Dict, c: Dict, cand, tau, p, thr, tau_target, p_budget, taken):
+    """CORAL.observe() for B episodes gated by ``taken`` (B,), in the
+    scalar method's statement order (``aside`` reads the *old* best
+    before the anchors shift). The (B, N) seen tags and the history
+    block are written in place."""
     c = dict(c)
     ar = k["ar"]
     r, infeas = _reward(thr, tau, p, tau_target, p_budget)
     # one indexed write covers both Alg. 1's prohibit (pin at INT_MAX
     # forever) and the per-epoch revisit tag (raise to epoch_id)
     tag = c["seen_tag"][ar, cand]
-    c["seen_tag"][ar, cand] = torch.where(infeas, int(_INT_MAX), torch.maximum(tag, c["epoch_id"]))
-    c["aside"] = c["best_valid"] & (r <= c["best_r"])
-    improves = ~c["best_valid"] | (r > c["best_r"])
-    to_second = ~improves & (~c["sec_valid"] | (r > c["sec_r"]))
+    c["seen_tag"][ar, cand] = torch.where(
+        infeas & taken,
+        int(_INT_MAX),
+        torch.where(taken, torch.maximum(tag, c["epoch_id"]), tag),
+    )
+    c["aside"] = torch.where(taken, c["best_valid"] & (r <= c["best_r"]), c["aside"])
+    improves = taken & (~c["best_valid"] | (r > c["best_r"]))
+    to_second = taken & ~improves & (~c["sec_valid"] | (r > c["sec_r"]))
     old_best = (c["best_idx"], c["best_tau"], c["best_p"], c["best_r"])
     obs = (cand, tau, p, r)
     for name, bval, oval in zip(("sec_idx", "sec_tau", "sec_p", "sec_r"), old_best, obs):
@@ -341,10 +471,11 @@ def _observe(k: Dict, c: Dict, cand, tau, p, thr, tau_target, p_budget):
     c["sec_valid"] = torch.where(improves, c["best_valid"], c["sec_valid"] | to_second)
     for name, oval in zip(("best_idx", "best_tau", "best_p", "best_r"), obs):
         c[name] = torch.where(improves, oval, c[name])
-    c["best_valid"] = torch.ones_like(c["best_valid"])
+    c["best_valid"] = c["best_valid"] | taken
     for name, oval in zip(("last_idx", "last_tau", "last_p"), obs):
-        c[name] = oval
-    c["last_valid"] = torch.ones_like(c["last_valid"])
+        c[name] = torch.where(taken, oval, c[name])
+    c["last_valid"] = c["last_valid"] | taken
+    n = c["n_obs"]
     obs_row = torch.cat(
         [
             k["grid32"][ar, cand],
@@ -352,44 +483,241 @@ def _observe(k: Dict, c: Dict, cand, tau, p, thr, tau_target, p_budget):
         ],
         dim=1,
     )
-    c["hist_sm"][ar, c["n_obs"]] = obs_row
-    c["n_obs"] = c["n_obs"] + 1
+    c["hist_sm"][ar, n] = torch.where(taken[:, None], obs_row, c["hist_sm"][ar, n])
+    c["n_obs"] = n + taken.to(torch.int32)
     return c
+
+
+def _monitor_update(spec: EngineSpec, c: Dict, tau, p, gate):
+    """DriftMonitor.update for B episodes gated by ``gate`` (B,):
+    running-mean calibration, then two-sided CUSUMs on the fractional
+    (τ, p) residuals, in float32. Returns (carry, tripped)."""
+    c = dict(c)
+    calibrating = c["mon_calib"] < spec.calibration
+    upd = gate & calibrating
+    n = c["mon_calib"].to(torch.float32)
+    c["mon_ref_tau"] = torch.where(upd, (c["mon_ref_tau"] * n + tau) / (n + 1), c["mon_ref_tau"])
+    c["mon_ref_p"] = torch.where(upd, (c["mon_ref_p"] * n + p) / (n + 1), c["mon_ref_p"])
+    c["mon_calib"] = c["mon_calib"] + upd.to(torch.int32)
+    armed = gate & ~calibrating
+    z_tau = (tau / c["mon_ref_tau"] - 1.0) / c["mon_sigma"]
+    z_p = (p / c["mon_ref_p"] - 1.0) / c["mon_sigma"]
+    for name, z in (("tau", z_tau), ("p", z_p)):
+        pos = torch.clamp_min(c[f"mon_pos_{name}"] + z - spec.k_sigma, 0.0)
+        neg = torch.clamp_min(c[f"mon_neg_{name}"] - z - spec.k_sigma, 0.0)
+        c[f"mon_pos_{name}"] = torch.where(armed, pos, c[f"mon_pos_{name}"])
+        c[f"mon_neg_{name}"] = torch.where(armed, neg, c[f"mon_neg_{name}"])
+    h = spec.h_sigma
+    tripped = (
+        (c["mon_pos_tau"] > h) | (c["mon_neg_tau"] > h)
+        | (c["mon_pos_p"] > h) | (c["mon_neg_p"] > h)
+    )
+    return c, armed & tripped
+
+
+# ---------------------------------------------------------------------------
+# Step functions: each returns step(carry, t) -> (carry, per-step outputs)
+# ---------------------------------------------------------------------------
 
 
 def _static_step(spec: EngineSpec, k: Dict, ep: Dict, tables: Dict):
     """run_coral's loop body for B episodes: propose → measure → observe.
     Measuring is a point gather into each episode's (T, N) table."""
     thr, tau_target, p_budget = ep["throughput"], ep["tau_target"], ep["p_budget"]
-    ar = k["ar"]
+    tid = ep["table_id"]
+    always = torch.ones_like(thr)
 
     def step(c, t: int):
         cand, probe_updates = _propose(spec, k, c, thr, tau_target, p_budget)
         c = {**c, **probe_updates}
-        tau, p = tables["tau"][ar, t, cand], tables["p"][ar, t, cand]
-        c = _observe(k, c, cand, tau, p, thr, tau_target, p_budget)
+        tau, p = tables["tau"][tid, t, cand], tables["p"][tid, t, cand]
+        c = _observe(k, c, cand, tau, p, thr, tau_target, p_budget, always)
         c["clock"] = c["clock"] + 1
-        return c, cand
+        return c, {"idx": cand}
 
     return step
 
 
-def _run_static(spec: EngineSpec, ep: Dict, tables: Dict, device) -> np.ndarray:
-    """The batched engine: T steps over B episodes on ``device``; returns
-    the (B, T) chosen grid rows on the host."""
+def _fault_step(spec: EngineSpec, k: Dict, ep: Dict, tables: Dict):
+    """run_fault_regime's loop body for B episodes: watchdog-guarded
+    next_config → faulty actuation → measure the config actually in force
+    → hardened ingest gate → observe. ``ep["hardened"]`` is (B,) data, so
+    hardened runs and their ablations share one call; the fault
+    realization lives in the measurement tables (spikes and NaN baked
+    in) and the per-interval ``stick``/``reset`` actuation streams."""
+    thr, tau_target, p_budget = ep["throughput"], ep["tau_target"], ep["p_budget"]
+    tid = ep["table_id"]
+    hardened = ep["hardened"]
+    retry_budget = hardened.to(torch.int32) * spec.act_retries
+    dev, d = thr.device, spec.d
+    gate_g = torch.tensor(spec.gate_g, dtype=torch.float32, device=dev)
+    gate_eps = torch.tensor(spec.gate_eps, dtype=torch.float32, device=dev)
+
+    def step(c, t: int):
+        # ---- next_config: watchdog guard over the normal proposal -----
+        cand, probe_updates = _propose(spec, k, c, thr, tau_target, p_budget)
+        guard = hardened & (c["dark"] >= spec.watchdog)
+        feas_best = c["best_valid"] & _feasible(
+            thr, c["best_tau"], c["best_p"], tau_target, p_budget
+        )
+        safe = torch.where(feas_best, c["best_idx"], k["min_idx"])
+        cmd = torch.where(guard, safe, cand)
+        c = dict(c)
+        # probe bookkeeping belongs to the taken propose branch only (the
+        # scalar watchdog path returns before propose runs)
+        c["probe_done"] = torch.where(guard, c["probe_done"], probe_updates["probe_done"])
+        c["probed_for"] = torch.where(guard, c["probed_for"], probe_updates["probed_for"])
+
+        # ---- actuation: silently-sticking knobs + firmware resets -----
+        ok = ep["stick"][:, t] <= retry_budget
+        applied = torch.where(ok, cmd, c["applied_idx"])
+        applied = torch.where(ep["reset"][:, t], k["max_idx"], applied)
+        c["applied_idx"] = applied
+
+        # ---- measure the config actually in force ---------------------
+        tau, p = tables["tau"][tid, t, applied], tables["p"][tid, t, applied]
+        # hardened attributes via readback; the ablation trusts the
+        # command — exactly the misattribution the fault cells score
+        attr = torch.where(hardened, applied, cmd)
+
+        # ---- hardened ingest gate (CORAL._robust_reject's math) -------
+        win, n_valid = _window(spec, k, c)
+        missing = ~(torch.isfinite(tau) & torch.isfinite(p))
+        outlier = mad_reject_batch(
+            win[:, :, d], win[:, :, d + 1], n_valid, tau, p, gate_g, gate_eps,
+            spec.min_accept,
+        )
+        taken = ~hardened | ~(missing | outlier)
+        c = _observe(k, c, attr, tau, p, thr, tau_target, p_budget, taken)
+        c["dark"] = torch.where(hardened & ~taken, c["dark"] + 1, 0)
+        c["clock"] = c["clock"] + 1
+        return c, {"idx": cmd, "applied": applied, "taken": taken, "guard": guard}
+
+    return step
+
+
+def _drift_step(spec: EngineSpec, k: Dict, ep: Dict, tables: Dict):
+    """run_drift_regime's loop body for B episodes: commanded budget →
+    next_config → measure → record, with bounded re-exploration on CUSUM
+    triggers. ``ep["adaptive"]`` is (B,) data: the static ablation
+    (monitor off, budget commands ignored) shares the call."""
+    thr, tau_target = ep["throughput"], ep["tau_target"]
+    adaptive = ep["adaptive"]
+    tid = ep["table_id"]
+
+    def step(c, t: int):
+        budget_t = ep["budgets"][:, t]
+        clock0 = c["clock"]
+
+        # ---- commanded budget change (CORAL.set_p_budget) + retry -----
+        # Both pre-measure resets are mutually exclusive (a budget trigger
+        # flips the loop back into exploration, which disarms the retry
+        # check), so one gated re_explore serves both.
+        changed = adaptive & (budget_t != c["p_budget"])
+        exploring0 = (c["n_obs"] - c["epoch_start"]) < spec.explore_budget
+        draw = torch.where(c["mon_active"], c["mon_ref_p"], c["held_p"])
+        trigger_b = changed & ~exploring0 & c["held_valid"] & (draw > budget_t)
+        c = dict(c)
+        c["p_budget"] = torch.where(adaptive, budget_t, c["p_budget"])
+        p_budget = c["p_budget"]
+
+        # infeasible-hold retry: an epoch that ends without a pick
+        # feasible under the *current* constraints spends another
+        # (bounded) exploration epoch instead of monitoring it
+        r_idx, r_tau, r_p, r_valid = _result(c, thr, tau_target, p_budget)
+        h_tau = torch.where(r_valid, r_tau, c["last_tau"])
+        h_p = torch.where(r_valid, r_p, c["last_p"])
+        h_exists = r_valid | c["last_valid"]
+        infeasible = ~h_exists | ~_feasible(thr, h_tau, h_p, tau_target, p_budget)
+        retry = (
+            adaptive & ~trigger_b & ~exploring0 & ~c["held_valid"] & infeasible
+            & (c["retries"] < spec.max_retries)
+        )
+        c = _re_explore(c, trigger_b | retry)
+        c["retries"] = torch.where(trigger_b, 0, c["retries"] + retry.to(torch.int32))
+        exploring = (c["n_obs"] - c["epoch_start"]) < spec.explore_budget
+
+        cand_explore, probe_updates = _propose(spec, k, c, thr, tau_target, p_budget)
+
+        # hold_config: the first non-exploring interval resolves the held
+        # config (epoch best feasible, else last) and arms the monitor.
+        # The retry path above flipped ``exploring`` back on, so the stale
+        # pre-reset result can never arm a hold.
+        h_idx = torch.where(r_valid, r_idx, c["last_idx"])
+        arm = ~exploring & ~c["held_valid"]
+        c["held_idx"] = torch.where(arm, h_idx, c["held_idx"])
+        c["held_tau"] = torch.where(arm, h_tau, c["held_tau"])
+        c["held_p"] = torch.where(arm, h_p, c["held_p"])
+        c["held_valid"] = c["held_valid"] | arm
+        arm_mon = arm & adaptive
+        c["mon_ref_tau"] = torch.where(arm_mon, torch.clamp_min(h_tau, 1e-9), c["mon_ref_tau"])
+        c["mon_ref_p"] = torch.where(arm_mon, torch.clamp_min(h_p, 1e-9), c["mon_ref_p"])
+        c["mon_calib"] = torch.where(arm_mon, 1, c["mon_calib"])
+        for name in ("pos_tau", "neg_tau", "pos_p", "neg_p"):
+            c[f"mon_{name}"] = torch.where(arm_mon, 0.0, c[f"mon_{name}"])
+        c["mon_active"] = c["mon_active"] | arm_mon
+
+        # probe bookkeeping belongs to the *taken* propose branch only
+        c["probe_done"] = torch.where(exploring, probe_updates["probe_done"], c["probe_done"])
+        c["probed_for"] = torch.where(exploring, probe_updates["probed_for"], c["probed_for"])
+        cand = torch.where(exploring, cand_explore, c["held_idx"])
+
+        # ---- measure --------------------------------------------------
+        tau, p = tables["tau"][tid, t, cand], tables["p"][tid, t, cand]
+
+        # ---- record (CORAL.record) ------------------------------------
+        # calm hold: the monitor consumes the re-measurement
+        hold = ~exploring
+        c, tripped = _monitor_update(spec, c, tau, p, hold & c["mon_active"])
+        trig = hold & c["mon_active"] & tripped
+        c = _re_explore(c, trig)
+        c["retries"] = torch.where(trig, 0, c["retries"])
+        # a trigger seeds the fresh epoch with the held config's just-
+        # taken measurement only if it is infeasible; both the seed and
+        # the exploration observation stamp the interval's clock
+        seed_obs = trig & ~_feasible(thr, tau, p, tau_target, p_budget)
+        c = _observe(k, c, cand, tau, p, thr, tau_target, p_budget, exploring | seed_obs)
+        c["clock"] = clock0 + 1
+        return c, {"idx": cand, "exploring": exploring}
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# The batched runner: T steps over B episodes, eagerly, no host sync
+# ---------------------------------------------------------------------------
+
+_FINAL_KEYS = ("n_obs", "epoch_start", "best_idx", "best_valid")
+
+
+def _run(spec: EngineSpec, ep: Dict, tables: Dict, device) -> Dict[str, np.ndarray]:
+    """The batched engine: T steps of the spec's step kind (static, drift
+    or fault) over B episodes on ``device``. Every step's decisions stay
+    on the device; the host reads the stacked (B, T) per-step outputs,
+    the final counters and the history's row and clock columns once,
+    after the last step."""
     consts = _device_consts(spec, str(device))
     sid = ep["space_id"]
     k = {name: v[sid] for name, v in consts.items() if name != "key_tab"}
     k["key_tab"] = consts["key_tab"]
     k["sid"] = sid
     k["ar"] = torch.arange(sid.shape[0], device=sid.device)
-    c = _init_carry(spec, k["pad_mask"])
-    step = _static_step(spec, k, ep, tables)
-    idxs = []
+    k["offs"] = torch.arange(spec.window, device=sid.device)
+    c = _init_carry(spec, ep, k["pad_mask"])
+    make = _drift_step if spec.drift else _fault_step if spec.fault else _static_step
+    step = make(spec, k, ep, tables)
+    outs: Dict[str, list] = {}
     for t in range(spec.iters):
-        c, cand = step(c, t)
-        idxs.append(cand)
-    return torch.stack(idxs, dim=1).cpu().numpy()
+        c, out = step(c, t)
+        for name, v in out.items():
+            outs.setdefault(name, []).append(v)
+    res = {name: torch.stack(v, dim=1) for name, v in outs.items()}
+    res.update({name: c[name] for name in _FINAL_KEYS})
+    if spec.drift:
+        res["resets"] = c["resets"]
+    res["hist_idx"] = c["hist_sm"][:, : spec.iters, -1].to(torch.int32)
+    res["hist_t"] = c["hist_sm"][:, : spec.iters, -2].to(torch.int32)
+    return {name: v.cpu().numpy() for name, v in res.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -406,20 +734,22 @@ def measurement_noise(seed: int, sigma: float, steps: int) -> np.ndarray:
 
 
 def _fill_tables(
-    meas_tau: np.ndarray,  # (B, T, N) float32 batch slot to fill at row b
+    meas_tau: np.ndarray,  # (U, T, N) float32 batch slot to fill at row b
     meas_p: np.ndarray,
     b: int,
-    land_tau: np.ndarray,  # (N0,) float64 landscape
+    land_tau: np.ndarray,  # (T, N0) or (N0,) float64 landscape
     land_p: np.ndarray,
     z: np.ndarray,  # (T, 2) float64 noise
 ) -> None:
-    """Write episode b's float32 measurement tables: the float64
+    """Write table b's float32 measurement tables: the float64
     landscape × noise product, rounded once on assignment — the same
     float64 values the scalar ``measure`` produces, cast to the engine's
-    working precision."""
-    n0 = land_tau.shape[0]
-    meas_tau[b, :, :n0] = np.maximum(land_tau[None, :] * (1.0 + z[:, :1]), 1e-9)
-    meas_p[b, :, :n0] = np.maximum(land_p[None, :] * (1.0 + z[:, 1:]), 1e-9)
+    working precision. A drift landscape has one row per interval."""
+    n0 = land_tau.shape[-1]
+    lt = land_tau if land_tau.ndim == 2 else land_tau[None, :]
+    lp = land_p if land_p.ndim == 2 else land_p[None, :]
+    meas_tau[b, :, :n0] = np.maximum(lt * (1.0 + z[:, :1]), 1e-9)
+    meas_p[b, :, :n0] = np.maximum(lp * (1.0 + z[:, 1:]), 1e-9)
 
 
 def _fill_all(meas_tau, meas_p, reqs, steps) -> List[np.ndarray]:
@@ -448,8 +778,11 @@ def _trace_f64(
     """Float64 measurement trace at the chosen configs — bitwise equal
     to the scalar loop's ``measure`` returns (same product, same
     clamp)."""
-    taus = np.maximum(land_tau[idxs] * (1.0 + z[:, 0]), 1e-9)
-    powers = np.maximum(land_p[idxs] * (1.0 + z[:, 1]), 1e-9)
+    steps = np.arange(idxs.shape[0])
+    lt = land_tau[steps, idxs] if land_tau.ndim == 2 else land_tau[idxs]
+    lp = land_p[steps, idxs] if land_p.ndim == 2 else land_p[idxs]
+    taus = np.maximum(lt * (1.0 + z[:, 0]), 1e-9)
+    powers = np.maximum(lp * (1.0 + z[:, 1]), 1e-9)
     return taus, powers
 
 
@@ -472,6 +805,10 @@ class EpisodeResult:
     powers: List[float]
     rewards: List[float]
     outcome: Outcome
+    exploring: Optional[List[bool]] = None
+    budgets: Optional[List[float]] = None
+    resets: int = 0
+    result_config: Optional[tuple] = None
 
     def trace(self):
         """The episode as an ``evaluate.Trace`` (scalar-loop shape)."""
@@ -577,6 +914,7 @@ def run_static_requests(
     noises = _fill_all(meas_tau, meas_p, reqs, iters)
     ep = {
         "space_id": np.empty(b, np.int64),
+        "table_id": np.arange(b, dtype=np.int64),
         "tau_target": np.empty(b, np.float32),
         "p_budget": np.empty(b, np.float32),
         "throughput": np.empty(b, bool),
@@ -586,13 +924,10 @@ def run_static_requests(
         ep["tau_target"][i] = _engine_tau_target(r["targets"].mode, r["targets"])
         ep["p_budget"][i] = np.float32(r["targets"].p_budget)
         ep["throughput"][i] = r["targets"].mode == "throughput"
-    batch = {name: torch.from_numpy(v).to(device) for name, v in ep.items()}
-    tables = {"tau": torch.from_numpy(meas_tau).to(device),
-              "p": torch.from_numpy(meas_p).to(device)}
-    idx_all = _run_static(spec, batch, tables, device)
+    res = _run(spec, *_to_device(ep, meas_tau, meas_p, device), device)
     out: List[EpisodeResult] = []
     for i, r in enumerate(reqs):
-        idxs = idx_all[i]
+        idxs = res["idx"][i]
         taus, powers = _trace_f64(r["land_tau"], r["land_p"], noises[i], idxs)
         mode = r["targets"].mode
         rewards = _f64_reward(
@@ -614,7 +949,319 @@ def run_static_requests(
                 powers=[float(v) for v in powers],
                 rewards=[float(v) for v in rewards],
                 outcome=outcome,
+                result_config=configs[pick],
             )
+        )
+    return out
+
+
+def _to_device(ep: Dict[str, np.ndarray], meas_tau, meas_p, device):
+    """The per-episode data and the measurement tables on ``device``."""
+    batch = {name: torch.from_numpy(v).to(device) for name, v in ep.items()}
+    tables = {"tau": torch.from_numpy(meas_tau).to(device),
+              "p": torch.from_numpy(meas_p).to(device)}
+    return batch, tables
+
+
+def _dedup_tables(keys: List[tuple]) -> Tuple[np.ndarray, List[int]]:
+    """``table_id`` per request and the first request of each distinct
+    key: requests whose landscape, seed, noise (and fault realization)
+    agree read one shared measurement table."""
+    uniq: Dict[tuple, int] = {}
+    table_ids = np.empty(len(keys), np.int64)
+    firsts: List[int] = []
+    for i, key in enumerate(keys):
+        if key not in uniq:
+            uniq[key] = len(firsts)
+            firsts.append(i)
+        table_ids[i] = uniq[key]
+    return table_ids, firsts
+
+
+def run_drift_requests(
+    reqs: List[dict],
+    intervals: int,
+    explore_budget: int = 10,
+    window: int = 10,
+    device="cuda",
+) -> List[EpisodeResult]:
+    """Run a batch of drift episodes through the batched engine.
+
+    Each request: {space, land_tau (T, N), land_p (T, N), budget_scale
+    (T,), targets, seed, noise, adaptive}. The drift variant (adaptive
+    vs static ablation) is (B,) data, so the whole batch is ONE engine
+    call of ``intervals`` steps on ``device``; the two variants of a
+    (cell, seed) share one measurement table.
+    """
+    if not reqs:
+        return []
+    spaces = _batch_spaces(reqs)
+    spec = EngineSpec(
+        spaces=spaces,
+        iters=intervals,
+        window=window,
+        drift=True,
+        explore_budget=explore_budget,
+        halflife=float(window),
+    )
+    b, n = len(reqs), spec.n
+    table_ids, firsts = _dedup_tables(
+        [(id(r["land_tau"]), id(r["land_p"]), r["seed"], r["noise"]) for r in reqs]
+    )
+    meas_tau = np.zeros((len(firsts), intervals, n), np.float32)
+    meas_p = np.zeros((len(firsts), intervals, n), np.float32)
+    uniq_noises = _fill_all(meas_tau, meas_p, [reqs[i] for i in firsts], intervals)
+    noises = [uniq_noises[table_ids[i]] for i in range(b)]
+    budgets64 = []
+    ep = {
+        "space_id": np.empty(b, np.int64),
+        "table_id": table_ids,
+        "tau_target": np.empty(b, np.float32),
+        "p_budget0": np.empty(b, np.float32),
+        "sigma": np.empty(b, np.float32),
+        "throughput": np.empty(b, bool),
+        "adaptive": np.empty(b, bool),
+        "budgets": np.empty((b, intervals), np.float32),
+    }
+    for i, r in enumerate(reqs):
+        # repro-lint: disable=RL04 — host f64 mirrors the scalar loop's budget trace
+        b64 = r["targets"].p_budget * np.asarray(r["budget_scale"], np.float64)
+        budgets64.append(b64)
+        ep["space_id"][i] = spaces.index(r["space"])
+        ep["tau_target"][i] = _engine_tau_target(r["targets"].mode, r["targets"])
+        ep["p_budget0"][i] = np.float32(r["targets"].p_budget)
+        ep["sigma"][i] = np.float32(r.get("sigma", r["noise"]))
+        ep["throughput"][i] = r["targets"].mode == "throughput"
+        ep["adaptive"][i] = bool(r["adaptive"])
+        ep["budgets"][i] = b64
+    res = _run(spec, *_to_device(ep, meas_tau, meas_p, device), device)
+    out: List[EpisodeResult] = []
+    for i, r in enumerate(reqs):
+        idxs = res["idx"][i]
+        taus, powers = _trace_f64(r["land_tau"], r["land_p"], noises[i], idxs)
+        mode = r["targets"].mode
+        rows = space_rows(r["space"])
+        configs = [rows[int(j)] for j in idxs]
+        # final result: the epoch's history rows re-read in float64. A
+        # history row is an (interval, config) pair, so its measurement is
+        # the trace value at its interval.
+        n_obs = int(res["n_obs"][i])
+        e0 = int(res["epoch_start"][i])
+        h_t = res["hist_t"][i][e0:n_obs]
+        h_idx = res["hist_idx"][i][e0:n_obs]
+        final_budget = (
+            float(budgets64[i][-1]) if r["adaptive"] else float(r["targets"].p_budget)
+        )
+        ep_taus = taus[h_t]
+        ep_powers = powers[h_t]
+        ep_budgets = (
+            budgets64[i][h_t]
+            if r["adaptive"]
+            else np.full(h_t.shape, r["targets"].p_budget)
+        )
+        ep_rewards = _f64_reward(
+            mode, ep_taus, ep_powers, r["targets"].tau_target, ep_budgets
+        )
+        pick = _f64_result(
+            mode, h_idx, ep_taus, ep_powers, ep_rewards,
+            r["targets"].tau_target, final_budget,
+        )
+        if pick is not None:
+            result_config = rows[int(h_idx[pick])]
+            outcome = Outcome(
+                result_config, float(ep_taus[pick]), float(ep_powers[pick]), intervals
+            )
+        elif bool(res["best_valid"][i]):
+            result_config = rows[int(res["best_idx"][i])]
+            outcome = Outcome(result_config, 0.0, 0.0, intervals)
+        else:
+            result_config, outcome = None, Outcome(None, 0.0, 0.0, intervals)
+        out.append(
+            EpisodeResult(
+                configs=configs,
+                taus=[float(v) for v in taus],
+                powers=[float(v) for v in powers],
+                rewards=[],
+                outcome=outcome,
+                exploring=[bool(v) for v in res["exploring"][i]],
+                budgets=[float(v) for v in budgets64[i]],
+                resets=int(res["resets"][i]),
+                result_config=result_config,
+            )
+        )
+    return out
+
+
+def _fill_fault_tables(
+    meas_tau: np.ndarray,  # (U, T, N) float32 batch slot to fill at row u
+    meas_p: np.ndarray,
+    u: int,
+    land_tau: np.ndarray,  # (N0,) float64 stationary landscape
+    land_p: np.ndarray,
+    z: np.ndarray,  # (T, 2) float64 noise
+    ftab,  # realized core.faults.FaultTables
+) -> None:
+    """Write one fault episode's float32 measurement tables: the clean
+    float64 landscape × noise product (same clamp as ``_fill_tables``),
+    then the telemetry-spike factors in float64 — matching
+    ``FaultySimulator.measure``'s op order exactly — then NaN on dropped
+    intervals, cast to float32 once on assignment."""
+    n0 = land_tau.shape[0]
+    tau64 = np.maximum(land_tau[None, :] * (1.0 + z[:, :1]), 1e-9) * ftab.spike[:, 0:1]
+    p64 = np.maximum(land_p[None, :] * (1.0 + z[:, 1:]), 1e-9) * ftab.spike[:, 1:2]
+    meas_tau[u, :, :n0] = np.where(ftab.drop[:, None], np.nan, tau64)
+    meas_p[u, :, :n0] = np.where(ftab.drop[:, None], np.nan, p64)
+
+
+def fault_trace_f64(
+    land_tau: np.ndarray,
+    land_p: np.ndarray,
+    z: np.ndarray,
+    idxs: np.ndarray,  # (T,) applied grid rows
+    ftab,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Float64 telemetry trace at the *applied* configs with the fault
+    realization folded in — bitwise what ``FaultySimulator.measure``
+    returned each interval (NaN on dropped samples)."""
+    taus, powers = _trace_f64(land_tau, land_p, z, idxs)
+    taus = np.where(ftab.drop, np.nan, taus * ftab.spike[:, 0])
+    powers = np.where(ftab.drop, np.nan, powers * ftab.spike[:, 1])
+    return taus, powers
+
+
+def fault_pick(mode, h_idx, taus, powers, tau_target, p_budget) -> Optional[int]:
+    """CORAL.result() over a fault episode's *recorded* history rows.
+
+    NaN rewards (missing samples the ablation swallowed raw) rank below
+    everything in the best-by-reward fallback — deterministic for both
+    engines, since the matrix computes scalar and batched results
+    through this one helper."""
+    rewards = _f64_reward(mode, taus, powers, tau_target, p_budget)
+    rewards = np.where(np.isnan(rewards), -np.inf, rewards)
+    return _f64_result(mode, h_idx, taus, powers, rewards, tau_target, p_budget)
+
+
+def run_fault_requests(
+    reqs: List[dict],
+    iters: int = 40,
+    window: int = 10,
+    robust: Optional[RobustConfig] = None,
+    device="cuda",
+) -> List[dict]:
+    """Run a batch of fault episodes through the batched engine.
+
+    Each request: {space, land_tau (N,), land_p (N,), targets, seed,
+    noise, hardened, and either ``tables`` (a realized
+    ``core.faults.FaultTables``) or ``schedule`` (a ``FaultSchedule``
+    realized here at (iters, seed))}. A hardened run and its ablation
+    that share the same ``tables`` *object* also share one measurement
+    table. The whole batch is ONE engine call of ``iters`` steps on
+    ``device``; ``robust`` sets the hardening constants.
+
+    Returns per-request dicts: the commanded/applied row traces, the
+    float64 telemetry trace (NaN on drops), per-interval accepted /
+    fallback flags, the recorded-history rows, and the final pick
+    (``fault_pick`` over the recorded history — the same helper the
+    scalar cell runner uses).
+    """
+    if not reqs:
+        return []
+    rb = robust if robust is not None else RobustConfig()
+    spaces = _batch_spaces(reqs)
+    spec = EngineSpec(
+        spaces=spaces,
+        iters=iters,
+        window=window,
+        fault=True,
+        gate_g=rb.gate_g,
+        gate_eps=rb.gate_eps,
+        min_accept=rb.min_accept,
+        watchdog=rb.watchdog,
+        act_retries=rb.act_retries,
+    )
+    b, n = len(reqs), spec.n
+    ftabs = [
+        r["tables"] if "tables" in r else r["schedule"].realize(iters, r["seed"])
+        for r in reqs
+    ]
+    table_ids, firsts = _dedup_tables(
+        [(id(r["land_tau"]), id(r["land_p"]), r["seed"], r["noise"], id(ftabs[i]))
+         for i, r in enumerate(reqs)]
+    )
+    meas_tau = np.zeros((len(firsts), iters, n), np.float32)
+    meas_p = np.zeros((len(firsts), iters, n), np.float32)
+    noises = [measurement_noise(r["seed"], r["noise"], iters) for r in reqs]
+    for u, i in enumerate(firsts):
+        _fill_fault_tables(
+            meas_tau, meas_p, u, reqs[i]["land_tau"], reqs[i]["land_p"], noises[i],
+            ftabs[i],
+        )
+    ep = {
+        "space_id": np.empty(b, np.int64),
+        "table_id": table_ids,
+        "tau_target": np.empty(b, np.float32),
+        "p_budget": np.empty(b, np.float32),
+        "throughput": np.empty(b, bool),
+        "hardened": np.empty(b, bool),
+        "boot_idx": np.empty(b, np.int32),
+        "stick": np.empty((b, iters), np.int32),
+        "reset": np.empty((b, iters), bool),
+    }
+    # hardened constraint back-off: the optimizer chases the margin-shrunk
+    # budget (scoring always uses the full one) — the same float64
+    # multiply evaluate.run_fault_regime hands its CORAL
+    eff_budget = [
+        r["targets"].p_budget * (1.0 - rb.p_margin) if r["hardened"]
+        else r["targets"].p_budget
+        for r in reqs
+    ]
+    for i, r in enumerate(reqs):
+        sp = r["space"]
+        ep["space_id"][i] = spaces.index(sp)
+        ep["tau_target"][i] = _engine_tau_target(r["targets"].mode, r["targets"])
+        ep["p_budget"][i] = np.float32(eff_budget[i])
+        ep["throughput"][i] = r["targets"].mode == "throughput"
+        ep["hardened"][i] = bool(r["hardened"])
+        ep["boot_idx"][i] = _space_consts(sp)["max_idx"]
+        ep["stick"][i] = ftabs[i].stick[:iters]
+        ep["reset"][i] = ftabs[i].reset[:iters]
+    res = _run(spec, *_to_device(ep, meas_tau, meas_p, device), device)
+    out: List[dict] = []
+    for i, r in enumerate(reqs):
+        mode = r["targets"].mode
+        rows = space_rows(r["space"])
+        applieds = res["applied"][i]
+        taus, powers = fault_trace_f64(
+            r["land_tau"], r["land_p"], noises[i], applieds, ftabs[i]
+        )
+        n_obs = int(res["n_obs"][i])
+        h_t = res["hist_t"][i][:n_obs]
+        h_idx = res["hist_idx"][i][:n_obs]
+        rec_taus, rec_powers = taus[h_t], powers[h_t]
+        pick = fault_pick(
+            mode, h_idx, rec_taus, rec_powers, r["targets"].tau_target, eff_budget[i]
+        )
+        if pick is not None:
+            result_config = rows[int(h_idx[pick])]
+            outcome = Outcome(
+                result_config, float(rec_taus[pick]), float(rec_powers[pick]), iters
+            )
+        else:
+            result_config, outcome = None, Outcome(None, 0.0, 0.0, iters)
+        out.append(
+            {
+                "commanded": [rows[int(j)] for j in res["idx"][i]],
+                "applied": [rows[int(j)] for j in applieds],
+                "taus": [float(v) for v in taus],
+                "powers": [float(v) for v in powers],
+                "accepted": [bool(v) for v in res["taken"][i]],
+                "fallback": [bool(v) for v in res["guard"][i]],
+                "rec_idx": h_idx.astype(np.int64),
+                "rec_t": h_t.astype(np.int64),
+                "n_obs": n_obs,
+                "result_config": result_config,
+                "outcome": outcome,
+            }
         )
     return out
 

@@ -1,13 +1,14 @@
 """The common evaluation loop (paper Fig. 2): optimizer proposes a config,
 the device applies it and runs inference, measured (τ, p) feed back.
 
-The port of ``repro.core.evaluate`` for the static cells. ``run_coral``
-(and ``run_regime`` over it) is the scalar executable specification: one
-``CORAL`` against a measurable twin, one propose → measure → observe
-round per iteration. The batched engine (``core/episode.py``) is held to
-it config for config. ``run_cell(CellSpec)`` runs one static cell; the
-reference's drift, fault, offload and cotenant loops are not ported yet
-(ROADMAP queue 1 items 7–10), and their cells raise.
+The port of ``repro.core.evaluate`` for the static, drift and fault
+cells. ``run_coral`` (and ``run_regime`` over it), ``run_drift_regime``
+and ``run_fault_regime`` are the scalar executable specification: one
+``CORAL`` against a measurable twin, one round per control interval. The
+batched engine (``core/episode.py``) is held to them config for config.
+``run_cell(CellSpec)`` runs one cell of any of the three families; the
+reference's offload and cotenant loops are not ported yet (ROADMAP queue
+1 items 9 and 10), and their cells raise.
 
 The simulator a loop measures is named ``twin`` here, since ``device`` is
 the torch device the windowed dCor runs on.
@@ -20,6 +21,8 @@ from typing import List, Optional, Sequence
 
 from repro_torch.core.baselines import Outcome
 from repro_torch.core.coral import CORAL
+from repro_torch.core.drift import DriftConfig
+from repro_torch.core.faults import RobustConfig
 from repro_torch.core.space import ConfigSpace
 
 
@@ -56,9 +59,11 @@ class RegimeTargets:
 class CellSpec:
     """One runnable scenario cell, fully specified as data.
 
-    ``cell`` is a ``repro_torch.experiments.scenarios.Cell``; ``iters=None``
-    takes the static measurement budget (10). ``engine`` is "batched" (the
-    episode engine) or "scalar" (the CORAL loop, one episode at a time).
+    ``cell`` is a ``repro_torch.experiments.scenarios.Cell`` (its regime
+    name selects the family); ``iters=None`` takes the family's measurement
+    budget (10 static, ``FAULT_ITERS`` fault; drift cells pace by
+    intervals instead). ``engine`` is "batched" (the episode engine) or
+    "scalar" (the CORAL loop, one episode at a time).
     """
 
     cell: object
@@ -70,29 +75,34 @@ class CellSpec:
 
 @dataclasses.dataclass(frozen=True)
 class CellRecord:
-    """A family-tagged, JSON-ready cell record (``family`` is "static";
-    ``record`` is the matching ``BENCH_matrix`` ``cells`` entry)."""
+    """A family-tagged, JSON-ready cell record (``family`` is "static",
+    "drift" or "fault"; ``record`` is the matching ``BENCH_matrix`` array
+    entry)."""
 
     family: str
     record: dict
 
 
 def run_cell(spec: CellSpec, device="cuda") -> CellRecord:
-    """Run one cell. Static cells run the stationary CORAL-vs-baselines
-    loop; a cell of a family not ported yet raises NotImplementedError
-    naming its ROADMAP item. Imports are lazy — the regime tables and
-    record assemblers live in ``repro_torch.experiments``, which imports
-    this module."""
-    from repro_torch.experiments import matrix
+    """Run one cell. Fault regimes run hardened CORAL against its blind
+    ablation, drift regimes the adaptive-vs-static ablation, stationary
+    regimes the CORAL-vs-baselines loop; a cell of a family not ported
+    yet raises NotImplementedError naming its ROADMAP item. Imports are
+    lazy — the regime tables and record assemblers live in
+    ``repro_torch.experiments``, which imports this module."""
+    from repro_torch.experiments import matrix, scenarios
 
+    cell = spec.cell
+    scenarios.check_ported(cell)
+    kw = dict(seeds=tuple(spec.seeds), window=spec.window, engine=spec.engine,
+              device=device)
+    if cell.regime in scenarios.FAULT_REGIMES:
+        iters = matrix.FAULT_ITERS if spec.iters is None else spec.iters
+        return CellRecord("fault", matrix.run_fault_cell(cell, iters=iters, **kw))
+    if scenarios.REGIMES[cell.regime].dynamic:
+        return CellRecord("drift", matrix.run_drift_cell(cell, **kw))
     iters = 10 if spec.iters is None else spec.iters
-    return CellRecord(
-        "static",
-        matrix.run_static_cell(
-            spec.cell, iters=iters, seeds=tuple(spec.seeds), window=spec.window,
-            engine=spec.engine, device=device,
-        ),
-    )
+    return CellRecord("static", matrix.run_static_cell(cell, iters=iters, **kw))
 
 
 def run_regime(
@@ -168,3 +178,155 @@ def run_coral(
     if res is None:
         return Outcome(None, 0.0, 0.0, iters), tr
     return Outcome(res.config, res.tau, res.power, iters), tr
+
+
+@dataclasses.dataclass
+class DriftTrace:
+    """Per-interval record of a drift run: what was applied, what was
+    measured, and whether the optimizer was exploring or holding."""
+
+    configs: List[tuple]
+    taus: List[float]
+    powers: List[float]
+    exploring: List[bool]
+    budgets: List[float]  # effective p_budget at each interval
+    resets: int = 0
+
+
+def run_drift_regime(
+    space: ConfigSpace,
+    twin,  # a DriftingSimulator (or anything with set_time + measure)
+    targets: RegimeTargets,
+    schedule,  # repro_torch.device.hw.DriftSchedule
+    intervals: int,
+    explore_budget: int = 10,
+    window: int = 10,
+    seed: int = 0,
+    adaptive: bool = True,
+    sigma: float = 0.05,
+    device="cuda",
+) -> tuple[CORAL, DriftTrace]:
+    """Closed loop over a non-stationary device twin.
+
+    Each control interval advances the device's drift clock, applies the
+    optimizer's next config (a proposal while exploring, the held config
+    while monitoring) and feeds the measurement back. ``adaptive=False``
+    is the static ablation: one exploration epoch, then hold forever with
+    the change-point monitor off — the one-shot tuning that PolyThrottle
+    shows breaking under changing operating conditions.
+
+    Budget steps are *commanded*, not detected: the loop reads the
+    schedule's ``budget_scale`` each interval and notifies the adaptive
+    optimizer via ``set_p_budget``; the static ablation is oblivious (it
+    keeps running against the stale budget, and is scored against the
+    real one).
+    """
+    drift = DriftConfig(
+        explore_budget=explore_budget,
+        sigma=sigma,
+        monitor=adaptive,
+        halflife=float(window),
+    )
+    opt = CORAL(
+        space,
+        targets.tau_target,
+        targets.p_budget,
+        window=window,
+        seed=seed,
+        mode=targets.mode,
+        drift=drift,
+        device=device,
+    )
+    tr = DriftTrace([], [], [], [], [])
+    for t in range(intervals):
+        twin.set_time(t)
+        budget_t = targets.p_budget * schedule.state_at(t).budget_scale
+        if adaptive and budget_t != opt.p_budget:
+            opt.set_p_budget(budget_t)
+        cfg = opt.next_config()
+        # read the flag *after* next_config: an infeasible-epoch retry
+        # flips the optimizer back into exploration and returns a probe,
+        # which must not be logged (and scored) as a held operating point
+        tr.exploring.append(opt.exploring)
+        tau, p = twin.measure(cfg)
+        opt.record(cfg, tau, p)
+        tr.configs.append(tuple(cfg))
+        tr.taus.append(tau)
+        tr.powers.append(p)
+        tr.budgets.append(budget_t)
+    tr.resets = opt.state.resets
+    return opt, tr
+
+
+@dataclasses.dataclass
+class FaultTrace:
+    """Per-interval record of a fault run: what was commanded, what was
+    actually in force, what came back over telemetry, and what the
+    hardened ingest did with it."""
+
+    commanded: List[tuple]
+    applied: List[tuple]
+    taus: List[float]
+    powers: List[float]
+    accepted: List[bool]  # sample survived the hardened ingest gate
+    fallback: List[bool]  # watchdog held the safe config this interval
+
+
+def run_fault_regime(
+    space: ConfigSpace,
+    twin,  # a FaultySimulator (set_time + actuate + measure)
+    targets: RegimeTargets,
+    iters: int = 40,
+    window: int = 10,
+    seed: int = 0,
+    hardened: bool = True,
+    robust=None,
+    device="cuda",
+) -> tuple[CORAL, FaultTrace]:
+    """Closed loop over a fault-injected device twin — the scalar
+    executable specification of ``episode.run_fault_requests``.
+
+    Each control interval: the optimizer commands a config; the
+    actuation path applies it (or silently sticks / firmware-resets —
+    the hardened controller retries up to ``robust.act_retries`` times,
+    the ablation writes blind); the twin measures the config *actually
+    in force*, possibly spiking or dropping the sample in transit.
+    Hardened CORAL attributes the measurement to the readback config and
+    runs it through the robust ingest gate; the non-hardened ablation
+    attributes it to the *commanded* config and swallows it raw —
+    exactly the two failure couplings the fault cells score.
+    """
+    rb = robust if robust is not None else RobustConfig()
+    # hardened constraint back-off: chase the margin-shrunk budget so
+    # boundary noise cannot flip an over-budget config to feasible
+    # (scoring upstream always uses the full budget)
+    p_budget = targets.p_budget * (1.0 - rb.p_margin) if hardened else targets.p_budget
+    opt = CORAL(
+        space,
+        targets.tau_target,
+        p_budget,
+        window=window,
+        seed=seed,
+        mode=targets.mode,
+        robust=rb if hardened else None,
+        device=device,
+    )
+    tr = FaultTrace([], [], [], [], [], [])
+    for t in range(iters):
+        twin.set_time(t)
+        # read the watchdog *before* next_config: that is the state the
+        # batched step's guard sees for this interval
+        guarded = hardened and opt._dark >= rb.watchdog
+        cmd = opt.next_config()
+        applied = twin.actuate(cmd, retries=rb.act_retries if hardened else 0)
+        tau, p = twin.measure(applied)
+        attr = applied if hardened else cmd
+        n_before = len(opt.state.history)
+        opt.record(attr, tau, p)
+        tr.commanded.append(tuple(cmd))
+        tr.applied.append(tuple(applied))
+        tr.taus.append(tau)
+        tr.powers.append(p)
+        tr.accepted.append(len(opt.state.history) > n_before)
+        tr.fallback.append(guarded)
+    return opt, tr

@@ -1,9 +1,15 @@
 """``build_twin``: one constructor for the device twin a cell calls for.
 
-The port of ``repro.device.factory`` for the static cells: a stationary
-regime builds a ``DeviceSimulator``. The reference's other families
-(drift, fault, offload, cotenant twins) raise ``NotImplementedError``
-naming the ROADMAP item that ports each (``scenarios.check_static``).
+The port of ``repro.device.factory``. A cell's regime name alone decides
+which twin is built:
+
+  stationary regime  → ``DeviceSimulator``         (single-model edge)
+  drift regime       → ``DriftingSimulator``       (non-stationary wrap)
+  fault regime       → ``FaultySimulator``         (fault-injected wrap)
+
+The reference's offload and cotenant twins are not ported yet: their
+cells raise ``NotImplementedError`` naming the ROADMAP item that ports
+each (``scenarios.check_ported``).
 
 Imports from ``repro_torch.experiments.scenarios`` are lazy: the regime
 tables live in experiments (they are calibration data, not device
@@ -23,5 +29,9 @@ def build_twin(cell, noise: Optional[float] = None, seed: int = 0):
     """
     from repro_torch.experiments import scenarios as sc
 
-    sc.check_static(cell)
+    sc.check_ported(cell)
+    if cell.regime in sc.FAULT_REGIMES:
+        return sc.fault_cell_simulator(cell, noise=noise, seed=seed)
+    if sc.REGIMES[cell.regime].dynamic:
+        return sc.drifting_cell_simulator(cell, noise=noise, seed=seed)
     return sc.cell_simulator(cell, noise=noise, seed=seed)

@@ -7,15 +7,23 @@ efficiency/contention parameters needed to turn a model's FLOP/byte
 footprint into ``RooflineTerms`` — the unit the scenario matrix
 enumerates over (the paper's "Xavier NX vs Orin Nano" axis).
 
-A plain copy of ``repro.device.hw`` up to the profile registry. The
-reference's drift schedules (``DriftSchedule`` and its events) wait for
-the drift episodes (ROADMAP queue 1 item 7), its fleet sampling
-(``FleetPerturbation``, ``sample_perturbations``) for the fleet (item 11).
+``DriftSchedule`` describes how a device's operating conditions change
+over a run: thermal-throttle ramps (per-level clock derating plus
+static-power inflation), co-tenant interference steps (host slowdown and
+extra per-stream memory contention), and power-budget steps. A schedule
+is a pure function of the control-interval clock ``t``, applied to a
+simulator by ``repro_torch.device.simulator.DriftingSimulator``.
+
+A plain copy of ``repro.device.hw`` up to its drift schedules. The
+reference's fleet sampling (``ConstantDerate``, ``FleetPerturbation``,
+``sample_perturbations``) waits for the fleet (ROADMAP queue 1 item 11).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional, Tuple
+
+import numpy as np
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,3 +192,175 @@ def get_profile(name: str) -> DeviceProfile:
             f"unknown device profile {name!r}; known: {sorted(DEVICE_PROFILES)}"
         )
     return DEVICE_PROFILES[name]
+
+
+# ---------------------------------------------------------------------------
+# Non-stationary operating conditions: drift schedules
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DriftState:
+    """The device's operating condition at one control interval.
+
+    ``clock_derate``/``mem_derate`` are the fractional loss of *delivered*
+    accelerator/memory clock at the top DVFS level (throttling scales
+    quadratically with the requested level, so racing the clock loses more
+    than idling at the bottom of the ladder — the per-level shape real
+    thermal governors produce). ``static_inflation`` inflates the idle
+    power draw (hot silicon leaks more). ``host_inflation`` and
+    ``kappa_add`` model a co-tenant stealing host cycles and DRAM
+    bandwidth. ``budget_scale`` rescales the external power budget — a
+    commanded change, not a device property, so the control loop reads it
+    from the schedule rather than detecting it.
+    """
+
+    clock_derate: float = 0.0
+    mem_derate: float = 0.0
+    static_inflation: float = 0.0
+    host_inflation: float = 0.0
+    kappa_add: float = 0.0
+    budget_scale: float = 1.0
+
+    @property
+    def stationary(self) -> bool:
+        return self == DRIFT_NONE
+
+
+DRIFT_NONE = DriftState()
+
+
+@dataclasses.dataclass(frozen=True)
+class ThermalRamp:
+    """Thermal throttling: derating ramps linearly over ``duration``
+    intervals starting at ``start`` and then holds."""
+
+    start: int
+    duration: int = 6
+    clock_derate: float = 0.30
+    mem_derate: float = 0.15
+    static_inflation: float = 0.30
+
+    def state_at(self, t: int) -> DriftState:
+        ramp = min(max((t - self.start) / max(self.duration, 1), 0.0), 1.0)
+        return DriftState(
+            clock_derate=ramp * self.clock_derate,
+            mem_derate=ramp * self.mem_derate,
+            static_inflation=ramp * self.static_inflation,
+        )
+
+    @property
+    def end(self) -> int:
+        return self.start + self.duration
+
+
+@dataclasses.dataclass(frozen=True)
+class CotenantStep:
+    """A co-located job lands at ``start`` (and leaves at ``until`` if
+    set): host preprocessing slows down, per-stream DRAM contention
+    rises, and the co-tenant's own draw shows up on the shared power
+    rail — the Fulcrum concurrent-workload setting."""
+
+    start: int
+    host_inflation: float = 0.8
+    kappa_add: float = 0.12
+    static_inflation: float = 0.0  # co-tenant draw, as a fraction of idle
+    until: Optional[int] = None
+
+    def state_at(self, t: int) -> DriftState:
+        active = t >= self.start and (self.until is None or t < self.until)
+        if not active:
+            return DRIFT_NONE
+        return DriftState(
+            host_inflation=self.host_inflation,
+            kappa_add=self.kappa_add,
+            static_inflation=self.static_inflation,
+        )
+
+    @property
+    def end(self) -> int:
+        return self.start
+
+
+@dataclasses.dataclass(frozen=True)
+class BudgetStep:
+    """The external power budget is rescaled at ``start`` — an operator
+    command (e.g. battery-saver or a rack-level cap), carried on the same
+    drift clock so the control loop sees it at the interval it lands."""
+
+    start: int
+    scale: float = 0.8
+
+    def state_at(self, t: int) -> DriftState:
+        if t < self.start:
+            return DRIFT_NONE
+        return DriftState(budget_scale=self.scale)
+
+    @property
+    def end(self) -> int:
+        return self.start
+
+
+DriftEvent = object  # ThermalRamp | CotenantStep | BudgetStep
+
+
+@dataclasses.dataclass(frozen=True)
+class DriftSchedule:
+    """A set of drift events composed over the control-interval clock.
+
+    Additive terms (derates, inflations, contention) sum and clip;
+    ``budget_scale`` factors multiply. ``shift_start``/``shift_end``
+    bracket the non-stationary transient for scoring (recovery windows
+    are measured from ``shift_start``; "fully shifted" means
+    ``t >= shift_end``).
+    """
+
+    events: Tuple[DriftEvent, ...] = ()
+
+    def state_at(self, t: int) -> DriftState:
+        clock = mem = static = host = kappa = 0.0
+        budget = 1.0
+        for ev in self.events:
+            s = ev.state_at(t)
+            clock += s.clock_derate
+            mem += s.mem_derate
+            static += s.static_inflation
+            host += s.host_inflation
+            kappa += s.kappa_add
+            budget *= s.budget_scale
+        return DriftState(
+            clock_derate=min(clock, 0.9),
+            mem_derate=min(mem, 0.9),
+            static_inflation=static,
+            host_inflation=host,
+            kappa_add=kappa,
+            budget_scale=budget,
+        )
+
+    @property
+    def shift_start(self) -> int:
+        return min((ev.start for ev in self.events), default=0)
+
+    @property
+    def shift_end(self) -> int:
+        return max((ev.end for ev in self.events), default=0)
+
+    def states_stacked(self, intervals: int) -> Dict[str, "object"]:
+        """Per-interval drift vectors for a batched control loop.
+
+        Returns (intervals,)-shaped float64 numpy arrays of every
+        ``DriftState`` field — ``state_at(t)`` evaluated once per
+        interval up front, so the batched episode engine (and the
+        batched post-shift scoring) can index arrays instead of calling
+        back into Python per interval.
+        """
+        states = [self.state_at(t) for t in range(intervals)]
+        return {
+            f.name: np.asarray(
+                [getattr(s, f.name) for s in states], np.float64
+            )
+            for f in dataclasses.fields(DriftState)
+        }
+
+
+NO_DRIFT = DriftSchedule(())

@@ -9,10 +9,13 @@ The simulator is parameterized by RooflineTerms from a model's analytic
 footprint (``build_cell_simulator``) or by synthetic terms in unit tests.
 A plain numpy copy of ``repro.device.simulator``: the noise stays numpy
 ``default_rng``, draw for draw, so the port's episodes see the reference's
-measurements exactly.
+measurements exactly. ``DriftingSimulator`` (the drift cells' time-varying
+twin) and ``FaultySimulator`` (the fault cells' fault-injected twin) wrap
+a ``DeviceSimulator`` on a control-interval clock.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -21,6 +24,8 @@ from repro_torch.core.space import Config, ConfigSpace
 from repro_torch.device.hw import (
     DEFAULT_HW,
     DeviceProfile,
+    DriftSchedule,
+    DriftState,
     TPUv5eSpec,
 )
 from repro_torch.device.perfmodel import (
@@ -101,23 +106,227 @@ class DeviceSimulator:
 
 
 class DriftingSimulator:
-    """The time-varying twin of the drift cells: not ported yet (ROADMAP
-    queue 1 item 7, drift episodes)."""
+    """A time-varying device twin: the wrapped simulator's delivered
+    clocks, host speed, stream contention and static power follow a
+    ``DriftSchedule`` on a control-interval clock.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "DriftingSimulator is not ported yet (ROADMAP queue 1 item 7)"
+    ``set_time`` advances the clock; ``exact``/``measure``/``exact_all``
+    evaluate at the current interval, so the same object serves both the
+    noisy device the optimizer sees and (wrapped around a noise-free
+    base) the ground-truth twin that scores it — including the post-shift
+    oracle, which is just ``set_time(t_end)`` + the usual batched sweep.
+
+    Drift semantics (see ``repro_torch.device.hw.DriftState``):
+      - thermal throttling reduces the *delivered* clock by
+        ``derate · f_rel`` of itself — quadratic in the requested level,
+        so high DVFS points lose disproportionately more throughput;
+      - dynamic power still follows the *requested* DVFS point (the
+        governor throttles by duty-cycling, the rail voltage stays
+        commanded) while static power inflates with temperature —
+        post-shift, racing the clock costs the same watts for less τ;
+      - a co-tenant inflates host time and per-stream DRAM contention;
+      - ``budget_scale`` is carried but not applied here: budgets are an
+        external constraint, the control loop reads them off the schedule.
+    """
+
+    def __init__(self, base: DeviceSimulator, schedule: DriftSchedule):
+        self.base = base
+        self.space = base.space
+        self.schedule = schedule
+        self.noise = base.noise
+        self.rng = base.rng
+        self.n_measurements = 0
+        self.t = 0
+        self._state = schedule.state_at(0)
+        self._models: Dict[Tuple[float, float], Tuple[PerfModel, PowerModel]] = {}
+
+    def set_time(self, t: int) -> None:
+        self.t = int(t)
+        self._state = self.schedule.state_at(self.t)
+
+    @property
+    def state(self) -> DriftState:
+        return self._state
+
+    def _drifted_models(
+        self, state: DriftState
+    ) -> Tuple[PerfModel, PowerModel]:
+        key = (state.host_inflation, state.kappa_add)
+        if key not in self._models:
+            base_perf = self.base.perf
+            terms = dataclasses.replace(
+                base_perf.terms,
+                t_host=base_perf.terms.t_host * (1.0 + state.host_inflation),
+            )
+            perf = PerfModel(
+                terms,
+                base_perf.hw,
+                base_perf.contention_kappa + state.kappa_add,
+            )
+            self._models[key] = (perf, PowerModel(perf, base_perf.hw))
+        return self._models[key]
+
+    def _idle_power(self) -> float:
+        hw = self.base.perf.hw
+        n = self.base.perf.terms.n_chips
+        n_hosts = max(n // hw.chips_per_host, 1)
+        return n * hw.p_idle_chip + n_hosts * hw.p_host_idle
+
+    def exact_all(
+        self, configs: Optional[np.ndarray] = None
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Noise-free (τ, p) arrays at the current drift clock."""
+        if configs is None:
+            configs = self.space.grid()
+        grid = np.asarray(configs, np.float64)
+        cols = canon_columns(self.space.names, grid)
+        state = self._state
+        perf, power_model = self._drifted_models(state)
+        hw = perf.hw
+        f_rel = cols["tpu_freq"] / hw.nominal_tpu_freq
+        m_rel = cols["hbm_freq"] / hw.nominal_hbm_freq
+        delivered = dict(cols)
+        delivered["tpu_freq"] = cols["tpu_freq"] * (
+            1.0 - state.clock_derate * f_rel
         )
+        delivered["hbm_freq"] = cols["hbm_freq"] * (
+            1.0 - state.mem_derate * m_rel
+        )
+        tau, util, mem_frac = perf.stats_batch(delivered)
+        p = power_model.power_batch(cols, util, mem_frac)
+        p = p + state.static_inflation * self._idle_power()
+        return tau, p
+
+    def landscapes(
+        self, intervals: int, configs: Optional[np.ndarray] = None
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Stacked noise-free (τ, p) landscapes for intervals 0..T-1:
+        two (T, N) float64 arrays, row t bitwise-equal to ``set_time(t)``
+        + ``exact_all``. Drift schedules are piecewise constant (a ramp
+        holds after ``duration`` intervals), so the sweep runs once per
+        *unique* ``DriftState`` and rows are fanned back out — the
+        array-native replacement for per-interval ``set_time`` round
+        trips in both the batched episode engine and post-shift
+        scoring. The drift clock is restored afterwards."""
+        t_saved = self.t
+        states = [self.schedule.state_at(t) for t in range(intervals)]
+        unique: Dict[DriftState, int] = {}
+        rows = np.empty(intervals, np.int64)
+        taus, ps = [], []
+        try:
+            for t, s in enumerate(states):
+                if s not in unique:
+                    unique[s] = len(taus)
+                    self.t = t
+                    self._state = s
+                    tau, p = self.exact_all(configs)
+                    taus.append(tau)
+                    ps.append(p)
+                rows[t] = unique[s]
+        finally:
+            self.set_time(t_saved)
+        return np.stack(taus)[rows], np.stack(ps)[rows]
+
+    def exact(self, config: Config) -> Tuple[float, float]:
+        tau, p = self.exact_all(np.asarray([config], np.float64))
+        return float(tau[0]), float(p[0])
+
+    def measure(self, config: Config) -> Tuple[float, float]:
+        tau, p = self.exact(config)
+        self.n_measurements += 1
+        if self.noise:
+            tau *= 1.0 + self.rng.normal(0.0, self.noise)
+            p *= 1.0 + self.rng.normal(0.0, self.noise)
+        return max(tau, 1e-9), max(p, 1e-9)
+
+    def measure_all(
+        self, configs: Optional[np.ndarray] = None
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        if configs is None:
+            configs = self.space.grid()
+        tau, p = self.exact_all(configs)
+        self.n_measurements += tau.size
+        if self.noise:
+            z = self.rng.normal(0.0, self.noise, size=(tau.size, 2))
+            tau = tau * (1.0 + z[:, 0])
+            p = p * (1.0 + z[:, 1])
+        return np.maximum(tau, 1e-9), np.maximum(p, 1e-9)
 
 
 class FaultySimulator:
-    """The fault-injected twin of the fault cells: not ported yet (ROADMAP
-    queue 1 item 8, fault episodes)."""
+    """A faulty device twin: a stationary simulator wrapped with realized
+    ``FaultTables`` (``core.faults``) on a control-interval clock — the
+    fault-family analogue of ``DriftingSimulator``.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "FaultySimulator is not ported yet (ROADMAP queue 1 item 8)"
-        )
+    The *device* is stationary; what breaks is everything around it:
+
+      ``measure``  returns the base twin's noisy sample scaled by the
+          interval's telemetry-spike factors, or (NaN, NaN) on a sensor
+          dropout. The base noise stream still advances on dropped
+          intervals (the sample was taken, it just never arrived), so
+          fault and fault-free runs stay draw-for-draw aligned — the
+          batched engine's fault tables bake the identical values.
+      ``actuate``  models the knob write path: the commanded config takes
+          effect only if the interval's failed-attempt count is within
+          the caller's retry budget (hardened readback+retry passes
+          ``RobustConfig.act_retries``; the blind ablation passes 0),
+          otherwise the knob silently sticks at the previous applied
+          config. A firmware reset then snaps to the default row (the
+          ``max_power`` preset) regardless. Returns the config actually
+          in force; ``readback`` re-reads it without side effects.
+      ``exact``/``exact_all`` stay the *fault-free* ground truth — what
+          the device genuinely does at a config — which is exactly what
+          oracle scoring must use.
+    """
+
+    def __init__(self, base: DeviceSimulator, tables):
+        self.base = base
+        self.space = base.space
+        self.tables = tables
+        self.noise = base.noise
+        self.rng = base.rng
+        self.n_measurements = 0
+        self.t = 0
+        # a rebooted device comes up on its firmware default row
+        self._applied = self.space.preset("max_power")
+
+    def set_time(self, t: int) -> None:
+        self.t = int(t)
+
+    @property
+    def pod_down(self) -> bool:
+        """True while the edge→pod link outage is active (serving layer)."""
+        return bool(self.tables.pod_out[self.t])
+
+    def actuate(self, config: Config, retries: int = 0) -> Config:
+        """Attempt to apply ``config`` with ``retries`` extra attempts;
+        returns the config actually in force afterwards."""
+        if int(self.tables.stick[self.t]) <= int(retries):
+            self._applied = tuple(config)
+        if bool(self.tables.reset[self.t]):
+            self._applied = self.space.preset("max_power")
+        return self._applied
+
+    def readback(self) -> Config:
+        return self._applied
+
+    def exact(self, config: Config) -> Tuple[float, float]:
+        return self.base.exact(config)
+
+    def exact_all(
+        self, configs: Optional[np.ndarray] = None
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        return self.base.exact_all(configs)
+
+    def measure(self, config: Config) -> Tuple[float, float]:
+        tau, p = self.base.measure(config)
+        self.n_measurements += 1
+        t = self.t
+        tau *= float(self.tables.spike[t, 0])
+        p *= float(self.tables.spike[t, 1])
+        if bool(self.tables.drop[t]):
+            return float("nan"), float("nan")
+        return tau, p
 
 
 def synthetic_terms(kind: str = "balanced", n_chips: int = 256) -> RooflineTerms:

@@ -16,16 +16,23 @@ All optimizer selections run against the *noisy* device (the 1-second
 tegrastats-style samples CORAL actually sees); all scoring runs against
 the noise-free twin.
 
-The port of ``repro.experiments.matrix`` for the static cells. Episode
-engines: ``engine="batched"`` (default) runs every CORAL episode of the
-call through the batched engine (``core/episode.py``) as one request
-batch — on the card, T steps, one dcov kernel launch each — and
-``engine="scalar"`` runs the CORAL loop one episode at a time (one dcov
-launch per ``correlations()`` call with n ≥ 3). Both engines produce
+The port of ``repro.experiments.matrix`` for the static, drift and fault
+cells. Episode engines: ``engine="batched"`` (default) runs every CORAL
+episode of a family through the batched engine (``core/episode.py``) as
+one request batch — on the card, T steps, one dcov kernel launch each —
+and ``engine="scalar"`` runs the CORAL loop one episode at a time (one
+dcov launch per ``correlations()`` call with n ≥ 3). Both engines produce
 identical records, and both reproduce the reference's committed record,
-``BENCH_matrix.json`` ``cells`` (``diff_records``). The reference's
-drift, offload, cotenant and fault cells raise ``NotImplementedError``
-naming their ROADMAP items.
+``BENCH_matrix.json`` ``cells``, ``drift_cells`` and ``fault_cells``
+(``diff_records``).
+
+Beyond the static grid: dynamic (drift) cells run drift-adaptive CORAL
+against its static (one-shot) ablation through the same drifting twin,
+scored against the post-shift oracle; fault cells run hardened CORAL
+(MAD ingest gate, watchdog fallback, actuation readback and retry)
+against its blind ablation through the same fault-injected twin, scored
+against the fault-free oracle. The reference's offload and cotenant
+cells raise ``NotImplementedError`` naming their ROADMAP items.
 """
 from __future__ import annotations
 
@@ -33,25 +40,41 @@ import math
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
+
 from repro_torch.core.baselines import Outcome, alert, alert_online, oracle, preset
 from repro_torch.core.episode import (
     alert_online_outcome,
     preset_outcome,
+    run_drift_requests,
+    run_fault_requests,
     run_static_requests,
 )
 from repro_torch.core.evaluate import (
     RegimeTargets,
     Trace,
     measurements_to_feasible,
+    run_drift_regime,
+    run_fault_regime,
     run_regime,
 )
+from repro_torch.core.space import row_index
 from repro_torch.device.factory import build_twin
+from repro_torch.device.simulator import FaultySimulator
 from repro_torch.experiments.scenarios import (
+    DRIFT_INTERVALS,
+    DRIFT_SHIFT_START,
+    FAULT_INTERVALS,
+    FAULT_REGIMES,
+    MATRIX_FAULT_CELLS,
     REGIMES,
     WORKLOADS,
     Cell,
-    check_static,
+    _fault_base_cell,
+    check_ported,
     enumerate_cells,
+    fault_tables,
+    resolve_fault_targets,
     resolve_targets,
 )
 
@@ -310,39 +333,609 @@ def run_static_cell(
     return _cell_record(cell, prep, runs, iters, seeds, engine)
 
 
+# Fault cells run the FAULT_INTERVALS timeline (explore → fault window →
+# recover) and are scored against the *fault-free* oracle: the question
+# is what the chosen config actually delivers once the glitch is gone,
+# so both scoring and the oracle use the base cell's noise-free twin.
+# Acceptance levels (tests/test_torch_faults.py holds the record to them):
+# hardened CORAL must hold ≥ FAULT_CORAL_GATE of the fault-free oracle
+# with zero true power busts on every cell, while the non-hardened
+# ablation — same twin, same fault realization — must end infeasible or
+# violating on every (cell, seed).
+FAULT_ITERS = FAULT_INTERVALS
+FAULT_CORAL_GATE = 0.85
+
+
+def _prep_fault_cell(cell: Cell, iters: int, seeds: Sequence[int]) -> dict:
+    """Fault-cell precompute: the *base* cell's noise-free twin (faults
+    corrupt the measurement/actuation path, so ground truth is the clean
+    landscape), the base regime's targets, the fault-free oracle, and
+    one realized fault-table set per seed — shared by the hardened run,
+    the ablation, and both engines, so every comparison sees the same
+    glitches."""
+    base = _fault_base_cell(cell)
+    sim0 = build_twin(base, noise=0.0)
+    targets = resolve_fault_targets(cell)
+    land_tau, land_p = sim0.exact_all()
+    oracle_ref = oracle(sim0.space, sim0, targets.tau_target, targets.p_budget)
+    return {
+        "sim0": sim0,
+        "space": sim0.space,
+        "targets": targets,
+        "land_tau": land_tau,
+        "land_p": land_p,
+        "oracle": oracle_ref,
+        "noise": WORKLOADS[cell.workload].noise,
+        "tables": {s: fault_tables(cell, s, intervals=iters) for s in seeds},
+    }
+
+
+def _fault_requests(
+    prep: dict, seeds: Sequence[int], hardened: bool
+) -> List[dict]:
+    return [
+        {
+            "space": prep["space"],
+            "land_tau": prep["land_tau"],
+            "land_p": prep["land_p"],
+            "targets": prep["targets"],
+            "seed": seed,
+            "noise": prep["noise"],
+            "tables": prep["tables"][seed],
+            "hardened": hardened,
+        }
+        for seed in seeds
+    ]
+
+
+def _scalar_fault_runs(
+    cell: Cell,
+    prep: dict,
+    seeds: Sequence[int],
+    hardened: bool,
+    iters: int,
+    window: int,
+    device,
+) -> List[dict]:
+    """Per-seed CORAL fault loops of the scalar spec, normalized to the
+    engine's run shape."""
+    runs = []
+    for seed in seeds:
+        twin = FaultySimulator(
+            build_twin(_fault_base_cell(cell), seed=seed), prep["tables"][seed]
+        )
+        opt, tr = run_fault_regime(
+            prep["space"], twin, prep["targets"], iters=iters, window=window,
+            seed=seed, hardened=hardened, device=device,
+        )
+        res = opt.result()
+        runs.append(
+            {
+                "outcome": (
+                    Outcome(res.config, res.tau, res.power, iters)
+                    if res is not None
+                    else Outcome(None, 0.0, 0.0, iters)
+                ),
+                "accepted": list(tr.accepted),
+                "fallback": list(tr.fallback),
+            }
+        )
+    return runs
+
+
+def _fault_variant_record(
+    prep: dict, runs: List[dict], seeds: Sequence[int]
+) -> dict:
+    """Score one variant (hardened or ablation) from per-seed run shapes.
+    Everything is evaluated on the fault-free twin: the fault episode
+    decided *which* config got picked; what that config truly delivers
+    is a property of the clean landscape."""
+    sim0, targets, oracle_ref = prep["sim0"], prep["targets"], prep["oracle"]
+    scores: List[float] = []
+    misses: List[bool] = []
+    busts: List[bool] = []
+    failed: List[bool] = []  # ended infeasible (no pick or violating pick)
+    fallbacks: List[int] = []
+    rejected: List[int] = []
+    best: Optional[Tuple[float, float, float, tuple]] = None
+    for run in runs:
+        out = run["outcome"]
+        if out.config is None:
+            scores.append(0.0)
+            misses.append(True)
+            busts.append(False)
+            failed.append(True)
+        else:
+            tau, power = sim0.exact(out.config)
+            miss, bust = _violations(tau, power, targets)
+            s = 0.0 if (miss or bust) else _score(
+                tau, power, targets.mode, oracle_ref
+            )
+            scores.append(s)
+            misses.append(miss)
+            busts.append(bust)
+            failed.append(bool(miss or bust))
+            if not (miss or bust) and (best is None or s > best[0]):
+                best = (s, tau, power, tuple(out.config))
+        fallbacks.append(int(sum(run["fallback"])))
+        rejected.append(len(run["accepted"]) - int(sum(run["accepted"])))
+    n = len(seeds)
+    return {
+        "score": sum(scores) / n,
+        "score_min": min(scores),
+        "score_floor": round(max(0.0, min(scores) - SCORE_FLOOR_MARGIN), 4),
+        "violation_rate": sum(a or b for a, b in zip(misses, busts)) / n,
+        "power_violations": int(sum(busts)),
+        # per-seed "ended infeasible or violating" count — the ablation
+        # gate requires failed_runs == n_runs on every fault cell
+        "n_runs": n,
+        "failed_runs": int(sum(failed)),
+        "fallback_intervals": sum(fallbacks) / n,
+        "rejected_samples": sum(rejected) / n,
+        "tau": best[1] if best else 0.0,
+        "power": best[2] if best else 0.0,
+        "config": list(best[3]) if best else None,
+    }
+
+
+def _fault_cell_record(
+    cell: Cell,
+    prep: dict,
+    hardened_runs: List[dict],
+    ablation_runs: List[dict],
+    iters: int,
+    seeds: Sequence[int],
+) -> dict:
+    regime = FAULT_REGIMES[cell.regime]
+    targets = prep["targets"]
+    return {
+        "device": cell.device,
+        "model": cell.model,
+        "workload": cell.workload,
+        "regime": cell.regime,
+        "mode": targets.mode,
+        "tau_target": targets.tau_target,
+        "p_budget": targets.p_budget if targets.capped else None,
+        "space_size": prep["space"].size(),
+        "fault": {
+            "schedule": regime.fault,
+            "base_regime": regime.base,
+            "intervals": iters,
+        },
+        "oracle": {
+            "config": (
+                list(prep["oracle"].config) if prep["oracle"].config else None
+            ),
+            "tau": prep["oracle"].tau,
+            "power": prep["oracle"].power,
+            "measurements": prep["oracle"].measurements,
+        },
+        "hardened": _fault_variant_record(prep, hardened_runs, seeds),
+        "ablation": _fault_variant_record(prep, ablation_runs, seeds),
+    }
+
+
+def run_fault_cell(
+    cell: Cell,
+    iters: int = FAULT_ITERS,
+    seeds: Sequence[int] = (0, 1, 2),
+    window: int = 10,
+    engine: str = "batched",
+    device="cuda",
+) -> dict:
+    """One fault-injection cell → one JSON-ready record (a
+    ``BENCH_matrix.json`` ``fault_cells`` entry).
+
+    Runs hardened CORAL (robust ingest gate + watchdog fallback +
+    actuation readback/retry) and the non-hardened ablation through the
+    same fault-injected twin — byte-identical fault realizations — and
+    scores both against the fault-free oracle. Under the batched engine
+    both variants are one engine call."""
+    _check_engine(engine)
+    prep = _prep_fault_cell(cell, iters, seeds)
+    runs = _fault_runs({cell: prep}, seeds, iters, window, engine, device)
+    return _fault_cell_record(
+        cell, prep, runs[(cell, True)], runs[(cell, False)], iters, seeds
+    )
+
+
+def _fault_runs(
+    preps: Dict[Cell, dict], seeds: Sequence[int], iters: int, window: int,
+    engine: str, device,
+) -> Dict[Tuple[Cell, bool], list]:
+    """Every (cell, hardened) variant's per-seed runs: under the batched
+    engine one request batch — one engine call for all of them."""
+    runs: Dict[Tuple[Cell, bool], list] = {}
+    if engine == "batched":
+        reqs, owners = [], []
+        for c, prep in preps.items():
+            for hardened in (True, False):
+                cell_reqs = _fault_requests(prep, seeds, hardened)
+                owners.extend([(c, hardened)] * len(cell_reqs))
+                reqs.extend(cell_reqs)
+        outs = run_fault_requests(reqs, iters=iters, window=window, device=device)
+        for owner, out in zip(owners, outs):
+            runs.setdefault(owner, []).append(out)
+    else:
+        for c, prep in preps.items():
+            for hardened in (True, False):
+                runs[(c, hardened)] = _scalar_fault_runs(
+                    c, prep, seeds, hardened, iters, window, device
+                )
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# Dynamic (drift) cells
+# ---------------------------------------------------------------------------
+
+# Drift-cell acceptance levels (tests/test_torch_drift.py holds the record
+# to them): drift-adaptive CORAL must average ≥ this fraction of the
+# post-shift oracle, the static ablation must average ≤ the ceiling, and
+# the gap between them must show that re-exploration — not luck — closed
+# it.
+DRIFT_ADAPTIVE_GATE = 0.85
+DRIFT_STATIC_CEILING = 0.5
+DRIFT_SEPARATION = 0.3
+
+
+def _prep_drift_cell(cell: Cell, intervals: int) -> dict:
+    """Per-cell drift precompute: the stacked per-interval landscapes
+    (one sweep per *unique* drift state), per-interval budget scales,
+    and the post-shift oracle — everything scoring and the batched
+    episode engine share."""
+    regime = REGIMES[cell.regime]
+    twin = build_twin(cell, noise=0.0)
+    sim0, schedule = twin.base, twin.schedule
+    targets = resolve_targets(cell, sim0)
+    land_tau, land_p = twin.landscapes(intervals)
+    budget_scale = schedule.states_stacked(intervals)["budget_scale"]
+    twin.set_time(intervals - 1)
+    p_budget_post = targets.p_budget * twin.state.budget_scale
+    post_oracle = oracle(sim0.space, twin, targets.tau_target, p_budget_post)
+    return {
+        "sim0": sim0,
+        "space": sim0.space,
+        "targets": targets,
+        "schedule": schedule,
+        "regime": regime,
+        "land_tau": land_tau,
+        "land_p": land_p,
+        "budget_scale": budget_scale,
+        "p_budget_post": p_budget_post,
+        "post_oracle": post_oracle,
+        "noise": WORKLOADS[cell.workload].noise,
+    }
+
+
+def _drift_requests(
+    prep: dict, seeds: Sequence[int], adaptive: bool
+) -> List[dict]:
+    return [
+        {
+            "space": prep["space"],
+            "land_tau": prep["land_tau"],
+            "land_p": prep["land_p"],
+            "budget_scale": prep["budget_scale"],
+            "targets": prep["targets"],
+            "seed": seed,
+            "noise": prep["noise"],
+            "adaptive": adaptive,
+        }
+        for seed in seeds
+    ]
+
+
+def _scalar_drift_runs(
+    cell: Cell,
+    prep: dict,
+    seeds: Sequence[int],
+    adaptive: bool,
+    intervals: int,
+    explore_budget: int,
+    window: int,
+    device,
+) -> List[dict]:
+    """Per-seed CORAL drift loops of the scalar spec, normalized to the
+    engine's run shape."""
+    runs = []
+    space = prep["space"]
+    for seed in seeds:
+        opt, tr = run_drift_regime(
+            space,
+            build_twin(cell, seed=seed),
+            prep["targets"],
+            prep["schedule"],
+            intervals,
+            explore_budget=explore_budget,
+            window=window,
+            seed=seed,
+            adaptive=adaptive,
+            sigma=prep["noise"],
+            device=device,
+        )
+        res = opt.result()
+        runs.append(
+            {
+                "idxs": np.asarray(
+                    [row_index(space, cfg) for cfg in tr.configs]
+                ),
+                "exploring": list(tr.exploring),
+                "resets": tr.resets,
+                "result_idx": (
+                    row_index(space, res.config) if res is not None else None
+                ),
+            }
+        )
+    return runs
+
+
+def _batched_drift_runs(eps: List, space) -> List[dict]:
+    return [
+        {
+            "idxs": np.asarray([row_index(space, cfg) for cfg in ep.configs]),
+            "exploring": ep.exploring,
+            "resets": ep.resets,
+            "result_idx": (
+                row_index(space, ep.result_config)
+                if ep.result_config is not None
+                else None
+            ),
+        }
+        for ep in eps
+    ]
+
+
+def _drift_variant_record(
+    prep: dict,
+    runs: List[dict],
+    seeds: Sequence[int],
+    intervals: int,
+    shift_start: int,
+) -> dict:
+    """Score one variant (adaptive or static) from per-seed run shapes —
+    batched twin sweeps over the precomputed per-interval landscapes
+    instead of ``set_time`` round-trips per interval per seed."""
+    targets = prep["targets"]
+    post_oracle = prep["post_oracle"]
+    p_budget_post = prep["p_budget_post"]
+    lt_post, lp_post = prep["land_tau"][-1], prep["land_p"][-1]
+
+    def final_state_scores(idxs: np.ndarray) -> np.ndarray:
+        """Normalized-vs-post-oracle scores at the fully-shifted state
+        for a vector of config rows (violating → 0)."""
+        if post_oracle.config is None:
+            return np.zeros(idxs.shape[0])
+        tau, p = lt_post[idxs], lp_post[idxs]
+        ok = (tau >= targets.tau_target * (1 - 1e-9)) & (
+            p <= p_budget_post * (1 + 1e-9)
+        )
+        if targets.mode == "throughput":
+            score = tau / max(post_oracle.tau, 1e-9)
+        else:
+            score = (tau / np.maximum(p, 1e-9)) / max(
+                post_oracle.efficiency, 1e-9
+            )
+        return np.where(ok, score, 0.0)
+
+    finals: List[float] = []
+    recoveries: List[Optional[int]] = []
+    transients: List[float] = []
+    resets: List[int] = []
+    post = np.arange(shift_start, intervals)
+    for run in runs:
+        idxs = run["idxs"]
+        ridx = run["result_idx"]
+        finals.append(
+            float(final_state_scores(np.asarray([ridx]))[0])
+            if ridx is not None
+            else 0.0
+        )
+        resets.append(run["resets"])
+        # recovery: first post-shift interval from which every *held*
+        # interval onward scores ≥ the adaptive gate (exploration probes
+        # between holds don't break the streak — they are the search,
+        # not the operating point). The streak check is a suffix-min
+        # over hold scores — O(holds), not the O(holds²) rescan.
+        holds = np.asarray(
+            [t for t in post if not run["exploring"][t]], np.int64
+        )
+        rec = None
+        if holds.size:
+            scores = final_state_scores(idxs[holds])
+            suffix_min = np.minimum.accumulate(scores[::-1])[::-1]
+            clears = np.nonzero(suffix_min >= DRIFT_ADAPTIVE_GATE)[0]
+            if clears.size:
+                rec = int(holds[clears[0]]) - shift_start
+        recoveries.append(rec)
+        # transient violations, against the constraints in force at t —
+        # one gather over the stacked landscapes
+        tau_t = prep["land_tau"][post, idxs[post]]
+        p_t = prep["land_p"][post, idxs[post]]
+        cap_t = targets.p_budget * prep["budget_scale"][post]
+        viol = (tau_t < targets.tau_target * (1 - 1e-9)) | (
+            p_t > cap_t * (1 + 1e-9)
+        )
+        transients.append(float(viol.sum()) / (intervals - shift_start))
+    n = len(seeds)
+    recovered = [r for r in recoveries if r is not None]
+    mean_final = sum(finals) / n
+    return {
+        "final_score": mean_final,
+        "final_score_min": min(finals),
+        "final_score_max": max(finals),
+        "score_floor": round(max(0.0, mean_final - SCORE_FLOOR_MARGIN), 4),
+        "recovered_rate": len(recovered) / n,
+        "recovery_intervals": (
+            sum(recovered) / len(recovered) if recovered else None
+        ),
+        "transient_violation_rate": sum(transients) / n,
+        "resets": sum(resets) / n,
+    }
+
+
+def _drift_cell_record(
+    cell: Cell,
+    prep: dict,
+    adaptive: dict,
+    static: dict,
+    intervals: int,
+    shift_start: int,
+) -> dict:
+    targets = prep["targets"]
+    post_oracle = prep["post_oracle"]
+    return {
+        "device": cell.device,
+        "model": cell.model,
+        "workload": cell.workload,
+        "regime": cell.regime,
+        "mode": targets.mode,
+        "tau_target": targets.tau_target,
+        "p_budget": targets.p_budget if targets.capped else None,
+        "p_budget_post": prep["p_budget_post"] if targets.capped else None,
+        "space_size": prep["space"].size(),
+        "drift": {
+            "schedule": prep["regime"].drift,
+            "shift_start": shift_start,
+            "shift_end": prep["schedule"].shift_end,
+            "intervals": intervals,
+        },
+        "post_oracle": {
+            "config": list(post_oracle.config) if post_oracle.config else None,
+            "tau": post_oracle.tau,
+            "power": post_oracle.power,
+        },
+        "adaptive": adaptive,
+        "static": static,
+    }
+
+
+def run_drift_cell(
+    cell: Cell,
+    seeds: Sequence[int] = (0, 1, 2),
+    window: int = 10,
+    explore_budget: int = 10,
+    intervals: int = DRIFT_INTERVALS,
+    shift_start: int = DRIFT_SHIFT_START,
+    engine: str = "batched",
+    device="cuda",
+) -> dict:
+    """One dynamic (non-stationary) cell → one JSON-ready record (a
+    ``BENCH_matrix.json`` ``drift_cells`` entry).
+
+    Runs drift-adaptive CORAL and the static (no-re-exploration) ablation
+    through the same drifting twin and scores both against the
+    *post-shift* oracle: the exhaustive search on the fully-shifted
+    noise-free landscape under the post-shift budget. Metrics:
+
+      final_score      — the optimizer's end-of-run choice, normalized
+                         vs. the post-shift oracle (violating → 0);
+      recovery_intervals — intervals from the shift until the loop holds
+                         a ≥0.85-scoring config for the rest of the run
+                         (None if it never settles that high);
+      transient_violation_rate — fraction of post-shift intervals whose
+                         *applied* config truly violated the constraints
+                         in force at that interval (exploration probes
+                         included: re-exploration's price is visible);
+      resets           — exploration epochs spent after the shift.
+
+    Under the batched engine both variants are one engine call.
+    """
+    _check_engine(engine)
+    prep = _prep_drift_cell(cell, intervals)
+    runs = _drift_runs(
+        {cell: prep}, seeds, intervals, explore_budget, window, engine, device
+    )
+    variants = {
+        adaptive: _drift_variant_record(
+            prep, runs[(cell, adaptive)], seeds, intervals, shift_start
+        )
+        for adaptive in (True, False)
+    }
+    return _drift_cell_record(
+        cell, prep, variants[True], variants[False], intervals, shift_start
+    )
+
+
+def _drift_runs(
+    preps: Dict[Cell, dict], seeds: Sequence[int], intervals: int,
+    explore_budget: int, window: int, engine: str, device,
+) -> Dict[Tuple[Cell, bool], list]:
+    """Every (cell, adaptive) variant's per-seed runs: under the batched
+    engine one request batch — one engine call for all of them."""
+    runs: Dict[Tuple[Cell, bool], list] = {}
+    if engine == "batched":
+        reqs, owners = [], []
+        for c, prep in preps.items():
+            for adaptive in (True, False):
+                cell_reqs = _drift_requests(prep, seeds, adaptive)
+                owners.extend([(c, adaptive)] * len(cell_reqs))
+                reqs.extend(cell_reqs)
+        eps = run_drift_requests(
+            reqs, intervals=intervals, explore_budget=explore_budget, window=window,
+            device=device,
+        )
+        by_owner: Dict[Tuple[Cell, bool], list] = {}
+        for owner, ep in zip(owners, eps):
+            by_owner.setdefault(owner, []).append(ep)
+        for owner, cell_eps in by_owner.items():
+            runs[owner] = _batched_drift_runs(cell_eps, preps[owner[0]]["space"])
+    else:
+        for c, prep in preps.items():
+            for adaptive in (True, False):
+                runs[(c, adaptive)] = _scalar_drift_runs(
+                    c, prep, seeds, adaptive, intervals, explore_budget, window, device
+                )
+    return runs
+
+
 def run_matrix(
     cells: Optional[Sequence[Cell]] = None,
     iters: int = 10,
     seeds: Sequence[int] = (0, 1, 2),
     engine: str = "batched",
     window: int = 10,
+    fault_cells: Optional[Sequence[Cell]] = None,
     device="cuda",
 ) -> dict:
-    """Run every static cell and assemble the record: ``cells`` (one
-    entry per cell, as ``BENCH_matrix.json``'s), its static ``summary``,
-    and ``wall_clock_s``, the host-clock split of the run's phases.
+    """Run every cell and assemble the record: ``cells`` (the static
+    entries, as ``BENCH_matrix.json``'s), ``drift_cells``, ``fault_cells``,
+    their ``summary``, and ``wall_clock_s``, the host-clock split of the
+    run's phases (``{static,fault,drift}_{prep,episodes,score}_s``, as
+    the reference names them).
 
+    Cells whose regime names a drift schedule run the non-stationary loop
+    (``run_drift_cell``: adaptive vs static ablation) and land in
+    ``drift_cells``; stationary cells keep the CORAL-vs-baselines shape in
+    ``cells``. ``fault_cells`` (defaults to ``MATRIX_FAULT_CELLS`` when
+    ``cells`` is None, to none when a list is given) run hardened CORAL
+    against its ablation at ``FAULT_ITERS`` and land in ``fault_cells``.
     ``cells=None`` is the reference's default grid (``enumerate_cells()``);
-    any cell of a family not ported yet raises NotImplementedError before
-    anything runs. Under the batched engine every (cell × seed) episode is
-    one request batch: one engine call of ``iters`` steps on ``device``.
+    a cell of a family not ported yet raises NotImplementedError before
+    anything runs. Under the batched engine each family is one request
+    batch: one engine call of its T steps on ``device``.
     """
     _check_engine(engine)
+    if fault_cells is None:
+        fault_cells = MATRIX_FAULT_CELLS if cells is None else ()
     if cells is None:
         cells = enumerate_cells()
-    for c in cells:
-        check_static(c)
+    for c in list(cells) + list(fault_cells):
+        check_ported(c)
+    static_cells = [c for c in cells if not REGIMES[c.regime].dynamic]
+    dynamic_cells = [c for c in cells if REGIMES[c.regime].dynamic]
     wall: Dict[str, float] = {}
 
+    # ---- static cells --------------------------------------------------
     t0 = time.perf_counter()
-    preps = {c: _prep_cell(c) for c in cells}
+    preps = {c: _prep_cell(c) for c in static_cells}
     wall["static_prep_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     runs_by_cell: Dict[Cell, list] = {}
     if engine == "batched":
         reqs, owners = [], []
-        for c in cells:
+        for c in static_cells:
             cell_reqs = _static_requests(preps[c], seeds)
             owners.extend([c] * len(cell_reqs))
             reqs.extend(cell_reqs)
@@ -350,28 +943,78 @@ def run_matrix(
         for c, ep in zip(owners, eps):
             runs_by_cell.setdefault(c, []).append((ep.outcome, ep.trace()))
     else:
-        for c in cells:
+        for c in static_cells:
             runs_by_cell[c] = _scalar_static_runs(c, preps[c], seeds, iters, window, device)
     wall["static_episodes_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     records = [
         _cell_record(c, preps[c], runs_by_cell[c], iters, seeds, engine)
-        for c in cells
+        for c in static_cells
     ]
     wall["static_score_s"] = time.perf_counter() - t0
+
+    # ---- fault cells ---------------------------------------------------
+    t0 = time.perf_counter()
+    fpreps = {c: _prep_fault_cell(c, FAULT_ITERS, seeds) for c in fault_cells}
+    wall["fault_prep_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    fault_runs = _fault_runs(fpreps, seeds, FAULT_ITERS, window, engine, device)
+    wall["fault_episodes_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    fault_records = [
+        _fault_cell_record(
+            c, fpreps[c], fault_runs[(c, True)], fault_runs[(c, False)],
+            FAULT_ITERS, seeds,
+        )
+        for c in fault_cells
+    ]
+    wall["fault_score_s"] = time.perf_counter() - t0
+
+    # ---- drift cells ---------------------------------------------------
+    t0 = time.perf_counter()
+    dpreps = {c: _prep_drift_cell(c, DRIFT_INTERVALS) for c in dynamic_cells}
+    wall["drift_prep_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    drift_runs = _drift_runs(dpreps, seeds, DRIFT_INTERVALS, 10, window, engine, device)
+    wall["drift_episodes_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    drift_records = []
+    for c in dynamic_cells:
+        variants = {
+            adaptive: _drift_variant_record(
+                dpreps[c], drift_runs[(c, adaptive)], seeds, DRIFT_INTERVALS,
+                DRIFT_SHIFT_START,
+            )
+            for adaptive in (True, False)
+        }
+        drift_records.append(
+            _drift_cell_record(
+                c, dpreps[c], variants[True], variants[False], DRIFT_INTERVALS,
+                DRIFT_SHIFT_START,
+            )
+        )
+    wall["drift_score_s"] = time.perf_counter() - t0
     return {
         "engine": engine,
         "iters": iters,
         "seeds": list(seeds),
         "wall_clock_s": wall,
         "cells": records,
-        "summary": _summarize(records),
+        "drift_cells": drift_records,
+        "fault_cells": fault_records,
+        "summary": _summarize(records, drift_records, fault_records),
     }
 
 
-def _summarize(records: List[dict]) -> dict:
-    """The static keys of the reference's summary."""
+def _summarize(
+    records: List[dict], drift_records: List[dict] = (), fault_records: List[dict] = ()
+) -> dict:
+    """The static, drift and fault keys of the reference's summary."""
     single = [
         r["coral"]["score"] for r in records if REGIMES[r["regime"]].single_target
     ]
@@ -391,6 +1034,34 @@ def _summarize(records: List[dict]) -> dict:
                 and r["coral"]["power_violations"] == 0
                 for r in dual
             )
+        ),
+        "n_drift_cells": len(drift_records),
+        "min_drift_adaptive_score": (
+            min(r["adaptive"]["final_score"] for r in drift_records)
+            if drift_records else None
+        ),
+        "max_drift_static_score": (
+            max(r["static"]["final_score"] for r in drift_records)
+            if drift_records else None
+        ),
+        "min_drift_separation": (
+            min(r["adaptive"]["final_score"] - r["static"]["final_score"]
+                for r in drift_records)
+            if drift_records else None
+        ),
+        "n_fault_cells": len(fault_records),
+        "min_fault_hardened_score": (
+            min(r["hardened"]["score"] for r in fault_records)
+            if fault_records else None
+        ),
+        "fault_power_violations": int(
+            sum(r["hardened"]["power_violations"] for r in fault_records)
+        ),
+        # non-hardened ablation (cell, seed) runs that ended feasible:
+        # under the injected faults only the hardened path should
+        "fault_feasible_ablations": int(
+            sum(r["ablation"]["n_runs"] - r["ablation"]["failed_runs"]
+                for r in fault_records)
         ),
     }
 

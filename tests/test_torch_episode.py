@@ -111,9 +111,12 @@ def test_grid_of_54_cells_reproduces_the_committed_record():
     diffs = [d for got, want in zip(rec["cells"], ref["cells"])
              for d in matrix.diff_records(got, want)]
     assert diffs == []
-    assert matrix.diff_records(rec["summary"],
-                               {k: ref["summary"][k] for k in rec["summary"]}) == []
+    static_keys = ("n_cells", "mean_coral_score", "min_single_target_score",
+                   "dual_power_violations", "dual_tau_miss_cells")
+    assert matrix.diff_records({k: rec["summary"][k] for k in static_keys},
+                               {k: ref["summary"][k] for k in static_keys}) == []
     assert rec["summary"]["dual_power_violations"] == 0
+    assert rec["drift_cells"] == [] and rec["fault_cells"] == []
 
 
 def test_run_cell_runs_a_static_cell():
@@ -122,9 +125,7 @@ def test_run_cell_runs_a_static_cell():
     assert rec.record["coral"]["measurements"] == 10
 
 
-@pytest.mark.parametrize("regime,item", [
-    ("thermal-ramp", 7), ("fault-telemetry", 8), ("offload_mmpp", 9), ("cotenant_balanced", 10),
-])
+@pytest.mark.parametrize("regime,item", [("offload_mmpp", 9), ("cotenant_balanced", 10)])
 def test_run_matrix_raises_on_cells_not_ported_yet(regime, item):
     cell = sc.Cell("edge-orin-nano", "qwen2.5-3b", "decode_steady", regime)
     with pytest.raises(NotImplementedError, match=f"item {item}"):

@@ -55,13 +55,30 @@ def test_entry_points_default_to_the_card():
 
     from repro_torch.core.coral import CORAL
     from repro_torch.core.dcov import dcor_all
-    from repro_torch.core.episode import run_coral_batch, run_static_requests
-    from repro_torch.core.evaluate import run_cell, run_coral, run_regime
-    from repro_torch.experiments.matrix import run_matrix, run_static_cell
+    from repro_torch.core.episode import (
+        run_coral_batch,
+        run_drift_requests,
+        run_fault_requests,
+        run_static_requests,
+    )
+    from repro_torch.core.evaluate import (
+        run_cell,
+        run_coral,
+        run_drift_regime,
+        run_fault_regime,
+        run_regime,
+    )
+    from repro_torch.experiments.matrix import (
+        run_drift_cell,
+        run_fault_cell,
+        run_matrix,
+        run_static_cell,
+    )
     from repro_torch.launch.serve import build_engine, serve
     from repro_torch.models.convert import params_from_jax
 
     for fn in (serve, build_engine, params_from_jax, run_matrix, run_static_cell,
-               run_static_requests, run_coral_batch, run_regime, run_coral, run_cell,
-               CORAL, dcor_all):
+               run_drift_cell, run_fault_cell, run_static_requests, run_drift_requests,
+               run_fault_requests, run_coral_batch, run_regime, run_coral,
+               run_drift_regime, run_fault_regime, run_cell, CORAL, dcor_all):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn

@@ -17,7 +17,9 @@ and reference), and the float32 final state 1e-4 × max(1, max|S|)
 (summation order only, in either input dtype). dcov: the windows form's Grams within 1e-6 of each episode's
 max|G| (float32; the kernel sums in the plain version's order without
 fused multiply-adds, so it should agree to the bit, and the bound only
-allows for reordering), and bitwise equal alone and inside a batch; the
+allows for reordering), and bitwise equal alone and inside a batch, and
+on the fault ablation's windows (NaN rows, x1000 spikes) bit for bit,
+NaN positions included; the
 ORACLE-scale form's Gram within 1e-4 of max|G| (float32 sums over n²
 terms, up to 16.8 M, in another order than the materialized plain
 version) and its dCor within 1e-3 (the square root of a ratio: near 0 a
@@ -384,6 +386,33 @@ def test_dcov_windows_kernel_is_batch_independent(cuda):
     for i in range(162):
         alone = dcov_gram_windows(cols[i:i + 1], n[i:i + 1])
         assert torch.equal(alone[0], batch[i]), f"episode {i}"
+
+
+@pytest.mark.gpu
+def test_dcov_windows_kernel_on_fault_windows(cuda):
+    """The fault ablation's windows at its batch shape (B, W, C) = (36, 10,
+    7): dropped samples as NaN rows and x1000 spikes in the τ and p
+    columns (one NaN past n_valid too). NaN times the mask is NaN in the
+    kernel as in the plain version, so the Grams agree bit for bit, NaN
+    positions included."""
+    cols, n = dcov_windows_inputs(cuda, 36, 10, 7, seed=36)
+    x = cols.cpu().numpy()
+    rng = np.random.default_rng(36)
+    for b in range(36):
+        valid = int(n[b])
+        spiked = rng.random(valid) < 0.3
+        x[b, :valid, 5][spiked] *= 1000.0
+        x[b, :valid, 6][rng.random(valid) < 0.2] *= 1000.0
+        if b % 3 == 1:  # a dropped sample
+            x[b, rng.integers(valid), 5:7] = np.nan
+    x[2, 9, 5] = np.nan
+    cols = torch.from_numpy(x).to(cuda)
+    gram = dcov_gram_windows(cols, n)
+    ref = dcov_gram_windows_ref(cols, n)
+    nan = torch.isnan(ref)
+    assert nan.any() and (~nan).any()
+    assert torch.equal(torch.isnan(gram), nan)
+    assert torch.equal(gram[~nan], ref[~nan])
 
 
 def normalised_gram(g, eps=1e-12):
