@@ -212,6 +212,7 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # values, then tau and p, an eighth for C = 8), as tests/test_torch_kernels_gpu.py
 DCOV_WINDOWS = [(b, w, c) for b in (1, 3, 162, 1024) for w in (3, 10, 64) for c in (2, 7, 8)]
 DCOV_GRID = (162, 10, 7)  # 54 cells x 3 seeds, window 10, 5 knobs + (tau, p)
+DCOV_JOINT = (12, 10, 7)  # 4 offload (or cotenant) cells x 3 seeds on their joint grids
 DCOV_BLOCKS = [(n, c) for n in (30, 200, 512, 1440, 1600, 2160, 4099) for c in (2, 7, 8)]
 DCOV_ORACLE = (1600, 7)
 DCOV_SCALES = (1500.0, 4.0, 800.0, 2000.0, 3.0, 50.0, 5.0, 1.0)
@@ -768,7 +769,8 @@ def kernel_times(torch, fn, needles, reps=20):
 def phase_dcov_check(torch):
     """The windows form and the single-block form against their plain
     versions over the sweep, batch independence, and the times at the
-    grid shape (B=162, W=10, C=7) and at ORACLE scale (n=1600, C=7)."""
+    grid shape (B=162, W=10, C=7), at the joint grids' shape (B=12) and
+    at ORACLE scale (n=1600, C=7)."""
     import numpy as np
 
     from repro_torch.kernels.dcov import (
@@ -779,7 +781,7 @@ def phase_dcov_check(torch):
     )
     from repro_torch.kernels.dcov.ref import dcor_from_sums
 
-    for i, (b, w, c) in enumerate(DCOV_WINDOWS):
+    for i, (b, w, c) in enumerate(DCOV_WINDOWS + [DCOV_JOINT]):  # the joint grids' shape last
         cols, n = dcov_windows_inputs(torch, b, w, c, seed=i)
         gram = dcov_gram_windows(cols, n)
         ref = dcov_gram_windows_ref(cols, n)
@@ -845,6 +847,17 @@ def phase_dcov_check(torch):
         f"duration in the profiler {own}), plain "
         f"{plain_ms:.4f} ms, library: none, bound {bound_ms:.6f} ms ({bound_by}; "
         f"{nbytes / 1e3:.1f} KB, {pairs * dcov_pair_ops(c) / 1e6:.3f} MFLOP)")
+    # and at the offload and cotenant calls' shape
+    jb, jw, jc = DCOV_JOINT
+    jcols, jn = dcov_windows_inputs(torch, jb, jw, jc, seed=len(DCOV_WINDOWS) + 1)
+    j_ms = device_ms(lambda: dcov_gram_windows(jcols, jn))
+    j_plain = device_ms(lambda: dcov_gram_windows_ref(jcols, jn))
+    j_ops = sum(k * (k + 1) // 2 for k in jn.tolist()) * dcov_pair_ops(jc)
+    j_bytes = 4 * (jb * jw * jc + jb + jb * jc * jc)
+    j_bound, j_by = dcov_bound(j_bytes, j_ops)
+    say(f"  dcov windows at the joint grids' shape {DCOV_JOINT}: kernel {j_ms:.4f} ms, plain "
+        f"{j_plain:.4f} ms, library: none, bound {j_bound:.6f} ms ({j_by}; "
+        f"{j_bytes / 1e3:.2f} KB, {j_ops / 1e6:.4f} MFLOP)")
     # the single-block form at ORACLE scale, and at n = 16384 held to float64
     n_rows, c = DCOV_ORACLE
     rng = np.random.default_rng(0)
@@ -1389,14 +1402,17 @@ RECORD_FAMILIES = {
                     "min_drift_separation"),
     "fault_cells": ("n_fault_cells", "min_fault_hardened_score", "fault_power_violations",
                     "fault_feasible_ablations"),
+    "offload_cells": ("n_offload_cells", "min_offload_score", "offload_power_violations",
+                      "offload_feasible_baselines"),
+    "cotenant_cells": ("n_cotenant_cells", "min_cotenant_score", "cotenant_power_violations",
+                       "cotenant_feasible_baselines"),
 }
 
 
 def held_to_record(rec, label, family="cells"):
-    """Every cell of ``rec[family]`` ("cells", "drift_cells" or
-    "fault_cells") against the JAX package's committed record (configs,
-    flags and counts exactly, floats at RECORD_REL), then that family's
-    summary keys."""
+    """Every cell of ``rec[family]`` (a key of RECORD_FAMILIES) against
+    the JAX package's committed record (configs, flags and counts
+    exactly, floats at RECORD_REL), then that family's summary keys."""
     from repro_torch.experiments import matrix
 
     want = json.loads(MATRIX_RECORD.read_text())
@@ -1463,10 +1479,15 @@ def phase_coral_slice(torch):
     cells x 3 seeds x {adaptive, static}, one batched call of 64 steps;
     (e) the 6 fault cells x 3 seeds x {hardened, ablation}, one batched
     call of 40 steps; (f) the 12 cells of (d) and (e) through the scalar
-    spec, records identical to theirs. Launch counts are reset just before
-    and read just after each part; (d) and (e) hold every windows-kernel
-    launch to its plain version on its own inputs. Returns the dcov
-    launches of the three batched main paths, (a), (d) and (e)."""
+    spec, records identical to theirs; (g) the 4 offload cells x 3 seeds,
+    one batched call of 24 steps on the joint edge-pod grids; (h) the 4
+    cotenant cells x 3 seeds, one batched call of 40 steps on the joint
+    slots x shared-DVFS grids; (i) the 8 cells of (g) and (h) through the
+    scalar spec, records identical to theirs. Launch counts are reset just
+    before and read just after each part; (d), (e), (g) and (h) hold every
+    windows-kernel launch to its plain version on its own inputs. Returns
+    the dcov launches of the five batched main paths, (a), (d), (e), (g)
+    and (h)."""
     import numpy as np
 
     from repro_torch.core.coral import CORAL
@@ -1563,63 +1584,88 @@ def phase_coral_slice(torch):
              f"not {len(cells)}")
 
     main = {"static": counts["dcov"]}
-    for part, family, steps, kw in (
-        ("d", "drift_cells", scenarios.DRIFT_INTERVALS, dict(cells=list(scenarios.MATRIX_DRIFT_CELLS))),
-        ("e", "fault_cells", scenarios.FAULT_INTERVALS,
-         dict(cells=[], fault_cells=scenarios.MATRIX_FAULT_CELLS)),
-    ):
+    drift, fault = list(scenarios.MATRIX_DRIFT_CELLS), scenarios.MATRIX_FAULT_CELLS
+    offload, cotenant = scenarios.MATRIX_OFFLOAD_CELLS, scenarios.MATRIX_COTENANT_CELLS
+    groups = (  # batched parts (part, family, steps, variants, run_matrix arguments), then
+        # the scalar spec over the whole group
+        ([("d", "drift_cells", scenarios.DRIFT_INTERVALS, 2, dict(cells=drift)),
+          ("e", "fault_cells", scenarios.FAULT_INTERVALS, 2, dict(cells=[], fault_cells=fault))],
+         "f", "drift and fault", dict(cells=drift, fault_cells=fault)),
+        ([("g", "offload_cells", matrix.OFFLOAD_ITERS, 1, dict(cells=[], offload_cells=offload)),
+          ("h", "cotenant_cells", matrix.COTENANT_ITERS, 1,
+           dict(cells=[], cotenant_cells=cotenant))],
+         "i", "offload and cotenant", dict(cells=[], offload_cells=offload,
+                                           cotenant_cells=cotenant)),
+    )
+    for parts, scalar_part, what, scalar_kw in groups:
+        for part, family, steps, variants, kw in parts:
+            main[family] = batched_family(torch, part, family, steps, variants, kw)
+        families = [family for _, family, _, _, _ in parts]
+        calls[0] = 0
         torch.cuda.synchronize()
         runtime.reset_launch_counts()
         t0 = time.perf_counter()
-        rec, kept, nan_windows = held_per_launch(
-            torch, lambda: matrix.run_matrix(**kw, device="cuda"), f"({part}) {family}")
+        with mock.patch.object(CORAL, "correlations", counted):
+            scalar = matrix.run_matrix(**scalar_kw, engine="scalar", device="cuda")
         wall = time.perf_counter() - t0
-        part_counts = runtime.launch_counts()
-        n_eps = 6 * len(rec["seeds"]) * 2
-        say(f"  ({part}) run_matrix, {len(rec[family])} {family} x 3 seeds x 2 variants "
-            f"({n_eps} episodes), batched on the card: {wall:.3f} s (phases "
-            f"{json.dumps({k: round(v, 4) for k, v in rec['wall_clock_s'].items() if v > 1e-3})}), "
-            f"launches {part_counts}")
-        if part_counts["dcov"] != steps or kept != steps:
-            fail(f"dcov launched {part_counts['dcov']} times in the batched {family} call, "
-                 f"not {steps} (one per step)")
-        if family == "fault_cells" and nan_windows == 0:
-            fail("no fault ablation window held NaN: the NaN path was not driven")
-        held_to_record(rec, f"({part}) batched", family)
-        main[family] = (part_counts["dcov"], rec)
+        scalar_counts = runtime.launch_counts()
+        apart = [f"{family}{d}" for family in families
+                 for d in matrix.diff_records(scalar[family], main[family][1][family], rel=0.0)]
+        n_cells = sum(len(scalar[family]) for family in families)
+        say(f"  ({scalar_part}) run_matrix, the {n_cells} {what} cells through the scalar spec "
+            f"on the card: {wall:.3f} s, launches {scalar_counts} over {calls[0]} "
+            f"correlations() calls with n >= 3; records equal to the batched engine's: "
+            f"{not apart}")
+        if scalar_counts["dcov"] != calls[0] or calls[0] == 0:
+            fail("the scalar spec's dcov launches do not match its correlations() calls")
+        if apart:
+            for x in apart[:20]:
+                say(f"    differs: {x}")
+            fail(f"the scalar spec's {what} records differ from the batched engine's")
+    total = main["static"] + sum(main[f][0] for f in main if f != "static")
+    say(f"  dcov launches on the main paths: {total} (" + ", ".join(
+        f"{f} {main[f] if f == 'static' else main[f][0]}" for f in main) + ")")
+    return total
 
-    calls[0] = 0
+
+def batched_family(torch, part, family, steps, variants, kw):
+    """One family of the record through ``run_matrix`` on the card, one
+    batched call of ``steps`` engine steps (``variants`` episodes per cell
+    and seed): launch counts reset just before and read just after, every
+    windows-kernel launch held to its plain version on its own inputs, the
+    records held to the committed ones. Returns (dcov launches, record)."""
+    from repro_torch.experiments import matrix
+    from repro_torch.kernels import runtime
+
     torch.cuda.synchronize()
     runtime.reset_launch_counts()
     t0 = time.perf_counter()
-    with mock.patch.object(CORAL, "correlations", counted):
-        scalar = matrix.run_matrix(list(scenarios.MATRIX_DRIFT_CELLS),
-                                   fault_cells=scenarios.MATRIX_FAULT_CELLS,
-                                   engine="scalar", device="cuda")
+    rec, kept, nan_windows = held_per_launch(
+        torch, lambda: matrix.run_matrix(**kw, device="cuda"), f"({part}) {family}")
     wall = time.perf_counter() - t0
-    scalar_counts = runtime.launch_counts()
-    apart = [f"{family}{d}" for family in ("drift_cells", "fault_cells")
-             for d in matrix.diff_records(scalar[family], main[family][1][family], rel=0.0)]
-    say(f"  (f) run_matrix, the 12 drift and fault cells through the scalar spec on the card: "
-        f"{wall:.3f} s, launches {scalar_counts} over {calls[0]} correlations() calls with "
-        f"n >= 3; records equal to (d) and (e): {not apart}")
-    if scalar_counts["dcov"] != calls[0] or calls[0] == 0:
-        fail("the scalar spec's dcov launches do not match its correlations() calls")
-    if apart:
-        for x in apart[:20]:
-            say(f"    differs: {x}")
-        fail("the scalar spec's drift and fault records differ from the batched engine's")
-    total = main["static"] + main["drift_cells"][0] + main["fault_cells"][0]
-    say(f"  dcov launches on the main paths: {total} (static {main['static']}, drift "
-        f"{main['drift_cells'][0]}, fault {main['fault_cells'][0]})")
-    return total
+    part_counts = runtime.launch_counts()
+    n_cells = len(rec[family])
+    n_eps = n_cells * len(rec["seeds"]) * variants
+    say(f"  ({part}) run_matrix, {n_cells} {family} x 3 seeds"
+        + (f" x {variants} variants" if variants > 1 else "")
+        + f" ({n_eps} episodes x {steps} steps), batched on the card: {wall:.3f} s (phases "
+        f"{json.dumps({k: round(v, 4) for k, v in rec['wall_clock_s'].items() if v > 1e-3})}), "
+        f"launches {part_counts}")
+    if part_counts["dcov"] != steps or kept != steps:
+        fail(f"dcov launched {part_counts['dcov']} times in the batched {family} call, "
+             f"not {steps} (one per step)")
+    if family == "fault_cells" and nan_windows == 0:
+        fail("no fault ablation window held NaN: the NaN path was not driven")
+    held_to_record(rec, f"({part}) batched", family)
+    return part_counts["dcov"], rec
 
 
 def phase_coral_profile(torch):
     """One batched static call over the grid, one batched drift call over
-    the 6 drift cells and one batched fault call over the 6 fault cells
-    (tables built and moved, T steps on the card, float64 records on the
-    host), and the single-block dcov form at ORACLE scale and at n =
+    the 6 drift cells, one batched fault call over the 6 fault cells, and
+    one batched offload and one batched cotenant call over their 4 cells
+    each (tables built and moved, T steps on the card, float64 records on
+    the host), and the single-block dcov form at ORACLE scale and at n =
     16384, split into its two kernels."""
     import numpy as np
 
@@ -1650,6 +1696,17 @@ def phase_coral_profile(torch):
         torch, f"CORAL batched fault call, {len(reqs)} episodes x {steps} steps",
         lambda: run_fault_requests(reqs, iters=steps, device="cuda"), reps=3)
     say(f"    {launches / steps:.1f} kernels per engine step")
+    for family, cells, prep, steps in (
+        ("offload", scenarios.MATRIX_OFFLOAD_CELLS, matrix._prep_offload_cell,
+         matrix.OFFLOAD_ITERS),
+        ("cotenant", scenarios.MATRIX_COTENANT_CELLS, matrix._prep_cotenant_cell,
+         matrix.COTENANT_ITERS),
+    ):
+        reqs = [r for c in cells for r in matrix._static_requests(prep(c), seeds)]
+        launches = profile_window(
+            torch, f"CORAL batched {family} call, {len(reqs)} episodes x {steps} steps",
+            lambda: run_static_requests(reqs, iters=steps, device="cuda"), reps=3)
+        say(f"    {launches / steps:.1f} kernels per engine step")
     n_rows, c = DCOV_ORACLE
     rng = np.random.default_rng(0)
     x = torch.from_numpy((rng.normal(size=(n_rows, c)) * np.asarray(DCOV_SCALES[:c])

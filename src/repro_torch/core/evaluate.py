@@ -6,9 +6,9 @@ cells. ``run_coral`` (and ``run_regime`` over it), ``run_drift_regime``
 and ``run_fault_regime`` are the scalar executable specification: one
 ``CORAL`` against a measurable twin, one round per control interval. The
 batched engine (``core/episode.py``) is held to them config for config.
-``run_cell(CellSpec)`` runs one cell of any of the three families; the
-reference's offload and cotenant loops are not ported yet (ROADMAP queue
-1 items 9 and 10), and their cells raise.
+``run_cell(CellSpec)`` runs one cell of any family: static, drift,
+offload, cotenant or fault (the offload and cotenant cells run the static
+loop over their joint grids).
 
 The simulator a loop measures is named ``twin`` here, since ``device`` is
 the torch device the windowed dCor runs on.
@@ -61,8 +61,9 @@ class CellSpec:
 
     ``cell`` is a ``repro_torch.experiments.scenarios.Cell`` (its regime
     name selects the family); ``iters=None`` takes the family's measurement
-    budget (10 static, ``FAULT_ITERS`` fault; drift cells pace by
-    intervals instead). ``engine`` is "batched" (the episode engine) or
+    budget (10 static, ``OFFLOAD_ITERS`` offload, ``COTENANT_ITERS``
+    cotenant, ``FAULT_ITERS`` fault; drift cells pace by intervals
+    instead). ``engine`` is "batched" (the episode engine) or
     "scalar" (the CORAL loop, one episode at a time).
     """
 
@@ -75,27 +76,33 @@ class CellSpec:
 
 @dataclasses.dataclass(frozen=True)
 class CellRecord:
-    """A family-tagged, JSON-ready cell record (``family`` is "static",
-    "drift" or "fault"; ``record`` is the matching ``BENCH_matrix`` array
-    entry)."""
+    """A family-tagged, JSON-ready cell record (``family`` is one of
+    "static" | "drift" | "offload" | "cotenant" | "fault"; ``record`` is
+    the matching ``BENCH_matrix`` array entry)."""
 
     family: str
     record: dict
 
 
 def run_cell(spec: CellSpec, device="cuda") -> CellRecord:
-    """Run one cell. Fault regimes run hardened CORAL against its blind
-    ablation, drift regimes the adaptive-vs-static ablation, stationary
-    regimes the CORAL-vs-baselines loop; a cell of a family not ported
-    yet raises NotImplementedError naming its ROADMAP item. Imports are
-    lazy — the regime tables and record assemblers live in
-    ``repro_torch.experiments``, which imports this module."""
+    """Run one cell. Cotenant and offload regimes run CORAL over their
+    joint grids at their calibrated budgets, fault regimes hardened CORAL
+    against its blind ablation, drift regimes the adaptive-vs-static
+    ablation, stationary regimes the CORAL-vs-baselines loop; an unknown
+    regime raises KeyError. Imports are lazy — the regime tables and
+    record assemblers live in ``repro_torch.experiments``, which imports
+    this module."""
     from repro_torch.experiments import matrix, scenarios
 
     cell = spec.cell
-    scenarios.check_ported(cell)
     kw = dict(seeds=tuple(spec.seeds), window=spec.window, engine=spec.engine,
               device=device)
+    if cell.regime in scenarios.COTENANT_REGIMES:
+        iters = matrix.COTENANT_ITERS if spec.iters is None else spec.iters
+        return CellRecord("cotenant", matrix.run_cotenant_cell(cell, iters=iters, **kw))
+    if cell.regime in scenarios.OFFLOAD_REGIMES:
+        iters = matrix.OFFLOAD_ITERS if spec.iters is None else spec.iters
+        return CellRecord("offload", matrix.run_offload_cell(cell, iters=iters, **kw))
     if cell.regime in scenarios.FAULT_REGIMES:
         iters = matrix.FAULT_ITERS if spec.iters is None else spec.iters
         return CellRecord("fault", matrix.run_fault_cell(cell, iters=iters, **kw))

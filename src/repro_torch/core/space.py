@@ -12,8 +12,7 @@ TPU v5e pod (DESIGN.md §2):
 Values are the *actual* physical values (not indices), as in the paper —
 Alg. 2 does arithmetic on them and MINMAX/ROUND snaps back to the grid.
 
-A plain copy of ``repro.core.space`` without the joint offload and
-cotenant grids, which wait for their cells (ROADMAP queue 1 items 9, 10).
+A plain copy of ``repro.core.space``.
 """
 from __future__ import annotations
 
@@ -200,10 +199,116 @@ def profile_space(kind: str) -> ConfigSpace:
     raise KeyError(kind)
 
 
+def offload_space(edge_kind: str) -> ConfigSpace:
+    """The joint edge↔pod offload grid for one edge profile.
+
+    Five dimensions — the same D as every profile space, so offload
+    episodes batch into the same batched engine call as
+    the stationary matrix cells (``repro_torch.core.episode`` requires
+    one grid dimensionality per batch):
+
+        gpu_freq      — the edge accelerator ladder, coarsened to ≤4
+                        levels (ends kept) to hold N in the low hundreds;
+        mem_freq      — the edge memory ladder, unchanged;
+        concurrency   — edge inference streams (first 3 ladder steps);
+        offload_frac  — the route split φ: the fraction of admitted
+                        items shipped to the pod (0 = all-local);
+        pod_tpu_freq  — the pod-side TPU DVFS point (coarse 3-step
+                        ladder), visible from the edge through the
+                        offload path's window/slice capacity.
+
+    Edge CPU knobs are not searched — ``OffloadSimulator`` pins them at
+    nominal — so Alg. 2's cores-role mask is empty here, which
+    ``repro_torch.core.search.role_mask`` handles as a no-op."""
+    edge = profile_space(edge_kind)
+    gpu = edge.dims[edge.names.index("gpu_freq")].values
+    if len(gpu) > 4:
+        keep = np.linspace(0, len(gpu) - 1, 4).round().astype(int)
+        gpu = tuple(gpu[i] for i in keep)
+    mem = edge.dims[edge.names.index("mem_freq")].values
+    conc = edge.dims[edge.names.index("concurrency")].values[:3]
+    pod = tpu_pod_space()
+    pod_f = pod.dims[pod.names.index("tpu_freq")].values
+    pod_keep = np.linspace(0, len(pod_f) - 1, 3).round().astype(int)
+    return ConfigSpace(
+        dims=(
+            Dim("gpu_freq", gpu),
+            Dim("mem_freq", mem),
+            Dim("concurrency", conc),
+            Dim(OFFLOAD_DIM, (0.0, 0.2, 0.4, 0.6, 0.8)),
+            Dim("pod_tpu_freq", tuple(pod_f[i] for i in pod_keep)),
+        )
+    )
+
+
+def cotenant_space(edge_kind: str, n_tenants: int = 2) -> ConfigSpace:
+    """The joint multi-tenant grid for one edge profile: per-tenant decode
+    slot allocations × shared DVFS.
+
+    Five dimensions for the default two tenants — the same D as every
+    profile/offload space, so cotenant episodes batch into the same
+    batched engine call as the rest of the scenario matrix:
+
+        gpu_freq   — the shared accelerator ladder, coarsened to ≤4
+                     levels (ends kept) to hold N in the low hundreds;
+        mem_freq   — the shared memory ladder, unchanged;
+        cpu_freq   — the shared host ladder, coarsened to 3 levels (the
+                     host stage is per-tenant work but the clock is one
+                     rail-wide knob);
+        slots_t0   — tenant 0's decode-slot allocation (streams);
+        slots_t1   — tenant 1's decode-slot allocation.
+
+    There is no ``concurrency`` or cores dimension: total stream pressure
+    is the *sum* of the slot knobs (``CotenantSimulator`` feeds it into
+    the shared contention kappa), so Alg. 2's cores/concurrency role
+    masks are empty no-ops here, exactly as in ``offload_space``."""
+    edge = profile_space(edge_kind)
+    gpu = edge.dims[edge.names.index("gpu_freq")].values
+    if len(gpu) > 4:
+        keep = np.linspace(0, len(gpu) - 1, 4).round().astype(int)
+        gpu = tuple(gpu[i] for i in keep)
+    mem = edge.dims[edge.names.index("mem_freq")].values
+    cpu = edge.dims[edge.names.index("cpu_freq")].values
+    cpu_keep = np.linspace(0, len(cpu) - 1, 3).round().astype(int)
+    slot_dims = tuple(
+        Dim(f"{TENANT_SLOT_PREFIX}{k}", (1.0, 2.0, 3.0))
+        for k in range(n_tenants)
+    )
+    return ConfigSpace(
+        dims=(
+            Dim("gpu_freq", gpu),
+            Dim("mem_freq", mem),
+            Dim("cpu_freq", tuple(cpu[i] for i in cpu_keep)),
+        )
+        + slot_dims
+    )
+
+
+def tenant_slot_indices(space: ConfigSpace) -> Tuple[int, ...]:
+    """Indices of the per-tenant slot dims (``slots_t0``, ``slots_t1``, …)
+    in tenant order — empty for single-tenant spaces. The serving
+    controller and the cotenant twin both locate the allocation knobs
+    through this instead of hard-coding positions."""
+    found = [
+        (int(n[len(TENANT_SLOT_PREFIX) :]), i)
+        for i, n in enumerate(space.names)
+        if n.startswith(TENANT_SLOT_PREFIX)
+    ]
+    return tuple(i for _, i in sorted(found))
+
+
 # Dimension roles used by Alg. 2's power-optimization heuristic
 CORES_DIM_CANDIDATES = ("host_cores", "cpu_cores")
 CONCURRENCY_DIM = "concurrency"
 CPU_FREQ_DIM_CANDIDATES = ("host_cpu_freq", "cpu_freq")
+# The route-split knob of the joint edge↔pod offload space — a role
+# name so the serving controller and admission seam can locate it
+# without hard-coding a dimension index.
+OFFLOAD_DIM = "offload_frac"
+# Per-tenant slot-allocation knobs of the joint cotenant space are named
+# ``slots_t<k>`` (tenant index k) — a prefix role, not a fixed name,
+# because the tenant count is a property of the space.
+TENANT_SLOT_PREFIX = "slots_t"
 
 
 # ---------------------------------------------------------------------------

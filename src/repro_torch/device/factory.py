@@ -5,11 +5,9 @@ which twin is built:
 
   stationary regime  → ``DeviceSimulator``         (single-model edge)
   drift regime       → ``DriftingSimulator``       (non-stationary wrap)
+  offload regime     → ``OffloadSimulator``        (edge↔pod joint grid)
+  cotenant regime    → ``CotenantSimulator``       (multi-tenant rail)
   fault regime       → ``FaultySimulator``         (fault-injected wrap)
-
-The reference's offload and cotenant twins are not ported yet: their
-cells raise ``NotImplementedError`` naming the ROADMAP item that ports
-each (``scenarios.check_ported``).
 
 Imports from ``repro_torch.experiments.scenarios`` are lazy: the regime
 tables live in experiments (they are calibration data, not device
@@ -25,11 +23,14 @@ def build_twin(cell, noise: Optional[float] = None, seed: int = 0):
 
     ``noise=None`` takes the cell's workload-trace noise (the noisy
     device the optimizer sees); ``noise=0.0`` is the ground-truth twin
-    scoring and oracles use.
+    scoring and oracles use. Raises ``KeyError`` on an unknown regime.
     """
     from repro_torch.experiments import scenarios as sc
 
-    sc.check_ported(cell)
+    if cell.regime in sc.COTENANT_REGIMES:
+        return sc.cotenant_cell_simulator(cell, noise=noise, seed=seed)
+    if cell.regime in sc.OFFLOAD_REGIMES:
+        return sc.offload_cell_simulator(cell, noise=noise, seed=seed)
     if cell.regime in sc.FAULT_REGIMES:
         return sc.fault_cell_simulator(cell, noise=noise, seed=seed)
     if sc.REGIMES[cell.regime].dynamic:

@@ -13,11 +13,9 @@ cell's max throughput, slack over the oracle's power draw) into absolute
 (τ target, power budget) numbers for that cell — the paper sets targets
 per device/model the same way (§IV-A).
 
-``repro.experiments.scenarios``, copied for the families the port runs:
-the static grid, the dynamic (drift) regimes and the fault regimes. The
-reference's offload and cotenant families are named in
-``PENDING_FAMILIES`` with the ROADMAP item that ports each;
-``check_ported`` raises for their cells.
+A copy of ``repro.experiments.scenarios``: the static grid and the
+dynamic (drift), edge↔pod offload, multi-tenant cotenant and fault
+regime families.
 """
 from __future__ import annotations
 
@@ -42,6 +40,8 @@ from repro_torch.device.hw import (
     ThermalRamp,
     get_profile,
 )
+from repro_torch.device.cotenant import CotenantSimulator
+from repro_torch.device.network import OffloadSimulator, get_network
 from repro_torch.device.simulator import (
     DeviceSimulator,
     DriftingSimulator,
@@ -125,6 +125,7 @@ WORKLOADS: Dict[str, Workload] = {
     for w in (
         Workload("decode_steady", kind="decode", batch=8, noise=0.02),
         Workload("decode_bursty", kind="decode", batch=8, noise=0.04),
+        Workload("decode_diurnal", kind="decode", batch=8, noise=0.03),
         Workload("prefill_steady", kind="prefill", seq=256, noise=0.02),
     )
 }
@@ -219,14 +220,6 @@ REGIMES: Dict[str, Regime] = {
     )
 }
 
-# The reference's regime families not ported yet, by regime name, and the
-# ROADMAP queue 1 item that ports each. Their cells raise
-# NotImplementedError.
-PENDING_FAMILIES: Dict[str, Tuple[Tuple[str, ...], int]] = {
-    "offload": (("offload_mmpp", "offload_diurnal"), 9),
-    "cotenant": (("cotenant_balanced", "cotenant_skewed"), 10),
-}
-
 # Default grid axes: the paper's 2 devices × 3 models × 2 regimes shape,
 # with the model axis spanning a ~6× active-parameter range (the paper's
 # detectors span ~20× — same heavy-tail idea on registry architectures).
@@ -268,6 +261,256 @@ QUICK_DRIFT_CELLS: Tuple[Cell, ...] = (
     MATRIX_DRIFT_CELLS[2],
     MATRIX_DRIFT_CELLS[4],
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class OffloadRegime:
+    """One offload regime: arrival pressure an un-offloaded edge device
+    cannot serve, plus the network the overflow ships over.
+
+    ``demand_factor`` scales the offered arrival rate λ as a multiple of
+    the cell's *edge-only* max throughput (the best φ=0 row of the joint
+    grid), so demand_factor > 1 makes every no-offload configuration
+    infeasible by construction. ``slo_frac`` sets the end-to-end τ target
+    as a fraction of λ, and ``p_slack`` the edge power budget as a
+    multiple of the cheapest SLO-meeting draw (the "pmin" anchor of the
+    static regimes) — calibrated so 5–18% of the joint grid is dual-
+    feasible while ``max_power`` presets bust the budget on radio + max
+    clocks. ``trace`` names the arrival process the regime models (MMPP
+    bursts over a constrained LTE uplink, diurnal peaks over metro
+    fiber); the paired workload's measurement noise reflects it.
+    """
+
+    name: str
+    trace: str  # "mmpp" | "diurnal"
+    network: str  # NETWORKS registry key
+    demand_factor: float = 2.0
+    slo_frac: float = 0.85
+    p_slack: float = 1.35
+
+    @property
+    def dual_constraint(self) -> bool:
+        return True
+
+    @property
+    def mode(self) -> str:
+        return "dual"
+
+
+OFFLOAD_REGIMES: Dict[str, OffloadRegime] = {
+    r.name: r
+    for r in (
+        # Bursty MMPP arrivals over a bandwidth- and energy-constrained
+        # LTE uplink: the radio tax makes high offload fractions power-
+        # expensive, so the optimum balances route fraction against the
+        # edge DVFS ladder.
+        OffloadRegime("offload_mmpp", trace="mmpp", network="lte-uplink"),
+        # Diurnal peak over metro fiber: cheap fat pipe, so the binding
+        # resources are the pod slice and the edge power rail.
+        OffloadRegime("offload_diurnal", trace="diurnal", network="fiber-metro"),
+    )
+}
+
+# Offload cells: each pairs a regime with (device × model) combos whose
+# joint grid keeps a 7–18% dual-feasible region at the regime's default
+# knobs (calibrated against the noise-free landscape; see
+# EXPERIMENTS.md §Offload). The MMPP regime rides the bursty workload's
+# noisier samples; the diurnal regime gets its own trace noise.
+MATRIX_OFFLOAD_CELLS: Tuple[Cell, ...] = (
+    Cell("edge-xavier-nx", "qwen2.5-3b", "decode_bursty", "offload_mmpp"),
+    Cell("edge-orin-nano", "granite-8b", "decode_bursty", "offload_mmpp"),
+    Cell("edge-xavier-nx", "granite-8b", "decode_diurnal", "offload_diurnal"),
+    Cell("edge-orin-nano", "qwen2.5-3b", "decode_diurnal", "offload_diurnal"),
+)
+
+# QUICK (CI-smoke) subset: one cell per offload regime.
+QUICK_OFFLOAD_CELLS: Tuple[Cell, ...] = (
+    MATRIX_OFFLOAD_CELLS[0],
+    MATRIX_OFFLOAD_CELLS[3],
+)
+
+
+def offload_cell_simulator(
+    cell: Cell, noise: Optional[float] = None, seed: int = 0
+) -> OffloadSimulator:
+    """Build the cell's edge↔pod twin over the joint offload grid, with
+    the offered demand λ pinned at demand_factor × the edge-only max so
+    every φ=0 row is infeasible. ``noise=None`` uses the workload's trace
+    noise; ``noise=0.0`` is the ground-truth twin targets/oracle use."""
+    regime = OFFLOAD_REGIMES[cell.regime]
+    w = WORKLOADS[cell.workload]
+    sim = OffloadSimulator(
+        get_profile(cell.device),
+        get_config(cell.model),
+        get_network(regime.network),
+        kind=w.kind,
+        batch=w.batch,
+        seq=w.seq,
+        noise=w.noise if noise is None else noise,
+        seed=seed,
+    )
+    sim.demand = round(regime.demand_factor * sim.edge_only_max(), 3)
+    return sim
+
+
+def resolve_offload_targets(
+    cell: Cell, sim0: Optional[OffloadSimulator] = None
+) -> RegimeTargets:
+    """Absolute (τ target, edge power budget) for an offload cell: the
+    τ target is slo_frac × the offered demand λ (an end-to-end served-
+    throughput SLO), and the budget is p_slack × the cheapest edge-rail
+    draw meeting it — the "pmin" anchor over the *joint* grid, radio
+    energy included."""
+    regime = OFFLOAD_REGIMES[cell.regime]
+    if sim0 is None:
+        sim0 = offload_cell_simulator(cell, noise=0.0)
+    tau_target = round(regime.slo_frac * sim0.demand, 3)
+    tau_all, p_all = sim0.exact_all()
+    p_anchor = float(p_all[tau_all >= tau_target].min())
+    return RegimeTargets(
+        mode="dual", tau_target=tau_target, p_budget=p_anchor * regime.p_slack
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class CotenantRegime:
+    """One multi-tenant co-inference regime: per-tenant τ-floor fractions
+    plus a shared power cap (EXPERIMENTS.md §Multi-tenant).
+
+    ``tau_fracs[k]`` sets tenant k's τ floor as a fraction of its *solo
+    max* — the best τ_k anywhere on the joint grid, i.e. what tenant k
+    could reach if the allocator favored it outright. Floors calibrated
+    this way are individually reachable but jointly tight: meeting both
+    at once forces the slot split and the shared clocks to be negotiated,
+    which is exactly the knob the per-tenant-greedy ablation ignores.
+    ``p_slack`` is the shared rail budget as a multiple of the cheapest
+    draw meeting every floor (the "pmin" anchor over the joint grid).
+    """
+
+    name: str
+    tau_fracs: Tuple[float, ...] = (0.5, 0.5)
+    p_slack: float = 1.25
+
+    @property
+    def dual_constraint(self) -> bool:
+        return True
+
+    @property
+    def mode(self) -> str:
+        return "dual"
+
+
+COTENANT_REGIMES: Dict[str, CotenantRegime] = {
+    r.name: r
+    for r in (
+        # Symmetric floors: both tenants claim the same fraction of their
+        # solo max — the pure negotiation case. 0.625 is calibrated so
+        # every static preset and the per-tenant-greedy combination miss
+        # at least one floor on both cells while a 3–5% joint-feasible
+        # region survives (p_slack 1.45 keeps the all-defaults preset
+        # just over the rail budget on the Xavier cell).
+        CotenantRegime("cotenant_balanced", tau_fracs=(0.625, 0.625), p_slack=1.45),
+        # A latency-critical primary next to a best-effort batch tenant:
+        # the primary's floor is high enough that naive equal splits and
+        # the greedy combination miss it, while the joint-feasible region
+        # stays discoverable within the COTENANT_ITERS budget.
+        CotenantRegime("cotenant_skewed", tau_fracs=(0.70, 0.4), p_slack=1.45),
+    )
+}
+
+# Cotenant cells encode the tenant pairs as '+'-joined composite model /
+# workload strings, so the 4-field Cell (and every keying/reporting path
+# built on it) carries multi-tenant cells unchanged.
+MATRIX_COTENANT_CELLS: Tuple[Cell, ...] = (
+    Cell(
+        "edge-xavier-nx",
+        "qwen2.5-3b+granite-8b",
+        "decode_steady+decode_bursty",
+        "cotenant_balanced",
+    ),
+    Cell(
+        "edge-orin-nano",
+        "qwen2.5-3b+hymba-1.5b",
+        "decode_steady+decode_steady",
+        "cotenant_balanced",
+    ),
+    Cell(
+        "edge-xavier-nx",
+        "granite-8b+hymba-1.5b",
+        "decode_bursty+decode_steady",
+        "cotenant_skewed",
+    ),
+    Cell(
+        "edge-orin-nano",
+        "granite-8b+whisper-medium",
+        "decode_steady+decode_bursty",
+        "cotenant_skewed",
+    ),
+)
+
+# QUICK (CI-smoke) subset: one cell per cotenant regime.
+QUICK_COTENANT_CELLS: Tuple[Cell, ...] = (
+    MATRIX_COTENANT_CELLS[0],
+    MATRIX_COTENANT_CELLS[3],
+)
+
+
+def tenant_names(cell: Cell) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """Split a cotenant cell's composite fields into per-tenant (models,
+    workloads); validates the two lists pair up."""
+    models = tuple(cell.model.split("+"))
+    workloads = tuple(cell.workload.split("+"))
+    if len(models) != len(workloads) or len(models) < 2:
+        raise ValueError(
+            f"cotenant cell needs matching '+'-joined model/workload "
+            f"lists, got {cell.model!r} / {cell.workload!r}"
+        )
+    return models, workloads
+
+
+def cotenant_cell_simulator(
+    cell: Cell, noise: Optional[float] = None, seed: int = 0
+) -> CotenantSimulator:
+    """Build the cell's multi-tenant twin over the joint slots × shared-
+    DVFS grid, with the per-tenant τ floors pinned from the regime's
+    solo-max fractions (the pin-after-build pattern of the offload
+    demand). ``noise=None`` uses the noisiest tenant's trace noise;
+    ``noise=0.0`` is the ground-truth twin targets/oracle use."""
+    regime = COTENANT_REGIMES[cell.regime]
+    models, workloads = tenant_names(cell)
+    ws = [WORKLOADS[w] for w in workloads]
+    sim = CotenantSimulator(
+        get_profile(cell.device),
+        [get_config(m) for m in models],
+        kinds=tuple(w.kind for w in ws),
+        batches=tuple(w.batch for w in ws),
+        seqs=tuple(w.seq for w in ws),
+        noise=max(w.noise for w in ws) if noise is None else noise,
+        seed=seed,
+    )
+    sim.floors = tuple(
+        round(frac * sim.solo_max(k), 3)
+        for k, frac in enumerate(regime.tau_fracs)
+    )
+    return sim
+
+
+def resolve_cotenant_targets(
+    cell: Cell, sim0: Optional[CotenantSimulator] = None
+) -> RegimeTargets:
+    """Absolute targets for a cotenant cell. The τ channel is the joint
+    headroom min_k τ_k/floor_k (``core.coral.joint_headroom``), so the
+    target is the constant 1.0; the budget is p_slack × the cheapest
+    shared-rail draw with headroom ≥ 1 — the "pmin" anchor over the
+    joint grid."""
+    regime = COTENANT_REGIMES[cell.regime]
+    if sim0 is None:
+        sim0 = cotenant_cell_simulator(cell, noise=0.0)
+    h_all, p_all = sim0.exact_all()
+    p_anchor = float(p_all[h_all >= 1.0].min())
+    return RegimeTargets(
+        mode="dual", tau_target=1.0, p_budget=round(p_anchor * regime.p_slack, 3)
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -443,19 +686,6 @@ def resolve_fault_targets(cell: Cell) -> RegimeTargets:
     return RegimeTargets(
         mode=base.mode, tau_target=tau_target, p_budget=base.p_budget
     )
-
-
-def check_ported(cell: Cell) -> None:
-    """Raise NotImplementedError for a cell of a family the port does not
-    run yet (naming its ROADMAP item), KeyError for an unknown regime."""
-    for family, (names, item) in PENDING_FAMILIES.items():
-        if cell.regime in names:
-            raise NotImplementedError(
-                f"{family} cells ({cell.regime!r}) are not ported yet "
-                f"(ROADMAP queue 1 item {item})"
-            )
-    if cell.regime not in REGIMES and cell.regime not in FAULT_REGIMES:
-        raise KeyError(f"unknown regime {cell.regime!r}")
 
 
 def enumerate_cells(

@@ -6,9 +6,9 @@ engine starts a non-blocking copy of the last position's logits into
 pinned host memory behind a CUDA event (``ServingEngine.fetch_last``),
 and retire waits on that event, where the reference relies on a JAX
 device→host transfer skipping the execute queue. (2) The edge↔pod
-offload seam (``attach_pod``, ``set_pod_outage``, ``set_offload``,
-``_ship_to_pod``, ``_poll_pod``) waits for the offload slice (ROADMAP
-queue 1 item 14); every request is served locally.
+serving seam (``attach_pod``, ``set_pod_outage``, ``set_offload``,
+``_ship_to_pod``, ``_poll_pod``) waits for ROADMAP queue 1 item 14;
+every request is served locally.
 
 The paper (§II-A) tunes concurrency as a first-class resource knob, which
 only means anything if ``c`` in-flight decode groups genuinely pipeline.

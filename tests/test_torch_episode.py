@@ -125,13 +125,14 @@ def test_run_cell_runs_a_static_cell():
     assert rec.record["coral"]["measurements"] == 10
 
 
-@pytest.mark.parametrize("regime,item", [("offload_mmpp", 9), ("cotenant_balanced", 10)])
-def test_run_matrix_raises_on_cells_not_ported_yet(regime, item):
-    cell = sc.Cell("edge-orin-nano", "qwen2.5-3b", "decode_steady", regime)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+def test_unknown_regime_raises_key_error():
+    cell = sc.Cell("edge-orin-nano", "qwen2.5-3b", "decode_steady", "offload_tidal")
+    with pytest.raises(KeyError, match="offload_tidal"):
         matrix.run_matrix([DUAL_CELL, cell], device="cpu")
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    with pytest.raises(KeyError, match="offload_tidal"):
         run_cell(CellSpec(cell), device="cpu")
+    with pytest.raises(KeyError, match="offload_tidal"):
+        matrix.run_matrix([], fault_cells=[cell], device="cpu")
 
 
 def test_diff_records_reports_what_differs():

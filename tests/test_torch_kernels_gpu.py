@@ -27,7 +27,9 @@ ratio error of 1e-6 is 1e-3 in dCor); against the float64 plain version,
 its normalised Gram ⟨A,B⟩/√(⟨A,A⟩⟨B,B⟩) (dCor² before the root) within
 1e-6 at every pair and its dCor within 1e-4 wherever the float64 dCor is
 at least 1e-2 (at an exact zero of dCor, 1e-8 of float32 rounding in dCor²
-is 1e-4 in dCor), and two runs bitwise equal.
+is 1e-4 in dCor), and two runs bitwise equal. The offload cells run on
+the card: records against ``BENCH_matrix.json`` at rel 1e-12 (both rebuild
+τ and p in float64 from the same landscapes and noise).
 """
 import numpy as np
 import pytest
@@ -485,3 +487,25 @@ def test_dcov_gram_kernel_at_an_exact_zero_pair(cuda):
     g, t = sim0.space.index("gpu_freq"), len(sim0.space.names)  # columns: knobs, tau, p
     assert normalised_gram(ref64)[g, t].abs().item() < 1e-12  # an exact zero: dCor < 1e-6
     assert_near_float64(gram, ref64)
+
+
+@pytest.mark.gpu
+def test_offload_cells_on_the_card_reproduce_the_record(cuda):
+    """The 4 offload cells x 3 seeds through ``run_matrix`` on the card: one
+    batched call of OFFLOAD_ITERS steps, one windows-kernel launch each,
+    its records and summary keys equal to ``BENCH_matrix.json``'s (floats
+    at rel 1e-12, the rest exactly)."""
+    import json
+    from pathlib import Path
+
+    from repro_torch.experiments import matrix, scenarios
+
+    record = json.loads((Path(__file__).resolve().parents[1] / "BENCH_matrix.json").read_text())
+    before = runtime.launch_counts()["dcov"]
+    rec = matrix.run_matrix([], offload_cells=scenarios.MATRIX_OFFLOAD_CELLS, device="cuda")
+    assert runtime.launch_counts()["dcov"] == before + matrix.OFFLOAD_ITERS
+    assert matrix.diff_records(rec["offload_cells"], record["offload_cells"]) == []
+    keys = [k for k in record["summary"] if "offload" in k]
+    assert len(keys) == 4
+    assert matrix.diff_records({k: rec["summary"][k] for k in keys},
+                               {k: record["summary"][k] for k in keys}) == []

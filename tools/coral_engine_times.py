@@ -10,7 +10,10 @@ path: the batched static call over the 54-cell grid x 3 seeds (162
 episodes x 10 steps), and, where the tree has the drift and fault step
 kinds, the batched drift call (the 6 drift cells x 3 seeds x {adaptive,
 static}, 64 steps) and the batched fault call (the 6 fault cells x 3
-seeds x {hardened, ablation}, 40 steps). A call ends with the host
+seeds x {hardened, ablation}, 40 steps), and, where the tree has the
+offload and cotenant cells, their batched calls (static episodes on the
+joint grids: the 4 offload cells x 3 seeds, 24 steps; the 4 cotenant
+cells x 3 seeds, 40 steps). A call ends with the host
 reading its results, so the host clock around it is its wall time. Each
 call is warmed up once, then timed ``REPS`` times; the median and the
 spread (min, max) are printed in ms, beside the card's name and power
@@ -72,6 +75,19 @@ def time_tree(tree: Path) -> None:
             for r in matrix._fault_requests(matrix._prep_fault_cell(c, steps, SEEDS), SEEDS, h)]
     print(f"{tree}: fault call, {len(reqs)} episodes x {steps} steps: " + timed(
         torch, lambda: episode.run_fault_requests(reqs, iters=steps, device="cuda")), flush=True)
+    if not hasattr(matrix, "run_offload_cell"):
+        print(f"{tree}: no offload or cotenant cells", flush=True)
+        return
+    for family, cells, prep, steps in (
+        ("offload", scenarios.MATRIX_OFFLOAD_CELLS, matrix._prep_offload_cell,
+         matrix.OFFLOAD_ITERS),
+        ("cotenant", scenarios.MATRIX_COTENANT_CELLS, matrix._prep_cotenant_cell,
+         matrix.COTENANT_ITERS),
+    ):
+        reqs = [r for c in cells for r in matrix._static_requests(prep(c), SEEDS)]
+        print(f"{tree}: {family} call, {len(reqs)} episodes x {steps} steps: " + timed(
+            torch, lambda: episode.run_static_requests(reqs, iters=steps, device="cuda")),
+            flush=True)
 
 
 def main() -> None:
