@@ -7,8 +7,9 @@ GPU, from the root of a checkout:
 Four main paths, each at full size through its kernels: Qwen2.5-3B served
 at full width (prefill attention through ``flash_attention``), Mamba2-2.7B
 served at full width (the SSD chunked scan through ``ssd_scan``), the
-CORAL loop over the 54-cell x 3-seed static grid, the 6 drift cells and
-the 6 fault cells (its windowed dCor through ``dcov``), and Hymba-1.5B
+CORAL loop over the 54-cell x 3-seed static grid, the 6 drift cells, the
+6 fault cells, the 4 offload and 4 cotenant cells, and the 1024-twin fleet
+of ``BENCH_fleet.json`` (its windowed dCor through ``dcov``), and Hymba-1.5B
 served at full width (attention and
 Mamba2 heads side by side in every layer: ``flash_attention`` with a
 1024-token window on 29 of its 32 layers and ``ssd_scan`` at N = 16).
@@ -46,14 +47,17 @@ Phases, each of which exits non-zero on failure:
    windows form against
    ``dcov_gram_windows_ref`` over B in {1, 3, 162, 1024}, W in {3, 10,
    64}, C in {2, 7, 8} with n_valid from {1, 2, 3, W-1, W}, constant
-   columns and zero rows, and bitwise batch independence; its
+   columns and zero rows (then the offload and cotenant calls' (12, 10, 7)
+   and the fleet's (1024, 12, 7) and (256, 12, 7)), and bitwise batch
+   independence; its
    single-block form against ``dcov_gram_ref`` over n up to 4099, and
    against its float64 version (normalised Gram within 1e-6 at every
    pair, dCor within 1e-4 where the float64 dCor is >= 1e-2) there and at
    n=16384, C=8 (float64 in row blocks), two runs bitwise equal (times at
    the grid shape B=162, W=10, C=7, with the windows kernel's own
-   duration from the profiler, at n=1600, C=7 and at n=16384, C=8; no
-   library call computes the Gram).
+   duration from the profiler, at the joint grids' B=12 and the fleet's
+   (1024, 12, 7), at n=1600, C=7 and at n=16384, C=8; no library call
+   computes the Gram).
 3. Slice check, per model: (a) the reduced model in float32 on the card,
    through the kernel, against the same model on the CPU (plain path,
    which the CPU tests hold to the JAX package); (b) the model at full
@@ -89,7 +93,15 @@ Phases, each of which exits non-zero on failure:
    for bit to the plain version on its own inputs, each cell to the
    record's ``drift_cells`` / ``fault_cells`` and the summary keys; (f)
    the 12 cells through the scalar spec, records identical to (d) and
-   (e), launches equal to the counted ``correlations()`` calls.
+   (e), launches equal to the counted ``correlations()`` calls; (g)-(i)
+   the 4 offload and 4 cotenant cells the same way (24 and 40 launches);
+   (j) the fleet: ``run_fleet`` over 1024 twins at ``BENCH_fleet.json``'s
+   settings (30 steps, window 12) with the steady probe, exactly 30
+   launches in each of its cold (B = 1024), steady (1024) and warm (256)
+   calls, each held bit for bit to the plain version on its own inputs,
+   the results block equal to the record's (on a mismatch, the keys and
+   the first twin and step where the card's wave leaves the CPU's), and
+   the engine block printed beside the card's name and power limit.
 4. Serve (the serving paths): ``serve()`` at full width, 16 requests,
    prompt 512, 32 new tokens, batch 4, at concurrency 1, then 2, with
    launch counts reset just before and read just after each model's runs;
@@ -104,8 +116,9 @@ Phases, each of which exits non-zero on failure:
 5. Profile (after the counts are read): where a full-width prefill
    (B=4, prompt 512) and a decode step (B=4) of each model, and one
    batched CORAL call of each kind (static over the grid, drift over the
-   6 drift cells, fault over the 6 fault cells), spend their time — wall
-   time,
+   6 drift cells, fault over the 6 fault cells, offload and cotenant over
+   their 4 cells, the fleet's cold call over 1024 twins), spend their
+   time — wall time,
    device-busy time and kernel count from ``torch.profiler``, the idle
    share, and the heaviest kernels; every flash and SSD launch of the
    profiled prefills there on the ``wgmma`` bodies, one per layer (36 for
@@ -213,6 +226,8 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 DCOV_WINDOWS = [(b, w, c) for b in (1, 3, 162, 1024) for w in (3, 10, 64) for c in (2, 7, 8)]
 DCOV_GRID = (162, 10, 7)  # 54 cells x 3 seeds, window 10, 5 knobs + (tau, p)
 DCOV_JOINT = (12, 10, 7)  # 4 offload (or cotenant) cells x 3 seeds on their joint grids
+DCOV_FLEET = (1024, 12, 7)  # the fleet's cold call: 1024 twins, window 12
+DCOV_FLEET_WARM = (256, 12, 7)  # its warm call: every 4th twin
 DCOV_BLOCKS = [(n, c) for n in (30, 200, 512, 1440, 1600, 2160, 4099) for c in (2, 7, 8)]
 DCOV_ORACLE = (1600, 7)
 DCOV_SCALES = (1500.0, 4.0, 800.0, 2000.0, 3.0, 50.0, 5.0, 1.0)
@@ -232,6 +247,9 @@ DCOV_LARGE = (16384, 8)  # timed beside DCOV_ORACLE; float64 plain version in ro
 DCOV_PASSES = ("dcov_rowsum_kernel", "dcov_gram_kernel")  # the single-block form's kernels
 MATRIX_RECORD = ROOT / "BENCH_matrix.json"  # the JAX package's committed static grid
 RECORD_REL = 1e-12  # floats of a cell record against the committed one
+FLEET_RECORD = ROOT / "BENCH_fleet.json"  # the JAX package's committed fleet record
+FLEET_RUN = dict(n_twins=1024, seed=0, iters=30, window=12)  # BENCH_fleet.json's settings
+FLEET_CALLS = (("cold", 1024), ("steady", 1024), ("warm", 256))  # run_fleet's engine calls
 
 
 def fail(msg: str) -> None:
@@ -296,16 +314,21 @@ def attention_inputs(torch, dtype, b, hq, hkv, s, d, dv, seed):
     )
 
 
-def phase_environment(torch):
-    from repro_torch.kernels import runtime
-
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=False,
     )
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    say(smi.stdout.strip().splitlines()[0])
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_environment(torch):
+    from repro_torch.kernels import runtime
+
+    say(card_line())
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -781,7 +804,8 @@ def phase_dcov_check(torch):
     )
     from repro_torch.kernels.dcov.ref import dcor_from_sums
 
-    for i, (b, w, c) in enumerate(DCOV_WINDOWS + [DCOV_JOINT]):  # the joint grids' shape last
+    # the joint grids' and the fleet's shapes last
+    for i, (b, w, c) in enumerate(DCOV_WINDOWS + [DCOV_JOINT, DCOV_FLEET, DCOV_FLEET_WARM]):
         cols, n = dcov_windows_inputs(torch, b, w, c, seed=i)
         gram = dcov_gram_windows(cols, n)
         ref = dcov_gram_windows_ref(cols, n)
@@ -847,17 +871,19 @@ def phase_dcov_check(torch):
         f"duration in the profiler {own}), plain "
         f"{plain_ms:.4f} ms, library: none, bound {bound_ms:.6f} ms ({bound_by}; "
         f"{nbytes / 1e3:.1f} KB, {pairs * dcov_pair_ops(c) / 1e6:.3f} MFLOP)")
-    # and at the offload and cotenant calls' shape
-    jb, jw, jc = DCOV_JOINT
-    jcols, jn = dcov_windows_inputs(torch, jb, jw, jc, seed=len(DCOV_WINDOWS) + 1)
-    j_ms = device_ms(lambda: dcov_gram_windows(jcols, jn))
-    j_plain = device_ms(lambda: dcov_gram_windows_ref(jcols, jn))
-    j_ops = sum(k * (k + 1) // 2 for k in jn.tolist()) * dcov_pair_ops(jc)
-    j_bytes = 4 * (jb * jw * jc + jb + jb * jc * jc)
-    j_bound, j_by = dcov_bound(j_bytes, j_ops)
-    say(f"  dcov windows at the joint grids' shape {DCOV_JOINT}: kernel {j_ms:.4f} ms, plain "
-        f"{j_plain:.4f} ms, library: none, bound {j_bound:.6f} ms ({j_by}; "
-        f"{j_bytes / 1e3:.2f} KB, {j_ops / 1e6:.4f} MFLOP)")
+    # and at the offload and cotenant calls' shape and the fleet's cold call's
+    for k, (label, shape) in enumerate((("the joint grids' shape", DCOV_JOINT),
+                                         ("the fleet's shape", DCOV_FLEET))):
+        sb, sw, sc = shape
+        scols, sn = dcov_windows_inputs(torch, sb, sw, sc, seed=len(DCOV_WINDOWS) + 1 + k)
+        s_ms = device_ms(lambda: dcov_gram_windows(scols, sn))
+        s_plain = device_ms(lambda: dcov_gram_windows_ref(scols, sn))
+        s_ops = sum(v * (v + 1) // 2 for v in sn.tolist()) * dcov_pair_ops(sc)
+        s_bytes = 4 * (sb * sw * sc + sb + sb * sc * sc)
+        s_bound, s_by = dcov_bound(s_bytes, s_ops)
+        say(f"  dcov windows at {label} {shape}: kernel {s_ms:.4f} ms, plain {s_plain:.4f} ms, "
+            f"library: none, bound {s_bound:.6f} ms ({s_by}; {s_bytes / 1e3:.2f} KB, "
+            f"{s_ops / 1e6:.4f} MFLOP)")
     # the single-block form at ORACLE scale, and at n = 16384 held to float64
     n_rows, c = DCOV_ORACLE
     rng = np.random.default_rng(0)
@@ -1461,8 +1487,8 @@ def held_per_launch(torch, fn, label):
         apart += not (torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan], ref[~nan]))
         rows = torch.arange(cols.shape[1], device=cols.device)[None, :] < n_valid[:, None]
         nan_windows += int((torch.isnan(cols).any(dim=2) & rows).any(dim=1).sum())
-    shape = tuple(kept[0][0].shape) if kept else None
-    say(f"  {label}: {len(kept)} windows-kernel launches at (B, W, C) = {shape}, "
+    shapes = ", ".join(str(s) for s in sorted({tuple(k[0].shape) for k in kept}, reverse=True))
+    say(f"  {label}: {len(kept)} windows-kernel launches at (B, W, C) = {shapes or None}, "
         f"{len(kept) - apart} bitwise equal to the plain version on their own inputs "
         f"(NaN at the same places); {nan_windows} episode windows held NaN in a valid row")
     if apart:
@@ -1660,21 +1686,92 @@ def batched_family(torch, part, family, steps, variants, kw):
     return part_counts["dcov"], rec
 
 
+def phase_fleet(torch):
+    """(j) The fleet at ``BENCH_fleet.json``'s settings on the card:
+    ``run_fleet`` over 1024 twins with the steady probe, three engine calls
+    of 30 steps (cold at B = 1024, steady at 1024, warm at 256), exactly one
+    windows-kernel launch per step of each, every launch held bit for bit to
+    the plain version on its own inputs, and the results block equal to the
+    record's. On a mismatch: the keys that differ, then the first twin and
+    step where the card's cold or warm wave leaves the same requests run on
+    the CPU. Returns the dcov launches."""
+    import numpy as np
+
+    from repro_torch.experiments import fleet
+    from repro_torch.kernels import runtime
+
+    calls, engine = [], fleet.run_fleet_requests
+
+    def counted(reqs, *args, **kw):  # each engine call's batch, launches and results
+        before = runtime.launch_counts()["dcov"]
+        out = engine(reqs, *args, **kw)
+        calls.append((len(reqs), runtime.launch_counts()["dcov"] - before, reqs, out))
+        return out
+
+    torch.cuda.synchronize()
+    runtime.reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(fleet, "run_fleet_requests", counted):
+        rec, kept, _ = held_per_launch(
+            torch, lambda: fleet.run_fleet(**FLEET_RUN, probe_steady=True, device="cuda"),
+            "(j) fleet")
+    wall = time.perf_counter() - t0
+    counts = runtime.launch_counts()
+    iters = FLEET_RUN["iters"]
+    say(f"  (j) run_fleet, {FLEET_RUN['n_twins']} twins x {iters} steps, cold, steady and warm "
+        f"on the card: {wall:.3f} s, launches {counts}; engine calls: " + ", ".join(
+            f"{name} B={b}: {n} dcov launches" for (name, _), (b, n, _, _) in
+            zip(FLEET_CALLS, calls)))
+    say(f"  (j) engine block on {card_line()}: {json.dumps(rec['engine'])}")
+    if [(b, n) for b, n, _, _ in calls] != [(b, iters) for _, b in FLEET_CALLS]:
+        fail(f"the fleet's engine calls launched dcov {[(b, n) for b, n, _, _ in calls]} times "
+             f"(batch, launches), not {iters} per call at {[b for _, b in FLEET_CALLS]}")
+    if counts["dcov"] != kept or kept != iters * len(FLEET_CALLS):
+        fail(f"dcov launched {counts['dcov']} times in the fleet, not {iters * len(FLEET_CALLS)}")
+    want = json.loads(FLEET_RECORD.read_text())["results"]
+    got = rec["results"]
+    same = json.dumps(got, sort_keys=True) == json.dumps(want, sort_keys=True)
+    say(f"  (j) results block equal to {FLEET_RECORD.name}'s: {same} (feasible_rate "
+        f"{got['feasible_rate']}, mean_m2f_cold {got['mean_m2f_cold']}, mean_score "
+        f"{got['mean_score']}, warm_gain {got['warm_gain']} over {got['warm_matched']} pairs)")
+    if same:
+        return counts["dcov"]
+    keys = [k for k in sorted(set(got) | set(want))
+            if json.dumps(got.get(k), sort_keys=True) != json.dumps(want.get(k), sort_keys=True)]
+    say(f"    keys that differ: {keys}")
+    for (name, _), (_, _, reqs, out) in zip(FLEET_CALLS, calls):
+        if name == "steady":
+            continue
+        on_cpu = engine(reqs, iters, FLEET_RUN["window"], device="cpu")
+        for i, (a, b) in enumerate(zip(out, on_cpu)):
+            steps = np.flatnonzero(a["idx"] != b["idx"])
+            if steps.size:
+                t = int(steps[0])
+                say(f"    {name} wave: twin {i} first leaves the CPU's trace at step {t} "
+                    f"(row {a['idx'][t]} on the card, {b['idx'][t]} on the CPU)")
+                break
+        else:
+            say(f"    {name} wave: every row trace equals the CPU's")
+    fail(f"the port's fleet does not reproduce {FLEET_RECORD.name}")
+
+
 def phase_coral_profile(torch):
     """One batched static call over the grid, one batched drift call over
     the 6 drift cells, one batched fault call over the 6 fault cells, and
     one batched offload and one batched cotenant call over their 4 cells
     each (tables built and moved, T steps on the card, float64 records on
-    the host), and the single-block dcov form at ORACLE scale and at n =
-    16384, split into its two kernels."""
+    the host), the fleet's cold call (1024 twins, 30 steps), and the
+    single-block dcov form at ORACLE scale and at n = 16384, split into its
+    two kernels."""
     import numpy as np
 
     from repro_torch.core.episode import (
         run_drift_requests,
         run_fault_requests,
+        run_fleet_requests,
         run_static_requests,
     )
-    from repro_torch.experiments import matrix, scenarios
+    from repro_torch.experiments import fleet, matrix, scenarios
     from repro_torch.kernels.dcov import dcov_gram
 
     reqs = [r for c in static_grid() for r in matrix._static_requests(matrix._prep_cell(c), (0, 1, 2))]
@@ -1707,6 +1804,12 @@ def phase_coral_profile(torch):
             torch, f"CORAL batched {family} call, {len(reqs)} episodes x {steps} steps",
             lambda: run_static_requests(reqs, iters=steps, device="cuda"), reps=3)
         say(f"    {launches / steps:.1f} kernels per engine step")
+    steps, window = FLEET_RUN["iters"], FLEET_RUN["window"]
+    reqs = [fleet._request(t) for t in fleet.build_fleet(FLEET_RUN["n_twins"], FLEET_RUN["seed"])]
+    launches = profile_window(
+        torch, f"CORAL fleet cold call, {len(reqs)} twins x {steps} steps",
+        lambda: run_fleet_requests(reqs, steps, window, device="cuda"), reps=3)
+    say(f"    {launches / steps:.1f} kernels per engine step")
     n_rows, c = DCOV_ORACLE
     rng = np.random.default_rng(0)
     x = torch.from_numpy((rng.normal(size=(n_rows, c)) * np.asarray(DCOV_SCALES[:c])
@@ -1740,6 +1843,8 @@ def main() -> None:
     phase_slice_check(torch, SSM_ARCH, 93)
     phase_slice_check(torch, HYBRID_ARCH, 40)
     counts = {"dcov": phase_coral_slice(torch)}
+    counts["dcov"] += phase_fleet(torch)
+    say(f"  dcov launches on the main paths, the fleet's included: {counts['dcov']}")
     say("== phase 4: serve")
     counts.update(phase_serve(torch))
     say("== phase 5: profile")

@@ -19,10 +19,18 @@ which keeps the two engines' decisions identical. ORACLE-scale samples
 (thousands of rows, every row valid) go through
 ``kernels.dcov.dcor_all_blocked``.
 
-The reference's incremental window state (``dcor_state_init``,
-``dcor_state_from_window``, ``dcor_state_push``, ``dcor_state_corr``)
-serves only its fleet engine and is not ported yet (ROADMAP queue 1
-item 11).
+The reference's fleet engine keeps the window's dCor sums incrementally
+instead (``dcor_state_init``, ``dcor_state_from_window``,
+``dcor_state_push``, ``dcor_state_corr``: O(W·C²) per pushed row). They
+are ported below, with a leading batch axis, and held to the reference in
+the tests, but the port's engine does not call them: its fleet step takes
+the window from the history block and reaches dCor through
+:func:`dcor_all_cols` like every other step kind. Rebuilding the window
+each step was checked against the incremental sums in the JAX package
+itself: all 1024 cold row traces of the fleet at ``BENCH_fleet.json``'s
+settings, and its whole results block (warm cohort included), come out
+the same. So the port keeps one dCor route, one dcov launch per fleet
+step, and no (B, W, W, C) ring state.
 """
 from __future__ import annotations
 
@@ -37,6 +45,10 @@ __all__ = [
     "dcor_all",
     "dcor_all_cols",
     "dcor_from_sums",
+    "dcor_state_corr",
+    "dcor_state_from_window",
+    "dcor_state_init",
+    "dcor_state_push",
     "dcov2",
 ]
 
@@ -119,3 +131,114 @@ def dcor_all_cols(cols: torch.Tensor, n_valid, d: int) -> torch.Tensor:
     diag = torch.diagonal(gram, dim1=1, dim2=2)  # (B, C)
     corr = dcor_from_sums(gram[:, :d, d:], diag[:, :d, None], diag[:, None, d:])
     return corr if batched else corr[0]
+
+
+# ---------------------------------------------------------------------------
+# Incremental windowed dCor (the reference's fleet path)
+#
+# Replacing ring slot k of a window touches exactly row k and column k of
+# every (symmetric) distance matrix, so the three sums dCor needs can be
+# kept instead of recomputed:
+#
+#     cross_ab = Σ_ij d^a_ij · d^b_ij          (C, C)
+#     rows_i   = Σ_j  d_ij                     (W, C)   (row sums)
+#     S        = Σ_ij d_ij = Σ_i rows_i        (C,)
+#
+# and for the double-centred A of Eq. 2,
+#
+#     Σ_ij A^a_ij A^b_ij = cross_ab − (2/n)·Σ_i rows^a_i rows^b_i + S^a S^b / n².
+#
+# A state is a dict of ``win`` (W, C), ``dist`` (W, W, C), ``rows`` (W, C)
+# and ``cross`` (C, C) float32 tensors, each with an optional leading batch
+# axis (B, ...); ``n_valid``, ``slot`` and ``n_filled`` are then ints or
+# (B,) tensors.
+# ---------------------------------------------------------------------------
+
+
+def dcor_state_init(window: int, c: int, device="cuda") -> dict:
+    """Empty incremental-dCor state for a (window, c) column block (a
+    batch of empty states: ``dcor_state_from_window`` with n_valid 0)."""
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    return {
+        "win": zeros(window, c),
+        "dist": zeros(window, window, c),
+        "rows": zeros(window, c),
+        "cross": zeros(c, c),
+    }
+
+
+def dcor_state_from_window(cols: torch.Tensor, n_valid) -> dict:
+    """Full O(W²·C) build from a (W, C) or (B, W, C) column block whose
+    rows at index >= n_valid are padding: what ``n_valid`` sequential
+    pushes of the same rows into an empty state hold (the same masked
+    |·| distances)."""
+    x = cols.to(torch.float32)
+    w, c = x.shape[-2:]
+    n = torch.as_tensor(n_valid, device=x.device)
+    valid = torch.arange(w, device=x.device) < n[..., None]  # (..., W)
+    mask = (valid[..., :, None] & valid[..., None, :]).to(torch.float32)
+    dist = (x[..., :, None, :] - x[..., None, :, :]).abs() * mask[..., None]
+    flat = dist.reshape(*dist.shape[:-3], w * w, c)
+    return {
+        "win": x * valid[..., None],
+        "dist": dist,
+        "rows": dist.sum(dim=-2),
+        "cross": flat.transpose(-1, -2) @ flat,
+    }
+
+
+def dcor_state_push(state: dict, row: torch.Tensor, slot, n_filled) -> dict:
+    """Replace ring slot ``slot`` with observation ``row`` ((C,) or (B, C))
+    in O(W·C²). ``n_filled`` is the number of filled slots before this
+    push (the ring discipline: slot = step mod W, n_filled = min(step, W),
+    so the replaced slot is the first empty or the oldest filled one).
+    Removing the old row/column subtracts its pair sums; adding the new one
+    is a masked (W, C) distance row and rank-one updates of the row sums
+    and the (C, C) cross products. Returns a new state."""
+    batched = state["win"].dim() == 3
+    st = state if batched else {k: v[None] for k, v in state.items()}
+    win, dist = st["win"], st["dist"]
+    b, w, _ = win.shape
+    dev = win.device
+    ar = torch.arange(b, device=dev)
+    slot = torch.as_tensor(slot, device=dev).expand(b)
+    n_filled = torch.as_tensor(n_filled, device=dev).expand(b)
+    r = row.to(torch.float32).reshape(b, -1)
+    idx = torch.arange(w, device=dev)[None, :]
+    keep = ((idx < n_filled[:, None]) & (idx != slot[:, None])).to(torch.float32)[..., None]
+    old = dist[ar, slot]  # (B, W, C); zero at unfilled slots
+    new = (r[:, None, :] - win).abs() * keep
+    cross = (
+        st["cross"]
+        - 2.0 * (old.transpose(1, 2) @ old)
+        + 2.0 * (new.transpose(1, 2) @ new)
+    )
+    rows = st["rows"] - old + new
+    rows[ar, slot] = new.sum(dim=1)
+    dist = dist.clone()
+    dist[ar, slot] = new
+    dist[ar, :, slot] = new
+    win = win.clone()
+    win[ar, slot] = r
+    out = {"win": win, "dist": dist, "rows": rows, "cross": cross}
+    return out if batched else {k: v[0] for k, v in out.items()}
+
+
+def dcor_state_corr(state: dict, n_valid, d: int) -> torch.Tensor:
+    """The (D, M) dCor matrix (or (B, D, M)) from the kept sums: what
+    :func:`dcor_all_cols` returns for the same window contents, without
+    touching (W, W)."""
+    rows, cross = state["rows"], state["cross"]
+    n = torch.as_tensor(n_valid, device=rows.device).clamp_min(1).to(torch.float32)
+    n = n[..., None, None]
+    grand = rows.sum(dim=-2)
+    sums = (
+        cross
+        - (2.0 / n) * (rows.transpose(-1, -2) @ rows)
+        + grand[..., :, None] * grand[..., None, :] / (n * n)
+    )
+    diag = torch.diagonal(sums, dim1=-2, dim2=-1)
+    return dcor_from_sums(sums[..., :d, d:], diag[..., :d, None], diag[..., None, d:])

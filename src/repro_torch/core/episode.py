@@ -1,17 +1,21 @@
 """Batched episode engine: a batch of CORAL episodes as one torch step
 over B episodes, looped over T on the device.
 
-The port of ``repro.core.episode``'s static, drift and fault paths. The
-reference lifts a ``lax.scan`` over one episode with ``vmap`` and
+The port of ``repro.core.episode``'s static, drift, fault and fleet
+paths. The reference lifts a ``lax.scan`` over one episode with ``vmap`` and
 compiles it; here the batch axis is written out, every carry field leads
 with B, and the step runs eagerly T times with no host sync (the host
-reads the results once, after the last step). Three step kinds share the
+reads the results once, after the last step). Four step kinds share the
 pieces below: static (``run_static_requests``: propose → measure →
 observe), drift (``run_drift_requests``: commanded budget, held config,
 CUSUM monitor and bounded re-exploration; adaptive and static ablation
-are (B,) data of one call) and fault (``run_fault_requests``: watchdog
+are (B,) data of one call), fault (``run_fault_requests``: watchdog
 guard, faulty actuation, the MAD ingest gate; hardened and its blind
-ablation are (B,) data of one call). Their parts translate one for one:
+ablation are (B,) data of one call) and fleet (``run_fleet_requests``:
+the static step over heterogeneous twins, with firmware-banned rows born
+prohibited and warm-started episodes seeded from a converged neighbour's
+window, prohibited set and anchors; cold and warm twins are (B,) data of
+one call). Their parts translate one for one:
 
   - history: one ``(B, T+W, D+4)`` append-only observation block — config
     values, τ, p, then the clock stamp and grid-row index as exact-
@@ -40,7 +44,13 @@ ablation are (B,) data of one call). Their parts translate one for one:
     times the seed's exact numpy noise stream, with a fault episode's
     spikes and NaN baked in, built on the host and moved to the device
     once — so a measurement is one gather; episodes address their table
-    by ``table_id``, and the variants of one (cell, seed) share it.
+    by ``table_id``, and the variants of one (cell, seed) share it. A
+    fleet call keeps the reference's factored form instead: (U, N)
+    float32 landscapes times each episode's (T, 2) float32 noise,
+    multiplied at the chosen row inside the step. Its dCor does not
+    follow the reference's incremental sums (``core.dcov.dcor_state_*``):
+    the window is gathered from the history block like every other step
+    kind's, which gives the reference's record (see ``core/dcov.py``).
 
 Decisions run in float32 on the device (``_reward``, Alg. 2 through
 ``search.alg2_levels``'s torch branch, the escape argmin, the CUSUM
@@ -49,10 +59,13 @@ the landscape × noise products (``_trace_f64``, ``fault_trace_f64``,
 ``_f64_reward``, ``_f64_result``, ``fault_pick``), so the τ/p traces
 equal the scalar loop's measurements bit for bit. The engine holds the
 scalar spec's selections exactly (tests/test_torch_episode.py,
-tests/test_torch_drift.py, tests/test_torch_faults.py).
+tests/test_torch_drift.py, tests/test_torch_faults.py). The fleet path
+has no scalar twin, as in the reference: its row traces, prohibited
+masks, windows and anchors are held to the JAX engine's, and its record
+to ``BENCH_fleet.json`` (tests/test_torch_fleet.py).
 
-Not ported yet: the fleet engine (ROADMAP queue 1 item 11), and the
-reference's ``REPRO_CONTRACTS``/``REPRO_CHECKIFY`` lanes (item 17).
+Not ported yet: the reference's ``REPRO_CONTRACTS``/``REPRO_CHECKIFY``
+lanes (ROADMAP queue 1 item 17).
 """
 from __future__ import annotations
 
@@ -98,6 +111,11 @@ class EngineSpec:
     iters: int  # episode length T (intervals for drift episodes)
     window: int  # dCor sliding window W
     drift: bool = False  # epoch-structured drift episode
+    # fleet episodes: static episodes with the factored measurement model
+    # — (U, N) landscapes × each episode's (T, 2) noise, multiplied at the
+    # chosen row inside the step instead of a dense (T, N) table — with
+    # firmware-banned rows and warm-start state as episode data
+    fleet: bool = False
     explore_budget: int = 10
     halflife: Optional[float] = None  # dCor age horizon (drift: window)
     calibration: int = 8
@@ -218,7 +236,11 @@ def _init_carry(spec: EngineSpec, ep: Dict, pad_mask: torch.Tensor) -> Dict[str,
     (B,) float32 / int32 / bool anchor and bookkeeping scalars; a drift
     episode adds its commanded budget, held config, CUSUM monitor and
     retry/reset counters, a fault episode the config in force and the
-    watchdog's dark counter."""
+    watchdog's dark counter. A fleet episode that is warm-started (its
+    (B,) ``warm`` flag) starts from a converged neighbour's context:
+    its window rows at history rows [0, warm_n) with ``n_obs = warm_n``,
+    the inherited prohibited rows at INT_MAX, and the best / second /
+    last anchors; cold episodes share the call."""
     t, w, d = spec.iters, spec.window, spec.d
     b, dev = pad_mask.shape[0], pad_mask.device
     f32, i32 = torch.float32, torch.int32
@@ -258,6 +280,21 @@ def _init_carry(spec: EngineSpec, ep: Dict, pad_mask: torch.Tensor) -> Dict[str,
         "probed_for": full(-1, i32),
         "probe_done": full(False, torch.bool),
     }
+    if spec.fleet:
+        warm = ep["warm"]
+        c["hist_sm"][:, :w] = torch.where(warm[:, None, None], ep["warm_hist"], 0.0)
+        c["n_obs"] = torch.where(warm, ep["warm_n"], 0).to(i32)
+        c["seen_tag"] = torch.where(
+            warm[:, None] & ep["warm_prohibit"], int(_INT_MAX), c["seen_tag"]
+        )
+        for name in ("best", "sec"):
+            for fld in ("idx", "tau", "p", "r"):
+                key = f"{name}_{fld}"
+                c[key] = torch.where(warm, ep[f"warm_{key}"], c[key])
+            c[f"{name}_valid"] = warm & ep[f"warm_{name}_valid"]
+        for fld in ("idx", "tau", "p"):
+            c[f"last_{fld}"] = torch.where(warm, ep[f"warm_last_{fld}"], c[f"last_{fld}"])
+        c["last_valid"] = warm & ep["warm_last_valid"]
     if spec.drift:
         c.update(
             p_budget=ep["p_budget0"].clone(),
@@ -538,6 +575,28 @@ def _static_step(spec: EngineSpec, k: Dict, ep: Dict, tables: Dict):
     return step
 
 
+def _fleet_step(spec: EngineSpec, k: Dict, ep: Dict, tables: Dict):
+    """The static step with the factored measurement model: each
+    episode's float32 (N,) landscape rows (addressed by ``table_id``)
+    times its own (T, 2) float32 noise stream, multiplied at the chosen
+    row — the product a dense (T, N) table would hold."""
+    thr, tau_target, p_budget = ep["throughput"], ep["tau_target"], ep["p_budget"]
+    tid = ep["table_id"]
+    always = torch.ones_like(thr)
+
+    def step(c, t: int):
+        cand, probe_updates = _propose(spec, k, c, thr, tau_target, p_budget)
+        c = {**c, **probe_updates}
+        z = ep["noise"][:, t]  # (B, 2) float32: no operand below promotes
+        tau = torch.clamp_min(tables["tau"][tid, cand] * (1.0 + z[:, 0]), 1e-9)
+        p = torch.clamp_min(tables["p"][tid, cand] * (1.0 + z[:, 1]), 1e-9)
+        c = _observe(k, c, cand, tau, p, thr, tau_target, p_budget, always)
+        c["clock"] = c["clock"] + 1
+        return c, {"idx": cand}
+
+    return step
+
+
 def _fault_step(spec: EngineSpec, k: Dict, ep: Dict, tables: Dict):
     """run_fault_regime's loop body for B episodes: watchdog-guarded
     next_config → faulty actuation → measure the config actually in force
@@ -688,14 +747,20 @@ def _drift_step(spec: EngineSpec, k: Dict, ep: Dict, tables: Dict):
 # ---------------------------------------------------------------------------
 
 _FINAL_KEYS = ("n_obs", "epoch_start", "best_idx", "best_valid")
+# a fleet episode's anchors, read back as the seed of a warm-started wave
+_ANCHOR_KEYS = tuple(
+    f"{name}_{fld}" for name in ("best", "sec", "last")
+    for fld in ("idx", "tau", "p", "r", "valid") if (name, fld) != ("last", "r")
+)
 
 
 def _run(spec: EngineSpec, ep: Dict, tables: Dict, device) -> Dict[str, np.ndarray]:
-    """The batched engine: T steps of the spec's step kind (static, drift
-    or fault) over B episodes on ``device``. Every step's decisions stay
-    on the device; the host reads the stacked (B, T) per-step outputs,
-    the final counters and the history's row and clock columns once,
-    after the last step."""
+    """The batched engine: T steps of the spec's step kind (static, drift,
+    fault or fleet) over B episodes on ``device``. Every step's decisions
+    stay on the device; the host reads the stacked (B, T) per-step
+    outputs, the final counters and the history's row and clock columns
+    once, after the last step (a fleet call: the final prohibited masks,
+    the last W window rows and the anchors instead of the history)."""
     consts = _device_consts(spec, str(device))
     sid = ep["space_id"]
     k = {name: v[sid] for name, v in consts.items() if name != "key_tab"}
@@ -703,8 +768,18 @@ def _run(spec: EngineSpec, ep: Dict, tables: Dict, device) -> Dict[str, np.ndarr
     k["sid"] = sid
     k["ar"] = torch.arange(sid.shape[0], device=sid.device)
     k["offs"] = torch.arange(spec.window, device=sid.device)
-    c = _init_carry(spec, ep, k["pad_mask"])
-    make = _drift_step if spec.drift else _fault_step if spec.fault else _static_step
+    pad = k["pad_mask"]
+    if spec.fleet:
+        # firmware-locked DVFS rows are born prohibited, like grid padding;
+        # the iteration-0/1 presets may be warm-start overrides (a
+        # neighbour's observed extremes)
+        pad = pad | ep["banned"]
+        k["min_idx"], k["max_idx"] = ep["min_idx"], ep["max_idx"]
+    c = _init_carry(spec, ep, pad)
+    make = (
+        _drift_step if spec.drift else _fault_step if spec.fault
+        else _fleet_step if spec.fleet else _static_step
+    )
     step = make(spec, k, ep, tables)
     outs: Dict[str, list] = {}
     for t in range(spec.iters):
@@ -715,8 +790,14 @@ def _run(spec: EngineSpec, ep: Dict, tables: Dict, device) -> Dict[str, np.ndarr
     res.update({name: c[name] for name in _FINAL_KEYS})
     if spec.drift:
         res["resets"] = c["resets"]
-    res["hist_idx"] = c["hist_sm"][:, : spec.iters, -1].to(torch.int32)
-    res["hist_t"] = c["hist_sm"][:, : spec.iters, -2].to(torch.int32)
+    if spec.fleet:
+        start = torch.clamp_min(c["n_obs"] - spec.window, 0)
+        res["prohibited"] = c["seen_tag"] == int(_INT_MAX)
+        res["window"] = c["hist_sm"][k["ar"][:, None], start[:, None] + k["offs"][None, :]]
+        res.update({name: c[name] for name in _ANCHOR_KEYS})
+    else:
+        res["hist_idx"] = c["hist_sm"][:, : spec.iters, -1].to(torch.int32)
+        res["hist_t"] = c["hist_sm"][:, : spec.iters, -2].to(torch.int32)
     return {name: v.cpu().numpy() for name, v in res.items()}
 
 
@@ -1263,6 +1344,126 @@ def run_fault_requests(
                 "outcome": outcome,
             }
         )
+    return out
+
+
+def run_fleet_requests(
+    reqs: List[dict],
+    iters: int = 30,
+    window: int = 12,
+    stats: Optional[dict] = None,
+    device="cuda",
+) -> List[dict]:
+    """Run a fleet of static CORAL episodes over heterogeneous device twins
+    as one batched engine call of ``iters`` steps on ``device``, with the
+    factored measurement model (``EngineSpec.fleet``).
+
+    Each request::
+
+        {space, land_tau (N0,) float64, land_p, targets, seed, noise,
+         banned:  optional (N0,) bool — firmware-locked grid rows,
+         warm:    optional dict — a converged neighbour's context:
+                  {hist (w, D+4) float32 window rows (w <= window),
+                   prohibit (N0,) bool,
+                   best/sec/last anchor scalars (+ *_valid flags),
+                   min_idx, max_idx}}
+
+    Landscapes are cast to float32 once and deduped by array identity
+    (``table_id``), so a warm re-run of a twin ships its (N,) rows once;
+    the noise is drawn in float64 and cast to float32 once. Returns one
+    dict per request: the chosen-row trace ``idx``, the final
+    ``prohibited`` mask and last-W ``window`` rows (the seed of a next,
+    warm-started wave), ``n_obs`` and the anchor scalars. When ``stats``
+    is a dict it receives the bytes accounting (tables, batch, device
+    constants) and the episode count.
+    """
+    if not reqs:
+        return []
+    spaces = _batch_spaces(reqs)
+    spec = EngineSpec(spaces=spaces, iters=iters, window=window, fleet=True)
+    b, n, d, w = len(reqs), spec.n, spec.d, spec.window
+    if w > iters:
+        raise ValueError("fleet window must not exceed iters")
+
+    table_ids, firsts = _dedup_tables([(id(r["land_tau"]), id(r["land_p"])) for r in reqs])
+    land_tau32 = np.zeros((len(firsts), n), np.float32)
+    land_p32 = np.zeros((len(firsts), n), np.float32)
+    for u, i in enumerate(firsts):
+        n0 = reqs[i]["land_tau"].shape[0]
+        land_tau32[u, :n0] = reqs[i]["land_tau"]
+        land_p32[u, :n0] = reqs[i]["land_p"]
+
+    f32, i32 = np.float32, np.int32
+    ep: Dict[str, np.ndarray] = {
+        "space_id": np.empty(b, np.int64),
+        "table_id": table_ids,
+        "tau_target": np.empty(b, f32),
+        "p_budget": np.empty(b, f32),
+        "throughput": np.empty(b, bool),
+        "noise": np.zeros((b, iters, 2), f32),
+        "banned": np.zeros((b, n), bool),
+        "min_idx": np.empty(b, i32),
+        "max_idx": np.empty(b, i32),
+        "warm": np.zeros(b, bool),
+        "warm_n": np.zeros(b, i32),
+        "warm_hist": np.zeros((b, w, d + 4), f32),
+        "warm_prohibit": np.zeros((b, n), bool),
+    }
+    # absent anchors stay invalid at r = -inf and row -1, as a cold carry's
+    for name in ("best", "sec", "last"):
+        ep[f"warm_{name}_idx"] = np.full(b, -1, i32)
+        ep[f"warm_{name}_tau"] = np.zeros(b, f32)
+        ep[f"warm_{name}_p"] = np.zeros(b, f32)
+        ep[f"warm_{name}_valid"] = np.zeros(b, bool)
+        if name != "last":
+            ep[f"warm_{name}_r"] = np.full(b, -np.inf, f32)
+
+    for i, r in enumerate(reqs):
+        sp = r["space"]
+        n0 = sp.size()
+        consts = _space_consts(sp)
+        ep["space_id"][i] = spaces.index(sp)
+        ep["tau_target"][i] = _engine_tau_target(r["targets"].mode, r["targets"])
+        ep["p_budget"][i] = np.float32(r["targets"].p_budget)
+        ep["throughput"][i] = r["targets"].mode == "throughput"
+        ep["noise"][i] = measurement_noise(r["seed"], r["noise"], iters)
+        if r.get("banned") is not None:
+            ep["banned"][i, :n0] = r["banned"]
+        ep["min_idx"][i] = consts["min_idx"]
+        ep["max_idx"][i] = consts["max_idx"]
+        warm = r.get("warm")
+        if warm is not None:
+            rows = np.asarray(warm["hist"], f32)[-w:]
+            ep["warm"][i] = True
+            ep["warm_n"][i] = rows.shape[0]
+            ep["warm_hist"][i, : rows.shape[0]] = rows
+            ep["warm_prohibit"][i, :n0] = warm["prohibit"]
+            for key in _ANCHOR_KEYS:
+                if key in warm:
+                    ep[f"warm_{key}"][i] = warm[key]
+            ep["min_idx"][i] = warm.get("min_idx", consts["min_idx"])
+            ep["max_idx"][i] = warm.get("max_idx", consts["max_idx"])
+
+    if stats is not None:
+        stats["table_bytes"] = int(land_tau32.nbytes + land_p32.nbytes)
+        stats["batch_bytes"] = int(sum(v.nbytes for v in ep.values()))
+        stats["consts_bytes"] = int(
+            sum(v.numel() * v.element_size()
+                for v in _device_consts(spec, str(device)).values())
+        )
+        stats["episodes"] = b
+    res = _run(spec, *_to_device(ep, land_tau32, land_p32, device), device)
+    out: List[dict] = []
+    for i, r in enumerate(reqs):
+        n0 = r["space"].size()
+        one = {
+            "idx": res["idx"][i].astype(np.int64),
+            "prohibited": res["prohibited"][i][:n0].copy(),
+            "window": res["window"][i],
+            "n_obs": int(res["n_obs"][i]),
+        }
+        one.update({name: res[name][i].item() for name in _ANCHOR_KEYS})
+        out.append(one)
     return out
 
 

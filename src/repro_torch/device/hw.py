@@ -14,14 +14,18 @@ extra per-stream memory contention), and power-budget steps. A schedule
 is a pure function of the control-interval clock ``t``, applied to a
 simulator by ``repro_torch.device.simulator.DriftingSimulator``.
 
-A plain copy of ``repro.device.hw`` up to its drift schedules. The
-reference's fleet sampling (``ConstantDerate``, ``FleetPerturbation``,
-``sample_perturbations``) waits for the fleet (ROADMAP queue 1 item 11).
+The fleet sampling turns a registry profile into heterogeneous units:
+``sample_perturbations`` draws each unit's silicon lottery, ambient derate
+and firmware ladder variant, ``perturbed_profile`` scales the profile to
+it, and ``ConstantDerate`` carries the ambient derate as a one-event
+stationary ``DriftSchedule`` (``repro_torch.experiments.fleet``).
+
+A plain copy of ``repro.device.hw``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -364,3 +368,133 @@ class DriftSchedule:
 
 
 NO_DRIFT = DriftSchedule(())
+
+
+# ---------------------------------------------------------------------------
+# Fleet sampling: registry profiles → heterogeneous per-unit twins
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ConstantDerate:
+    """A stationary operating-condition offset — the drift-event shape
+    with no time dependence. The fleet sampler uses it to model ambient
+    temperature: a hot enclosure derates delivered clocks and inflates
+    leakage *for the whole run*, so a twin's landscape is built by
+    wrapping its simulator in a one-event schedule of this."""
+
+    clock_derate: float = 0.0
+    mem_derate: float = 0.0
+    static_inflation: float = 0.0
+    start: int = 0
+
+    def state_at(self, t: int) -> DriftState:
+        return DriftState(
+            clock_derate=self.clock_derate,
+            mem_derate=self.mem_derate,
+            static_inflation=self.static_inflation,
+        )
+
+    @property
+    def end(self) -> int:
+        return 0
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetPerturbation:
+    """One fleet unit's deviation from its family's registry profile.
+
+    ``compute_scale``/``mem_scale`` are the silicon lottery on achievable
+    FLOP/s and DRAM bandwidth (bin-to-bin MXU/streaming efficiency
+    spread); ``host_scale`` speeds or slows host preprocess;
+    ``power_scale`` is the leakage/process bin on the power rails;
+    ``ambient_derate`` is the stationary thermal derate of the unit's
+    enclosure (applied as a ``ConstantDerate`` when building its
+    landscape); ``ladder_variant`` selects a firmware DVFS-ladder
+    variant — realized as a mask of *locked-out* grid rows (see
+    ``repro_torch.experiments.fleet.ladder_banned_rows``), so every variant
+    shares its family's ``ConfigSpace`` and the engine's staged constants."""
+
+    family: str
+    twin_id: int
+    compute_scale: float = 1.0
+    mem_scale: float = 1.0
+    host_scale: float = 1.0
+    power_scale: float = 1.0
+    ambient_derate: float = 0.0
+    ladder_variant: int = 0
+
+    def ambient(self) -> ConstantDerate:
+        """The twin's stationary operating-condition event (thermal
+        derate quadratic in the requested level, hotter silicon leaks
+        more — the same shape ``ThermalRamp`` holds at, held forever)."""
+        return ConstantDerate(
+            clock_derate=self.ambient_derate,
+            mem_derate=0.5 * self.ambient_derate,
+            static_inflation=self.ambient_derate,
+        )
+
+
+def perturbed_profile(pert: FleetPerturbation) -> DeviceProfile:
+    """The registry profile scaled to one fleet unit's silicon.
+
+    Efficiency fractions absorb the compute/memory lottery, host time
+    the host lottery, and every power-rail constant the leakage bin —
+    the knob grid and roofline *structure* stay the family's, which is
+    what makes warm-start transfer across neighbors meaningful."""
+    base = get_profile(pert.family)
+    hw = dataclasses.replace(
+        base.hw,
+        p_idle_chip=base.hw.p_idle_chip * pert.power_scale,
+        p_dyn_chip=base.hw.p_dyn_chip * pert.power_scale,
+        p_hbm_chip=base.hw.p_hbm_chip * pert.power_scale,
+        p_host_idle=base.hw.p_host_idle * pert.power_scale,
+        p_host_core=base.hw.p_host_core * pert.power_scale,
+    )
+    return dataclasses.replace(
+        base,
+        name=f"{base.name}#{pert.twin_id:05d}",
+        hw=hw,
+        compute_eff=base.compute_eff * pert.compute_scale,
+        mem_eff=base.mem_eff * pert.mem_scale,
+        t_host_per_item=base.t_host_per_item / pert.host_scale,
+    )
+
+
+FLEET_FAMILIES: Tuple[str, ...] = (
+    "edge-xavier-nx",
+    "edge-orin-nano",
+    "edge-orin-nx",
+)
+
+
+def sample_perturbations(
+    n: int,
+    seed: int,
+    families: Sequence[str] = FLEET_FAMILIES,
+    n_ladder_variants: int = 3,
+) -> Tuple[FleetPerturbation, ...]:
+    """``n`` deterministic fleet twins, round-robin across ``families``.
+
+    Twin ``i`` draws from ``default_rng([seed, i])`` — its perturbation
+    depends only on (fleet seed, twin id), not on fleet size or sampling
+    order, so a 64-twin smoke fleet is exactly the first 64 twins of the
+    1024-twin nightly fleet. Scales are clipped mild enough that a
+    neighbor's converged optimum stays *near*-optimal, which is the
+    regime warm-starting is meant to exploit."""
+    out = []
+    for i in range(n):
+        rng = np.random.default_rng([seed, i])
+        out.append(
+            FleetPerturbation(
+                family=families[i % len(families)],
+                twin_id=i,
+                compute_scale=float(np.clip(rng.normal(1.0, 0.05), 0.85, 1.15)),
+                mem_scale=float(np.clip(rng.normal(1.0, 0.04), 0.88, 1.12)),
+                host_scale=float(np.clip(rng.normal(1.0, 0.06), 0.80, 1.20)),
+                power_scale=float(np.clip(rng.normal(1.0, 0.06), 0.82, 1.18)),
+                ambient_derate=float(rng.uniform(0.0, 0.12)),
+                ladder_variant=int(rng.integers(0, n_ladder_variants)),
+            )
+        )
+    return tuple(out)

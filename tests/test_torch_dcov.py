@@ -284,3 +284,102 @@ def test_ablation_variants_change_what_they_name():
         dcov_ablation.variants(src.replace("  if (!last) return;", ""))
     with pytest.raises(ValueError, match="marker"):
         dcov_ablation.variants(src + "\n// float (&acc)[C * (C + 1) / 2]\n")
+
+
+# ---------------------------------------------------------------------------
+# The incremental dCor state (the reference's fleet path; the port's engine
+# gathers the window instead, see core/dcov.py). Held to the JAX package's
+# functions through fill-up and wrap-around: the window and the distance
+# stack bitwise (the same subtract, abs and mask), the row sums and cross
+# products at rel 1e-6 (matmuls summed in another order); the correlations
+# to dcor_all_cols at the reference tests' 2e-3 (pushes) and 1e-4 (a state
+# built from a window).
+
+
+def _state_np(st):
+    return {k: np.asarray(v) for k, v in st.items()}
+
+
+def _hold_state(got, want):
+    for k in ("win", "dist"):
+        assert np.array_equal(got[k].numpy(), want[k]), k
+    for k in ("rows", "cross"):
+        np.testing.assert_allclose(got[k].numpy(), want[k], rtol=1e-6,
+                                   atol=1e-6 * np.abs(want[k]).max(), err_msg=k)
+
+
+@pytest.mark.parametrize("w,d", [(8, 4), (12, 5)])
+def test_state_push_matches_reference_through_wraparound(w, d):
+    rng = np.random.default_rng(w + d)
+    c = d + 2
+    rows = (rng.normal(size=(3 * w, c)) * SCALES[:c]).astype(np.float32)
+    st = dcov.dcor_state_init(w, c, device="cpu")
+    ref = ref_dcov.dcor_state_init(w, c)
+    win = np.zeros((w, c), np.float32)
+    for t, r in enumerate(rows):
+        slot, n_filled = t % w, min(t, w)
+        st = dcov.dcor_state_push(st, torch.from_numpy(r), slot, n_filled)
+        ref = ref_dcov.dcor_state_push(ref, jnp.asarray(r), jnp.int32(slot),
+                                       jnp.int32(n_filled))
+        _hold_state(st, _state_np(ref))
+        win[slot] = r
+        n_valid = min(t + 1, w)
+        full = dcov.dcor_all_cols(torch.from_numpy(win), n_valid, d)
+        np.testing.assert_allclose(dcov.dcor_state_corr(st, n_valid, d).numpy(),
+                                   full.numpy(), atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("n", [0, 1, 6, 10])
+def test_state_from_window_matches_reference(n):
+    rng = np.random.default_rng(n + 20)
+    w, d = 10, 3
+    cols = np.zeros((w, d + 2), np.float32)
+    cols[:n] = rng.normal(size=(n, d + 2))
+    st = dcov.dcor_state_from_window(torch.from_numpy(cols), n)
+    _hold_state(st, _state_np(ref_dcov.dcor_state_from_window(jnp.asarray(cols), jnp.int32(n))))
+    if n >= 2:
+        got = dcov.dcor_state_corr(st, n, d).numpy()
+        full = dcov.dcor_all_cols(torch.from_numpy(cols), n, d).numpy()
+        np.testing.assert_allclose(got, full, atol=1e-4, rtol=0)
+        assert got.shape == (d, 2)
+
+
+def test_state_from_window_equals_its_pushes():
+    """n_valid sequential pushes into an empty state hold what one build
+    from the window holds: the window and distances bitwise."""
+    rng = np.random.default_rng(31)
+    w, c, n = 10, 7, 7
+    cols = np.zeros((w, c), np.float32)
+    cols[:n] = rng.normal(size=(n, c)) * SCALES
+    st = dcov.dcor_state_init(w, c, device="cpu")
+    for t in range(n):
+        st = dcov.dcor_state_push(st, torch.from_numpy(cols[t]), t, t)
+    built = dcov.dcor_state_from_window(torch.from_numpy(cols), n)
+    _hold_state(st, {k: v.numpy() for k, v in built.items()})
+
+
+def test_state_batched_equals_per_episode():
+    """The leading batch axis: B states pushed together, each at its own
+    slot and fill, hold what B unbatched pushes hold."""
+    rng = np.random.default_rng(41)
+    b, w, c, d = 4, 6, 7, 5
+    cols = (rng.normal(size=(b, w, c)) * SCALES).astype(np.float32)
+    ns = np.asarray([0, 2, 5, 6], np.int64)
+    st = dcov.dcor_state_from_window(torch.from_numpy(cols), torch.from_numpy(ns))
+    empty = dcov.dcor_state_from_window(torch.zeros(b, w, c), torch.zeros(b, dtype=torch.int64))
+    for k, v in dcov.dcor_state_init(w, c, device="cpu").items():
+        assert torch.equal(empty[k], v.expand_as(empty[k]))
+    row = (rng.normal(size=(b, c)) * SCALES).astype(np.float32)
+    slots = ns % w
+    pushed = dcov.dcor_state_push(st, torch.from_numpy(row), torch.from_numpy(slots),
+                                  torch.from_numpy(np.minimum(ns, w)))
+    corr = dcov.dcor_state_corr(pushed, torch.from_numpy(np.minimum(ns + 1, w)), d)
+    assert corr.shape == (b, d, 2)
+    for i in range(b):
+        one = dcov.dcor_state_from_window(torch.from_numpy(cols[i]), int(ns[i]))
+        one = dcov.dcor_state_push(one, torch.from_numpy(row[i]), int(slots[i]),
+                                   int(min(ns[i], w)))
+        _hold_state({k: v[i] for k, v in pushed.items()}, {k: v.numpy() for k, v in one.items()})
+        np.testing.assert_allclose(
+            corr[i].numpy(), dcov.dcor_state_corr(one, int(min(ns[i] + 1, w)), d).numpy(),
+            atol=1e-6, rtol=0)

@@ -59,6 +59,7 @@ def test_entry_points_default_to_the_card():
         run_coral_batch,
         run_drift_requests,
         run_fault_requests,
+        run_fleet_requests,
         run_static_requests,
     )
     from repro_torch.core.evaluate import (
@@ -76,12 +77,13 @@ def test_entry_points_default_to_the_card():
         run_offload_cell,
         run_static_cell,
     )
+    from repro_torch.experiments.fleet import run_fleet
     from repro_torch.launch.serve import build_engine, serve
     from repro_torch.models.convert import params_from_jax
 
     for fn in (serve, build_engine, params_from_jax, run_matrix, run_static_cell,
                run_drift_cell, run_fault_cell, run_offload_cell, run_cotenant_cell,
                run_static_requests, run_drift_requests,
-               run_fault_requests, run_coral_batch, run_regime, run_coral,
+               run_fault_requests, run_fleet_requests, run_fleet, run_coral_batch, run_regime, run_coral,
                run_drift_regime, run_fault_regime, run_cell, CORAL, dcor_all):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn

@@ -29,7 +29,9 @@ its normalised Gram ⟨A,B⟩/√(⟨A,A⟩⟨B,B⟩) (dCor² before the root) w
 at least 1e-2 (at an exact zero of dCor, 1e-8 of float32 rounding in dCor²
 is 1e-4 in dCor), and two runs bitwise equal. The offload cells run on
 the card: records against ``BENCH_matrix.json`` at rel 1e-12 (both rebuild
-τ and p in float64 from the same landscapes and noise).
+τ and p in float64 from the same landscapes and noise). The fleet runs on
+the card: its windows launches bitwise at the fleet's shapes, its results
+block equal to ``BENCH_fleet.json``'s (``json.dumps`` with sorted keys).
 """
 import numpy as np
 import pytest
@@ -391,6 +393,17 @@ def test_dcov_windows_kernel_is_batch_independent(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b", [1024, 256])
+def test_dcov_windows_kernel_bitwise_at_the_fleet_shapes(cuda, b):
+    """The fleet's cold (B = 1024) and warm (B = 256) calls launch at
+    (B, W, C) = (B, 12, 7): the Grams equal the plain version's bit for
+    bit."""
+    cols, n = dcov_windows_inputs(cuda, b, 12, 7, seed=b + 12)
+    gram = dcov_gram_windows(cols, n)
+    assert torch.equal(gram, dcov_gram_windows_ref(cols, n))
+
+
+@pytest.mark.gpu
 def test_dcov_windows_kernel_on_fault_windows(cuda):
     """The fault ablation's windows at its batch shape (B, W, C) = (36, 10,
     7): dropped samples as NaN rows and x1000 spikes in the τ and p
@@ -509,3 +522,22 @@ def test_offload_cells_on_the_card_reproduce_the_record(cuda):
     assert len(keys) == 4
     assert matrix.diff_records({k: rec["summary"][k] for k in keys},
                                {k: record["summary"][k] for k in keys}) == []
+
+
+@pytest.mark.gpu
+def test_fleet_on_the_card_reproduces_the_record(cuda):
+    """The 1024-twin fleet on the card: one cold call and one warm call of
+    30 steps, one windows-kernel launch each, and the results block equal
+    to ``BENCH_fleet.json``'s key for key."""
+    import json
+    from pathlib import Path
+
+    from repro_torch.experiments.fleet import run_fleet
+
+    record = json.loads((Path(__file__).resolve().parents[1] / "BENCH_fleet.json").read_text())
+    before = runtime.launch_counts()["dcov"]
+    rec = run_fleet(1024, seed=0, iters=30, window=12, device="cuda")
+    assert runtime.launch_counts()["dcov"] == before + 2 * 30
+    assert json.dumps(rec["results"], sort_keys=True) == json.dumps(
+        record["results"], sort_keys=True)
+    assert rec["engine"]["backend"] == "cuda" and rec["engine"]["peak_device_bytes"] > 0

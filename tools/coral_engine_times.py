@@ -13,7 +13,9 @@ static}, 64 steps) and the batched fault call (the 6 fault cells x 3
 seeds x {hardened, ablation}, 40 steps), and, where the tree has the
 offload and cotenant cells, their batched calls (static episodes on the
 joint grids: the 4 offload cells x 3 seeds, 24 steps; the 4 cotenant
-cells x 3 seeds, 40 steps). A call ends with the host
+cells x 3 seeds, 40 steps), and, where the tree has the fleet, its cold
+call (the 1024 twins of ``BENCH_fleet.json``, 30 steps, window 12). A
+call ends with the host
 reading its results, so the host clock around it is its wall time. Each
 call is warmed up once, then timed ``REPS`` times; the median and the
 spread (min, max) are printed in ms, beside the card's name and power
@@ -88,6 +90,14 @@ def time_tree(tree: Path) -> None:
         print(f"{tree}: {family} call, {len(reqs)} episodes x {steps} steps: " + timed(
             torch, lambda: episode.run_static_requests(reqs, iters=steps, device="cuda")),
             flush=True)
+    if not hasattr(episode, "run_fleet_requests"):
+        print(f"{tree}: no fleet", flush=True)
+        return
+    from repro_torch.experiments import fleet
+
+    reqs = [fleet._request(t) for t in fleet.build_fleet(1024, seed=0)]
+    print(f"{tree}: fleet cold call, {len(reqs)} twins x 30 steps: " + timed(
+        torch, lambda: episode.run_fleet_requests(reqs, 30, 12, device="cuda")), flush=True)
 
 
 def main() -> None:
