@@ -4,8 +4,10 @@ GPU, from the root of a checkout:
 
     python3 chip_smoke.py
 
-Four main paths, each at full size through its kernels: Qwen2.5-3B served
-at full width (prefill attention through ``flash_attention``), Mamba2-2.7B
+Five main paths, each at full size through its kernels (the fifth is the
+serving control loop, CORAL tuning live Qwen2.5-3B traffic, phase 6):
+Qwen2.5-3B served at full width (prefill attention through
+``flash_attention``), Mamba2-2.7B
 served at full width (the SSD chunked scan through ``ssd_scan``), the
 CORAL loop over the 54-cell x 3-seed static grid, the 6 drift cells, the
 6 fault cells, the 4 offload and 4 cotenant cells, and the 1024-twin fleet
@@ -107,14 +109,22 @@ Phases, each of which exits non-zero on failure:
    launch counts reset just before and read just after each model's runs;
    each model's kernels must have launched once per layer and prefill, on
    the ``wgmma`` bodies (Qwen2.5-3B: 36 flash; Mamba2-2.7B: 64 SSD;
-   Hymba-1.5B: 32 flash and 32 SSD). For Qwen2.5-3B then the
-   τ-vs-concurrency probe over c in
-   {1, 2, 4} and the retire-overlap check: the real runtime over a
+   Hymba-1.5B: 32 flash and 32 SSD), and each decode must have gone
+   through the engine's CUDA graphs, one capture per pool entry (c entries
+   at concurrency c), not one per step. Then, per model at full width,
+   16 greedy decode steps after one 4 x 512 prefill through the graph and
+   through the eager step over the same weights: logits bitwise equal.
+   For Qwen2.5-3B then the τ-vs-concurrency probe over c in 1 ... 5
+   (``tpu_pod_space``'s values), graphed and eager engines in turns,
+   after one prefill at its prompt length (64) with every flash launch
+   held to ``attention_ref``, and
+   the retire-overlap check: the real runtime over a
    stand-in engine whose steps take 10 ms of host work and a 10 ms spin
    kernel must serve at c=2 at least 1.3× its c=1 rate, which holds only
    if retire waits on its own slot alone.
 5. Profile (after the counts are read): where a full-width prefill
-   (B=4, prompt 512) and a decode step (B=4) of each model, and one
+   (B=4, prompt 512) and a decode step (B=4; eager, then a replay of its
+   CUDA graph) of each model, and one
    batched CORAL call of each kind (static over the grid, drift over the
    6 drift cells, fault over the 6 fault cells, offload and cotenant over
    their 4 cells, the fleet's cold call over 1024 twins), spend their
@@ -128,8 +138,20 @@ Phases, each of which exits non-zero on failure:
    device time of each of its two kernels, from a profiled window that
    holds every launch of both (redone up to PROFILE_TRIES times, else
    reported as not measured).
-6. A ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
-   the last line.
+6. Control loop (``phase_control_loop``): full-width Qwen2.5-3B, decode
+   through its graphs; ``run_coral`` over ``WalltimeDevice`` (the measured
+   decode rate per concurrency level), then 10 intervals of 0.5 s of
+   ``ServingController`` on a bursty trace at 0.6 x the measured capacity,
+   every ``IntervalRecord`` printed, after one prefill at each of the
+   phase's prompt lengths (8 and 32) with every flash launch held to
+   ``attention_ref``; fails if an interval serves no request (admits no
+   group under the configuration it applied, or decodes no token: a
+   group's latency is close to 0.5 s, so an interval may complete none),
+   a released request is not served in full, or flash attention or dcov
+   never launched in the phase. Power there is the reference's
+   analytical model on its TPU v5e constants, not the H100's.
+7. A ``{"kernels": [...]}`` line (launches: the main paths' and the
+   control loop's), then ``{"ok": true, "device": ...}`` as the last line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -167,6 +189,11 @@ SWEEP = [  # the card tests' sweep (tests/test_torch_kernels_gpu.py), then the s
     dict(b=2, hq=25, hkv=5, s=2048, d=64, dv=64, causal=True, window=1024),
     dict(b=1, hq=16, hkv=2, s=4096, d=128, dv=128, causal=True, window=None),
     dict(b=2, hq=4, hkv=2, s=200, d=128, dv=128, causal=False, window=None),
+    # Qwen2.5-3B at the prompts of the control loop's trace, of WalltimeDevice's
+    # probe and of the tau probe: one query and one key tile (128) hold the prompt
+    dict(b=4, hq=16, hkv=2, s=8, d=128, dv=128, causal=True, window=None),
+    dict(b=4, hq=16, hkv=2, s=32, d=128, dv=128, causal=True, window=None),
+    dict(b=4, hq=16, hkv=2, s=64, d=128, dv=128, causal=True, window=None),
 ]
 LONG_SHAPE = dict(b=1, hq=16, hkv=2, s=4096, d=128, dv=128, causal=True, window=None)
 # Hymba-1.5B's prefill (B=4 x 512): its window of 1024 masks nothing at S = 512
@@ -219,6 +246,17 @@ SLICE_FP32_TOL = 1e-4  # reduced fp32 logits, card vs CPU
 OVERLAP_MIN = 1.3  # tau(c=2) / tau(c=1) when host and card take 10 ms each
 SERVE = dict(requests=16, prompt_len=512, new_tokens=32, batch=4)
 SERVE_ORDER = (1, 2)  # concurrency of the successive serve() runs of each model
+GRAPH_STEPS = 16  # greedy decode steps held bitwise, graphed against eager
+# the tau-vs-concurrency probe (graphed and eager engines in turns): rounds, and
+# each probe's workload (groups >= 2 x the largest c, the same at every c)
+CURVE_ROUNDS = 2
+CURVE_PROBE = dict(prompt_len=64, new_tokens=16, groups=10)
+# the control-loop phase (examples/tune_serving.py's set-up): WalltimeDevice's
+# probe, the run_coral iterations (tests/test_training_serving.py), and the
+# controller's trace and intervals
+LOOP_PROBE = dict(prompt_len=32, steps=8)
+LOOP_CORAL_ITERS = 6
+LOOP_INTERVALS, LOOP_INTERVAL_S, LOOP_PROMPT, LOOP_NEW_TOKENS = 10, 0.5, 8, 8
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # dcov: the windows form's sweep (B, W, C) and grid shape, the single-block
 # form's (n, C) and ORACLE shape; column scales of a CORAL window (five knob
@@ -1135,6 +1173,49 @@ def ssm_full_width_check(torch):
     torch.cuda.empty_cache()
 
 
+def flash_held_to_plain(torch, worst, windows):
+    """A stand-in for ``flash_attention_bhsd`` inside a model: it launches
+    the kernel and holds the output to ``attention_ref`` on the launch's
+    own inputs, within max(3e-2, FLASH_MODEL_REL x max|out|); each
+    launch's error / tolerance goes to ``worst``, its window to
+    ``windows``."""
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention_bhsd
+
+    def held(q, k, v, *, causal=True, window=None):
+        out = flash_attention_bhsd(q, k, v, causal=causal, window=window)
+        ref = attention_ref(q, k, v, causal=causal, window=window).float()
+        tol = max(ATOL["bfloat16"], FLASH_MODEL_REL * ref.abs().max().item())
+        worst.append((out.float() - ref).abs().max().item() / tol)
+        windows.append(window)
+        return out
+
+    return held
+
+
+def engine_prefills_held(torch, engine, prompt_lens, label):
+    """One prefill of ``engine`` (full width, on the card) at each prompt
+    length, every flash launch held to ``attention_ref`` on its own inputs
+    (``flash_held_to_plain``): the shapes that ``label`` then launches the
+    kernel at, uncounted. Fails on a mismatch or a missing launch."""
+    import numpy as np
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    cfg = engine.ctx.cfg
+    rng = np.random.default_rng(sum(prompt_lens))
+    for s in prompt_lens:
+        worst, windows = [], []
+        prompt = rng.integers(0, cfg.vocab, (engine.batch, s), dtype=np.int32)
+        with mock.patch.object(fa_ops, "flash_attention_bhsd",
+                               flash_held_to_plain(torch, worst, windows)):
+            engine.prefill(prompt)
+        say(f"  {cfg.name} {engine.batch}x{s} prefill ({label}): {len(worst)} flash launches "
+            f"against attention_ref, worst error / tolerance {max(worst, default=0):.3g}")
+        if len(worst) != launches_per_prefill(cfg.name)[0] or not max(worst) <= 1.0:
+            fail(f"a flash launch of a {engine.batch}x{s} {cfg.name} prefill ({label}) "
+                 "disagrees with attention_ref, or one is missing")
+
+
 def hybrid_full_width_check(torch):
     """Hymba-1.5B at full width, random weights, one prefill of
     HYBRID_PREFILL (B=2 x 2048: the 29 windowed layers mask keys older than
@@ -1155,7 +1236,6 @@ def hybrid_full_width_check(torch):
     from repro_torch.configs.registry import get_config
     from repro_torch.configs.runtime import RunConfig
     from repro_torch.kernels import runtime
-    from repro_torch.kernels.flash_attention import attention_ref, flash_attention_bhsd
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ssd_ref, ssd_scan
@@ -1176,14 +1256,6 @@ def hybrid_full_width_check(torch):
                              (st - s_ref).abs().max().item() / s_tol))
         return y, st
 
-    def flash_held_to_plain(q, k, v, *, causal=True, window=None):
-        out = flash_attention_bhsd(q, k, v, causal=causal, window=window)
-        ref = attention_ref(q, k, v, causal=causal, window=window).float()
-        tol = max(ATOL["bfloat16"], FLASH_MODEL_REL * ref.abs().max().item())
-        flash_worst.append((out.float() - ref).abs().max().item() / tol)
-        windows.append(window)
-        return out
-
     def half_chunk(x, dt, A, Bm, Cm, *, chunk, initial_state=None):
         return ssd_ref(x, dt, A, Bm, Cm, chunk // 2, initial_state)
 
@@ -1193,7 +1265,8 @@ def hybrid_full_width_check(torch):
     with torch.inference_mode():
         runtime.reset_launch_counts()
         with mock.patch.object(ssd_ops, "ssd_scan", ssd_held_to_plain), \
-                mock.patch.object(fa_ops, "flash_attention_bhsd", flash_held_to_plain):
+                mock.patch.object(fa_ops, "flash_attention_bhsd",
+                                  flash_held_to_plain(torch, flash_worst, windows)):
             _, via_kernel = prefill(ctx, params, {"tokens": tok})
         check_bodies(HYBRID_ARCH, 1, f"the full-width {HYBRID_ARCH} bf16 prefill")
         with plain_route(HYBRID_ARCH):
@@ -1251,17 +1324,26 @@ def serve_runs(torch, arch):
     just after. Returns the counts."""
     from repro_torch.kernels import runtime
     from repro_torch.launch.serve import serve
+    from repro_torch.serving.engine import capture_counts, reset_capture_counts
 
     torch.cuda.reset_peak_memory_stats()
     runtime.reset_launch_counts()
+    reset_capture_counts()
     metrics = [serve(arch, **SERVE, concurrency=c, device="cuda") for c in SERVE_ORDER]
     counts = runtime.launch_counts()
+    captures = sum(capture_counts().values())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for c, m in zip(SERVE_ORDER, metrics):
         say(f"  {arch} serve c={c}: {m['requests']} requests, {m['throughput_tok_s']:.2f} tok/s, "
-            f"p50 {m['p50_latency_s']:.3f} s, p99 {m['p99_latency_s']:.3f} s")
+            f"p50 {m['p50_latency_s']:.3f} s, p99 {m['p99_latency_s']:.3f} s; decode through "
+            f"{m['graph_captures']} CUDA graph captures over {m['pool_entries']} pool entries")
         if m["requests"] != SERVE["requests"] or m["queue_depth"] != 0:
             fail(f"{arch} serve c={c} finished {m['requests']} of {SERVE['requests']} requests")
+        if not m["graph_captures"] == m["pool_entries"] == c:
+            fail(f"{arch} serve c={c}: {m['graph_captures']} graph captures over "
+                 f"{m['pool_entries']} pool entries; want one capture per entry, {c} entries")
+    if captures != sum(SERVE_ORDER):
+        fail(f"{arch}: {captures} graph captures counted, want {sum(SERVE_ORDER)}")
     prefills = len(metrics) * SERVE["requests"] // SERVE["batch"]
     say(f"  {arch} launches on its main path: {counts} over {prefills} prefills, "
         f"peak memory {peak_gb:.2f} GB")
@@ -1282,18 +1364,95 @@ def phase_serve(torch):
     missing = [k for k, n in totals.items() if n == 0]
     if missing:
         fail(f"kernels never launched on the serving paths: {missing}")
+    for arch in (ARCH, SSM_ARCH, HYBRID_ARCH):
+        graph_bitwise_check(torch, arch)
 
     batch = SERVE["batch"]
-    engine = build_engine(ARCH, batch, 64 + 16 + 1, device="cuda")
-    best, used = measure_concurrency_curve(
-        engine, [1, 2, 4], rounds=2, min_rounds=2, prompt_len=64, new_tokens=16,
-        groups=8, batch_size=batch, vocab=get_config(ARCH).vocab,
-    )
-    say(f"  {ARCH} tau vs concurrency (decode tok/s, best of "
-        f"{used} interleaved rounds): " + ", ".join(f"c={c}: {t:.2f}" for c, t in best.items()))
-    del engine
+    c_values = concurrency_values()
+    engine = build_engine(ARCH, batch, CURVE_PROBE["prompt_len"] + CURVE_PROBE["new_tokens"] + 1,
+                          device="cuda")
+    engine_prefills_held(torch, engine, [CURVE_PROBE["prompt_len"]], "the tau probe")
+    engines = {"graphed": engine, "eager": eager_twin(engine)}
+    best = {name: dict.fromkeys(c_values, 0.0) for name in engines}
+    t0 = time.perf_counter()
+    for _ in range(CURVE_ROUNDS):  # graphed and eager in turns, each level once a round
+        for name, eng in engines.items():
+            curve, _ = measure_concurrency_curve(
+                eng, c_values, rounds=1, min_rounds=1, batch_size=batch,
+                vocab=get_config(ARCH).vocab, **CURVE_PROBE)
+            best[name] = {c: max(best[name][c], curve[c]) for c in c_values}
+    say(f"  {ARCH} tau vs concurrency (decode tok/s, B={batch}, prompt "
+        f"{CURVE_PROBE['prompt_len']}, {CURVE_PROBE['new_tokens']} new tokens, "
+        f"{CURVE_PROBE['groups']} groups; best of {CURVE_ROUNDS} rounds, graphed and eager in "
+        f"turns; {time.perf_counter() - t0:.1f} s; {card_line()}):")
+    for name, curve in best.items():
+        say(f"    {name}: " + ", ".join(f"c={c}: {t:.2f}" for c, t in curve.items())
+            + "; tau(c)/tau(1): " + ", ".join(f"{curve[c] / curve[c_values[0]]:.3f}"
+                                               for c in c_values))
+    say(json.dumps({"tau_vs_concurrency": {"concurrency": c_values, **{
+        name: [curve[c] for c in c_values] for name, curve in best.items()}}}))
+    del engine, engines
+    torch.cuda.empty_cache()
     retire_overlap_check(torch)
     return totals
+
+
+def concurrency_values():
+    """The concurrency knob's values in ``tpu_pod_space`` (1 ... 5)."""
+    from repro_torch.core.space import tpu_pod_space
+
+    space = tpu_pod_space()
+    return [int(v) for v in space.dims[space.index("concurrency")].values]
+
+
+def eager_twin(engine):
+    """An engine over ``engine``'s weights whose decode step runs eagerly
+    (no CUDA graph): the comparison, not a fallback."""
+    from repro_torch.serving import ServingEngine
+
+    return ServingEngine(engine.ctx, engine.params, engine.batch, engine.max_len, graphs=False)
+
+
+def graph_bitwise_check(torch, arch):
+    """``arch`` at full width: one prompt (B=4 x 512) prefilled into a pool
+    entry, then GRAPH_STEPS greedy decode steps through the engine's CUDA
+    graph and through the eager step over the same weights. The same
+    kernels run in the same order, so every step's logits must be equal
+    bit for bit, and the graphed engine must capture once."""
+    import numpy as np
+
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serving.engine import capture_counts, reset_capture_counts
+
+    reset_capture_counts()
+    graphed = build_engine(arch, 4, 512 + GRAPH_STEPS + 1, device="cuda")
+    eager = eager_twin(graphed)
+    prompt = np.random.default_rng(4).integers(0, graphed.ctx.cfg.vocab, (4, 512),
+                                               dtype=np.int32)
+    steps = {}
+    for name, eng in (("eager", eager), ("graphed", graphed)):
+        k = eng.acquire()
+        cache, logits = eng.prefill(prompt, entry=k)
+        out = []
+        for _ in range(GRAPH_STEPS):
+            tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            cache, logits = eng.decode(cache, tok)
+            out.append(logits.float())
+        eng.release(k)
+        steps[name] = torch.stack(out)
+    a, b = steps["graphed"], steps["eager"]
+    if not torch.isfinite(b).all():
+        fail(f"{arch}: the eager decode steps' logits are not finite")
+    same = torch.equal(a, b)
+    captures = sum(capture_counts().values())
+    say(f"  {arch} decode, {GRAPH_STEPS} greedy steps after a 4x512 prefill: graphed vs eager "
+        f"logits bitwise equal: {same} (max |diff| {(a - b).abs().max().item():.3g}), "
+        f"{captures} capture over {len(graphed.pool)} pool entry")
+    if not (same and captures == len(graphed.pool) == 1):
+        fail(f"{arch}: the graphed decode step differs from the eager one, or captured "
+             f"{captures} graphs for {len(graphed.pool)} pool entries")
+    del graphed, eager, steps
+    torch.cuda.empty_cache()
 
 
 class SpinEngine:
@@ -1316,7 +1475,16 @@ class SpinEngine:
         self.torch.cuda._sleep(self.cycles)
         return None, self.torch.zeros((self.batch, 1, self.vocab), device="cuda")
 
-    def prefill(self, tokens):
+    def reserve(self, n):
+        pass
+
+    def acquire(self):
+        return 0
+
+    def release(self, entry):
+        pass
+
+    def prefill(self, tokens, entry=None):
         return self._step()
 
     def decode(self, cache, tokens):
@@ -1404,12 +1572,17 @@ def phase_profile(torch, arch):
                    named=SSD_PHASES if launches_per_prefill(arch)[1] else ())
     check_bodies(arch, state["prefills"], f"the profiled {arch} prefills")
     tok = np.zeros((4, 1), np.int32)
+    for name, eng in (("eager", eager_twin(engine)), ("graphed", engine)):
+        k = eng.acquire()
+        cache, _ = eng.prefill(prompt, entry=k)
 
-    def decode():
-        state["cache"]["length"] = 512  # re-decode the same slot: no cache growth
-        engine.decode(state["cache"], tok)
+        def decode():
+            with torch.inference_mode():  # re-decode the same slot: no cache growth
+                cache["length"].fill_(512)  # on the card, no host read
+            eng.decode(cache, tok)
 
-    profile_window(torch, f"{arch} decode step (B=4, cache 528)", decode, reps=5)
+        profile_window(torch, f"{arch} decode step {name} (B=4, cache 528)", decode, reps=5)
+        eng.release(k)
     del engine, state
     torch.cuda.empty_cache()
 
@@ -1822,6 +1995,124 @@ def phase_coral_profile(torch):
                    named=DCOV_PASSES, per_call=passes)
 
 
+def phase_control_loop(torch):
+    """The paper's loop on live traffic of full-width Qwen2.5-3B (decode
+    through its CUDA graphs): (i) ``run_coral`` over ``WalltimeDevice``,
+    which measures the runtime's decode rate once per concurrency level, as
+    tests/test_training_serving.py does it; (ii) ``ServingController`` as
+    examples/tune_serving.py sets it up: a bursty Poisson trace at 0.6 x the
+    measured capacity, a tau target of 0.45 x capacity, a budget of 0.8 x
+    the analytical max-power preset's power, LOOP_INTERVALS intervals of
+    LOOP_INTERVAL_S. Power is the reference's analytical model on its TPU
+    v5e constants, not the H100's. First one prefill at each of the
+    phase's prompt lengths holds every flash launch to ``attention_ref``.
+    Fails if an interval serves no request (admits no group, or decodes
+    no token), a released request is not served in full by the end, or
+    flash attention or dcov never launched. Returns the phase's
+    launches."""
+    from repro_torch.core.evaluate import run_coral
+    from repro_torch.core.space import tpu_pod_space
+    from repro_torch.device.measure import WalltimeDevice, analytic_scale_and_power
+    from repro_torch.kernels import runtime
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serving import (
+        ServingController,
+        ServingRuntime,
+        build_serving_record,
+        workload,
+    )
+
+    t0 = time.perf_counter()
+    max_len = max(LOOP_PROBE["prompt_len"] + LOOP_PROBE["steps"], LOOP_PROMPT + LOOP_NEW_TOKENS) + 1
+    engine = build_engine(ARCH, 4, max_len, device="cuda")
+    engine_prefills_held(torch, engine, [LOOP_PROMPT, LOOP_PROBE["prompt_len"]],
+                         "the control loop")
+    runtime.reset_launch_counts()
+    vocab = engine.ctx.cfg.vocab
+    space = tpu_pod_space()
+    dev = WalltimeDevice(space, engine, **LOOP_PROBE)
+    tau0, p0 = dev.measure(space.preset("default"))
+    out, trace = run_coral(space, dev, tau_target=tau0 * 0.5, iters=LOOP_CORAL_ITERS,
+                           device="cuda")
+    rates = {c: dev._measured_rate(c) for c in concurrency_values()}  # every level, once
+    say(f"  (i) run_coral over WalltimeDevice ({ARCH}, B=4, prompt {LOOP_PROBE['prompt_len']}, "
+        f"{LOOP_PROBE['steps']} steps, {dev.groups} groups a probe; {card_line()}): measured "
+        f"decode tok/s by concurrency " + ", ".join(f"c={c}: {t:.2f}" for c, t in rates.items())
+        + f"; default preset tau {tau0:.2f} tok/s, p {p0:.1f} W (analytical TPU v5e model, "
+        f"not the H100's)")
+    say(f"      CORAL pick {out.config}: tau {out.tau:.2f} tok/s, p {out.power:.1f} W "
+        f"(analytical) after {dev.n_measurements} measurements, target {tau0 * 0.5:.2f}")
+    if out.config is None or not out.tau > 0:
+        fail("run_coral over WalltimeDevice found no configuration")
+
+    cap = max(rates.values())
+    duration = LOOP_INTERVALS * LOOP_INTERVAL_S + 2.0
+    trace = workload.bursty_poisson(rate=0.6 * cap / LOOP_NEW_TOKENS, duration_s=duration,
+                                    prompt_lens=LOOP_PROMPT, new_tokens=LOOP_NEW_TOKENS, vocab=vocab,
+                                    seed=1)
+    tau_target = 0.45 * cap
+    p_budget = analytic_scale_and_power(space.names, space.preset("max_power"))[1] * 0.8
+    rt = ServingRuntime(engine, concurrency=1)
+    released = []
+    submit = rt.submit
+
+    def counted_submit(req, tenant=None):
+        released.append(req)
+        submit(req, tenant)
+
+    rt.submit = counted_submit
+    admitted = []  # groups each interval's run_for started (prefilled)
+    run_for = rt.run_for
+
+    def counted_run_for(seconds, idle_wait=False):
+        n = rt.prefills
+        m = run_for(seconds, idle_wait=idle_wait)
+        admitted.append(rt.prefills - n)
+        return m
+
+    rt.run_for = counted_run_for
+    ctl = ServingController(rt, space, trace, tau_target=tau_target, p_budget=p_budget,
+                            interval_s=LOOP_INTERVAL_S, device="cuda")
+    outcome, records = ctl.run(LOOP_INTERVALS)
+    say(f"  (ii) ServingController: bursty Poisson trace at 0.6 x {cap:.2f} tok/s, target "
+        f">= {tau_target:.2f} tok/s, budget <= {p_budget:.1f} W (analytical), "
+        f"{LOOP_INTERVALS} intervals of {LOOP_INTERVAL_S} s:")
+    for k, r in enumerate(records):
+        say(f"    [{k}] {json.dumps(dataclasses.asdict(r))}")
+    say(f"      groups admitted in each interval: {admitted}")
+    feasible = outcome.feasible(tau_target, p_budget)
+    say(f"      CORAL found {outcome.config}: tau {outcome.tau:.2f} tok/s, p {outcome.power:.1f} W "
+        f"(analytical), feasible {feasible}")
+    rt.drain()
+    done = {id(r) for r in rt.done}
+    lost = [r.rid for r in released if id(r) not in done]
+    short = [r.rid for r in rt.done if len(r.tokens) != r.max_new_tokens]
+    counts = runtime.launch_counts()
+    say(f"      {len(released)} requests released, {len(rt.done)} served after the drain, "
+        f"lost {lost}, short {short}; launches over the phase {counts}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    record = build_serving_record(
+        "python3 chip_smoke.py", concurrency_values(), rates, 1, batch_size=4,
+        iters=LOOP_INTERVALS, interval_s=LOOP_INTERVAL_S, tau_target=tau_target,
+        p_budget=p_budget, outcome=outcome, records=records, include_intervals=True)
+    say(json.dumps({"serving_record": record}, sort_keys=True))
+    # an interval serves requests when it admits a group under the
+    # configuration it applied and decodes tokens; whether a request also
+    # completes inside the 0.5 s depends on the groups' ~0.4 s latency
+    idle = [k for k, r in enumerate(records) if not (admitted[k] > 0 and r.tau > 0)]
+    if len(admitted) != len(records) or idle:
+        fail(f"control intervals {idle} served no request (no group admitted or no token "
+             f"decoded; groups admitted {admitted})")
+    if lost or short:
+        fail(f"the control loop lost requests {lost} or cut {short} short")
+    for name in ("flash_attention", "dcov"):
+        if counts[name] == 0:
+            fail(f"the control-loop phase never launched {name}")
+    del engine, rt, ctl, dev
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail("src/repro_torch not found: run from the root of a checkout")
@@ -1852,6 +2143,9 @@ def main() -> None:
     phase_profile(torch, SSM_ARCH)
     phase_profile(torch, HYBRID_ARCH)
     phase_coral_profile(torch)
+    say("== phase 6: control loop")
+    for name, n in phase_control_loop(torch).items():
+        counts[name] = counts.get(name, 0) + n
     say(f"== done in {time.perf_counter() - t0:.1f} s")
     sources = {
         "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",

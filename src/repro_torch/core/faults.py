@@ -26,8 +26,8 @@ Fault semantics (mirrored in ``device.simulator.FaultySimulator`` and
 - ``FirmwareReset``    — the config snaps to the firmware default row
   (the ``max_power`` preset) regardless of what was commanded.
 - ``PodLinkOutage``    — the edge→pod offload path drops shipped
-  requests during the window. Carried as data: its runtime use (the
-  serving runtime's pod outage) waits for ROADMAP queue 1 item 14.
+  requests during the window; consumed by the serving runtime
+  (``ServingRuntime.set_pod_outage``), not the device twin.
 
 ``RobustConfig`` bundles the ingest knobs both engines share, and
 ``mad_reject_batch`` is the one MAD outlier gate both call: the batched

@@ -27,6 +27,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.configs.runtime import RunConfig
 from repro_torch.models.transformer import ApplyCtx, init_model_params
 from repro_torch.serving import Request, ServingEngine, ServingRuntime
+from repro_torch.serving.engine import capture_counts
 
 
 def build_engine(
@@ -37,17 +38,21 @@ def build_engine(
     *,
     reduced: bool = False,
     device="cuda",
+    graphs=None,
 ) -> ServingEngine:
     """A bf16 serving engine over random weights drawn from a
     ``torch.Generator`` seeded with ``seed``, with the model's kernels on
-    (``use_kernels``: flash attention and/or the SSD scan in prefill)."""
+    (``use_kernels``: flash attention and/or the SSD scan in prefill) and,
+    on the card, its decode step replayed from CUDA graphs unless
+    ``graphs=False``. Its pool caches (and their graphs) are made as a
+    runtime reserves them."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
     rcfg = RunConfig(compute_dtype="bfloat16", use_kernels=True)
     gen = torch.Generator(device=device).manual_seed(seed)
     params = init_model_params(cfg, rcfg, gen, device)
-    return ServingEngine(ApplyCtx(cfg, rcfg), params, batch, max_len)
+    return ServingEngine(ApplyCtx(cfg, rcfg), params, batch, max_len, graphs=graphs)
 
 
 def serve(
@@ -63,10 +68,13 @@ def serve(
     device="cuda",
 ):
     """Serve ``requests`` random prompts through the runtime and return its
-    drain metrics (throughput, p50/p99 latency, request count)."""
-    engine = build_engine(
-        arch, batch, prompt_len + new_tokens + 1, seed, reduced=reduced, device=device
-    )
+    drain metrics (throughput, p50/p99 latency, request count), with the
+    engine's pool entries and graph captures (``pool_entries``,
+    ``graph_captures``: one capture per entry on the card, none on the
+    CPU)."""
+    captures = sum(capture_counts().values())
+    engine = build_engine(arch, batch, prompt_len + new_tokens + 1, seed, reduced=reduced,
+                          device=device)
     cfg = engine.ctx.cfg
     runtime = ServingRuntime(engine, batch_size=batch, concurrency=concurrency)
     rng = np.random.default_rng(seed)
@@ -76,6 +84,8 @@ def serve(
                     new_tokens)
         )
     metrics = runtime.drain()
+    metrics.update(pool_entries=len(engine.pool),
+                   graph_captures=sum(capture_counts().values()) - captures)
     print(
         f"{arch}: {metrics['requests']} requests, "
         f"{metrics['throughput_tok_s']:.1f} tok/s, "

@@ -9,8 +9,8 @@ the JAX package's tree one to one. The reference applies the stack with
 each stacked tensor (a view, no copy).
 
 Entry points:
-  prefill(ctx, params, batch, capacity)   -> (cache, last_logits)
-  decode_step(ctx, params, cache, tokens) -> (cache, logits)
+  prefill(ctx, params, batch, capacity, out) -> (cache, last_logits)
+  decode_step(ctx, params, cache, tokens)     -> (cache, logits)
 
 Cache. As in the reference, every cached tensor is bfloat16 whatever the
 compute dtype. A dense model keeps K and V, (L, B, W, Hkv, D), the slot
@@ -29,8 +29,11 @@ new cache with ``jnp.pad`` and ``dynamic_update_slice``, this port
 preallocates the cache at prefill and writes each layer's entries and
 each step's K/V or states in place, so ``decode_step`` mutates the
 tensors of the cache it is given (the returned dict shares them).
-``length`` is a Python int, so decode needs no device sync to find its
-slot.
+``length`` is an int32 scalar tensor on the cache's device: the step
+builds its position, its ring slot and the slots' positions from it on
+the device and reads nothing back to the host, so the whole step can be
+captured once in a CUDA graph and replayed (``serving/engine.py``, whose
+serve step advances ``length`` in place).
 
 The dense decoder, the pure SSM stack and the hybrid stack are ported.
 The MoE, MLA, encoder-decoder (audio) and M-RoPE (vision) branches raise
@@ -324,12 +327,15 @@ def _empty_cache(cfg: ModelConfig, b: int, w: int, dev) -> Dict[str, torch.Tenso
     return cache
 
 
-def prefill(ctx: ApplyCtx, params, batch, capacity: Optional[int] = None):
+def prefill(ctx: ApplyCtx, params, batch, capacity: Optional[int] = None,
+            out: Optional[dict] = None):
     """Fill a KV cache over the whole prompt. Returns (cache, last_logits).
 
     ``capacity`` reserves extra slots for subsequent decode steps (defaults
     to the prompt length; decode then ring-overwrites the oldest slots,
-    which is only correct for pure sliding-window attention).
+    which is only correct for pure sliding-window attention). ``out`` is
+    a cache of ``empty_cache`` to fill in place instead of a new one (its
+    K/V are zeroed first, as a new cache's are); it is returned.
     """
     cfg = ctx.cfg
     require_ported(cfg)
@@ -338,10 +344,16 @@ def prefill(ctx: ApplyCtx, params, batch, capacity: Optional[int] = None):
     dev = tokens.device
     positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
     h = embed(ctx, params, tokens)
-    main = _empty_cache(cfg, b, max(s, capacity or 0), dev)
-    h = run_stack(ctx, params["layers"], layer_windows(cfg), h, positions, main)
+    if out is None:
+        out = empty_cache(cfg, b, max(s, capacity or 0), dev)
+    else:  # a cache preallocated by the caller, prefilled in place
+        for name in ("k", "v"):
+            if name in out["main"]:
+                out["main"][name].zero_()
+    h = run_stack(ctx, params["layers"], layer_windows(cfg), h, positions, out["main"])
     logits = unembed(ctx, params, h[:, -1:])
-    return {"main": main, "length": s}, logits
+    out["length"].fill_(s)
+    return out, logits
 
 
 # ---------------------------------------------------------------------------
@@ -349,7 +361,14 @@ def prefill(ctx: ApplyCtx, params, batch, capacity: Optional[int] = None):
 # ---------------------------------------------------------------------------
 
 
-def _ring_kv_pos(length: int, w: int, device=None) -> torch.Tensor:
+def empty_cache(cfg: ModelConfig, b: int, w: int, device=None) -> dict:
+    """A cache of ``b`` rows and ``w`` K/V slots, for ``prefill(...,
+    out=)``: the stacked tensors and a zero ``length``."""
+    return {"main": _empty_cache(cfg, b, w, device),
+            "length": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _ring_kv_pos(length: torch.Tensor, w: int, device=None) -> torch.Tensor:
     """Positions currently held by each ring slot after writing pos=length.
 
     Slot s holds position p = length - ((length - s) mod W); invalid (never
@@ -359,13 +378,23 @@ def _ring_kv_pos(length: int, w: int, device=None) -> torch.Tensor:
     return length - torch.remainder(length - s, w)
 
 
+def _ring(t: torch.Tensor, w: int, b: int):
+    """(slot, kv_pos) of a step at position ``t`` over ``w`` ring slots,
+    shared by every layer (one cache width): the slot ``t % w`` as a (1,)
+    int64 index and the (b, w) positions the slots hold once it is
+    written, both on the device (no host read)."""
+    slot = torch.remainder(t, w).reshape(1).long()
+    return slot, _ring_kv_pos(t, w, t.device).expand(b, w)
+
+
 def layer_decode(
-    ctx: ApplyCtx, lp: dict, window, lcache: dict, h: torch.Tensor, pos, t: int
+    ctx: ApplyCtx, lp: dict, window, lcache: dict, h: torch.Tensor, pos, ring
 ) -> torch.Tensor:
-    """One-token decode through one layer at position ``t``: writes this
-    step's K/V into ring slot ``t % W`` of ``lcache`` and/or a Mamba2
-    layer's new states over its old ones (in place), and returns the new
-    hidden state."""
+    """One-token decode through one layer at positions ``pos``: writes this
+    step's K/V into ring slot ``slot`` of ``lcache``, where ``ring`` is
+    (slot, kv_pos) from ``_ring`` (None for a model without K/V), and/or
+    a Mamba2 layer's new states over its old ones (in place), and returns
+    the new hidden state."""
     cfg = ctx.cfg
     b = h.shape[0]
     hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
@@ -383,11 +412,9 @@ def layer_decode(
     q, k, v = _qkv(cfg, lp["attn"], hn)
     q, k = _rope_qk(cfg, q, k, pos)
     kc, vc = lcache["k"], lcache["v"]
-    w = kc.shape[1]
-    slot = t % w
-    kc[:, slot] = k[:, 0].to(kc.dtype)
-    vc[:, slot] = v[:, 0].to(vc.dtype)
-    kv_pos = _ring_kv_pos(t, w, h.device).expand(b, w)
+    slot, kv_pos = ring
+    kc.index_copy_(1, slot, k.to(kc.dtype))
+    vc.index_copy_(1, slot, v.to(vc.dtype))
     attn_out = attention(
         q, kc.to(hn.dtype), vc.to(hn.dtype), pos, kv_pos,
         causal=True, window=window, rcfg=ctx.rcfg,
@@ -403,16 +430,24 @@ def layer_decode(
 
 def decode_step(ctx: ApplyCtx, params, cache, tokens: torch.Tensor):
     """One decode step: tokens (B,1) + cache -> (new cache, logits (B,1,V)).
-    The cache's tensors are updated in place (see the module note)."""
+    The cache's K/V and states are updated in place (see the module note);
+    the returned dict holds them and a new ``length`` tensor, one past the
+    old, which stays as it was (``serving.engine.make_serve_step`` copies
+    it back into the cache's own, so that a captured step advances it in
+    place). ``length`` may also be a host int (a cache built by hand). The
+    step reads no device value on the host."""
     cfg = ctx.cfg
     b = tokens.shape[0]
     t = cache["length"]
-    pos = torch.full((b, 1), t, dtype=torch.int32, device=tokens.device)
+    if not isinstance(t, torch.Tensor):
+        t = torch.tensor(t, dtype=torch.int32, device=tokens.device)
+    pos = t.reshape(1, 1).expand(b, 1)
     h = embed(ctx, params, tokens)
     main = cache["main"]
+    ring = _ring(t, main["k"].shape[2], b) if "k" in main else None
     for i, win in enumerate(layer_windows(cfg)):
         lc = {name: c[i] for name, c in main.items()}
-        h = layer_decode(ctx, _layer(params["layers"], i), win, lc, h, pos, t)
+        h = layer_decode(ctx, _layer(params["layers"], i), win, lc, h, pos, ring)
     new_cache = dict(cache)
     new_cache["length"] = t + 1
     return new_cache, unembed(ctx, params, h)

@@ -1,10 +1,30 @@
 """Serving engine: batched prefill + decode against a cache (the
 counterpart of ``repro/serving/engine.py``).
 
-PyTorch runs eagerly, so there are no jitted step functions: ``prefill``
-and ``decode`` call ``repro_torch.models.transformer`` directly, under
-``torch.inference_mode``. On the card every call only enqueues work; the
-runtime keeps ``c`` decode groups in flight on the device queue.
+``make_prefill_step`` and ``make_serve_step`` are the step functions, as
+in the reference, where they are jitted. Here the prefill step runs
+eagerly, and on the card the serve (decode) step is captured once in a
+CUDA graph and replayed: an eager decode step enqueues thousands of
+kernels from the host, and its wall time is that enqueue, so a second
+in-flight group had nothing to hide behind. A replay is one launch.
+
+Graphs hold fixed addresses, so the engine owns a pool of caches
+(``acquire`` / ``release``), each allocated once, of ``batch_size`` rows
+and ``max_len`` slots: a runtime slot binds to one entry for the life of
+its group and prefills into it in place. The runtime ``reserve``s as
+many entries as its rings have slots whenever it sets them, so that no
+capture falls inside a served interval; ``acquire`` adds an entry when
+all are busy. Each entry has a static (B, 1) int32 token buffer, and on
+the card its graph (captured when the entry is made, behind a warm-up
+on a side stream, before any prefill writes into it) and the graph's
+static logits. Captures are counted (``capture_counts``), as kernel
+launches are. An engine with graphs decodes only pool-entry caches:
+``graphs=False`` is the one way to the eager step on the card (a timing
+comparison); on the CPU the eager step is the only path. A failed
+capture raises; nothing falls back.
+
+Every call only enqueues work on the card; the runtime keeps ``c``
+decode groups in flight on one device queue (the current stream).
 
 Weights are cast once, at load. The reference keeps float32 parameters
 and casts each one to the compute dtype where it is used
@@ -27,12 +47,14 @@ where the reference's device-to-host transfer skips the execute queue.
 """
 from __future__ import annotations
 
-from typing import Optional
+import collections
+import gc
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.models.transformer import ApplyCtx, decode_step, prefill
+from repro_torch.models.transformer import ApplyCtx, decode_step, empty_cache, prefill
 
 # parameters the reference reads in float32 at use: the norm weights
 # (rms_norm widens them), Mamba2's dt_bias (added to the float32 dt) and
@@ -78,15 +100,76 @@ class HostLogits:
         return self._buf.numpy()
 
 
+# graph captures per model (cfg.name) since the last reset
+_CAPTURES: collections.Counter = collections.Counter()
+WARMUP_STEPS = 3  # eager steps on a side stream before a capture, as PyTorch asks
+
+
+def capture_counts() -> Dict[str, int]:
+    """CUDA graph captures per model since :func:`reset_capture_counts`."""
+    return dict(_CAPTURES)
+
+
+def reset_capture_counts() -> None:
+    _CAPTURES.clear()
+
+
+def make_prefill_step(ctx: ApplyCtx, capacity=None):
+    """Prefill step ``(params, batch, out=None) -> (cache, logits)`` for a
+    fixed model context; ``capacity`` pads the KV cache length, ``out`` is
+    a preallocated cache to fill in place."""
+
+    def prefill_step(params, batch, out=None):
+        return prefill(ctx, params, batch, capacity=capacity, out=out)
+
+    return prefill_step
+
+
+def make_serve_step(ctx: ApplyCtx):
+    """Single-token decode step ``(params, cache, tokens) -> (cache,
+    logits)``. It writes the cache in place, ``length`` included, and
+    reads no device value on the host, so it can be captured in a CUDA
+    graph and replayed against the same tensors."""
+
+    def serve_step(params, cache, tokens):
+        new, logits = decode_step(ctx, params, cache, tokens)
+        cache["length"].copy_(new["length"])
+        return cache, logits
+
+    return serve_step
+
+
+class _Entry:
+    """One pool entry: a cache, its static token buffer and, on the card,
+    its captured serve step and that graph's static logits."""
+
+    __slots__ = ("cache", "tokens", "graph", "logits", "busy")
+
+    def __init__(self, cache: dict, tokens: torch.Tensor):
+        self.cache = cache
+        self.tokens = tokens
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.logits: Optional[torch.Tensor] = None
+        self.busy = False
+
+
 class ServingEngine:
     """Greedy-decoding engine over batch-aligned request groups."""
 
-    def __init__(self, ctx: ApplyCtx, params: dict, batch_size: int, max_len: int):
+    def __init__(self, ctx: ApplyCtx, params: dict, batch_size: int, max_len: int,
+                 graphs: Optional[bool] = None):
         self.ctx = ctx
         self.device = params["embed"].device  # the engine runs where its weights lie
         self.params = cast_for_compute(params, ctx.rcfg.cdtype)
         self.batch = batch_size
         self.max_len = max_len
+        on_card = self.device.type == "cuda"
+        self.graphs = on_card if graphs is None else bool(graphs)
+        if self.graphs and not on_card:
+            raise ValueError("CUDA graphs need the engine's weights on the card")
+        self._prefill = make_prefill_step(ctx, capacity=max_len)
+        self._serve = make_serve_step(ctx)
+        self.pool: List[_Entry] = []
 
     def tokens(self, a) -> torch.Tensor:
         """Host int tokens -> an int32 tensor on the engine's device. On
@@ -99,20 +182,107 @@ class ServingEngine:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
+    # -------------------------------------------------------------- pool
+    def acquire(self) -> int:
+        """A free pool entry's index, marked busy; the pool grows by one
+        entry (and, with graphs, one capture) when every entry is busy."""
+        k = next((k for k, e in enumerate(self.pool) if not e.busy), None)
+        if k is None:
+            k = self._grow()
+        self.pool[k].busy = True
+        return k
+
+    def reserve(self, n: int) -> None:
+        """Grow the pool to at least ``n`` entries (with graphs, one
+        capture each)."""
+        while len(self.pool) < n:
+            self._grow()
+
+    def _grow(self) -> int:
+        """Add a pool entry (capturing its graph, with graphs); its index."""
+        with torch.inference_mode():
+            cache = empty_cache(self.ctx.cfg, self.batch, self.max_len, self.device)
+            cache["entry"] = len(self.pool)
+            e = _Entry(cache, torch.zeros((self.batch, 1), dtype=torch.int32,
+                                          device=self.device))
+        if self.graphs:
+            self._capture(e)
+        self.pool.append(e)
+        return len(self.pool) - 1
+
+    def release(self, k: int) -> None:
+        """Give pool entry ``k`` back (its group has finished)."""
+        self.pool[k].busy = False
+
+    def _capture(self, e: _Entry) -> None:
+        """Capture the serve step against entry ``e``'s cache and token
+        buffer. The warm-up steps and the capture run on the entry's
+        zeroed cache, before any prefill writes into it (a prefill
+        overwrites every tensor of it). The garbage collector is run
+        first and held off during the capture: a graph freed while
+        another is being captured (an engine left in a reference cycle)
+        invalidates that capture."""
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.inference_mode():
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_STEPS):
+                    self._serve(self.params, e.cache, e.tokens)
+            main.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            gc.collect()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph):
+                    _, e.logits = self._serve(self.params, e.cache, e.tokens)
+            finally:
+                if collecting:
+                    gc.enable()
+        e.graph = graph
+        _CAPTURES[self.ctx.cfg.name] += 1
+
+    # ------------------------------------------------------------- steps
     @torch.inference_mode()
-    def prefill(self, tokens):
-        """Prompt (B, S) -> (cache, logits (B, 1, vocab)) on the device."""
-        return prefill(
-            self.ctx, self.params, {"tokens": self.tokens(tokens)}, capacity=self.max_len
-        )
+    def prefill(self, tokens, entry: Optional[int] = None):
+        """Prompt (B, S) -> (cache, logits (B, 1, vocab)) on the device.
+        With ``entry`` (from ``acquire``) the prompt is prefilled into that
+        pool entry's cache, whose ``max_len`` slots must hold it; without,
+        into a new cache."""
+        batch = {"tokens": self.tokens(tokens)}
+        if entry is None:
+            return self._prefill(self.params, batch)
+        s = batch["tokens"].shape[1]
+        if s > self.max_len:
+            raise ValueError(f"a prompt of {s} tokens overflows a pool entry of "
+                             f"{self.max_len} slots")
+        return self._prefill(self.params, batch, out=self.pool[entry].cache)
 
     @torch.inference_mode()
     def decode(self, cache, tokens):
         """One decode step. Dispatch is asynchronous on the card: the
         returned logits are a device tensor still being computed, which is
         what lets the runtime keep ``c`` groups in flight. The cache's
-        tensors are updated in place."""
-        return decode_step(self.ctx, self.params, cache, self.tokens(tokens))
+        tensors are updated in place.
+
+        A pool entry's cache on an engine with graphs replays the entry's
+        graph: the tokens go into its static buffer, and the logits
+        returned are the graph's static buffer, which the entry's next
+        replay overwrites. So a caller reads them (``fetch_last``) before
+        it decodes that entry again; the runtime does, since it decodes a
+        slot only from that slot's retire, after it has waited on the
+        copy of the slot's logits."""
+        if not self.graphs:
+            return self._serve(self.params, cache, self.tokens(tokens))
+        k = cache.get("entry")
+        if k is None:
+            raise ValueError("an engine with CUDA graphs decodes only pool-entry caches: "
+                             "prefill with entry=acquire(), or build it with graphs=False")
+        e = self.pool[k]
+        e.tokens.copy_(self.tokens(tokens), non_blocking=True)
+        e.graph.replay()
+        return e.cache, e.logits
 
     @staticmethod
     def fetch_last(logits: torch.Tensor) -> HostLogits:
@@ -131,14 +301,23 @@ class ServingEngine:
         draws from a ``torch.Generator`` seeded with ``seed``: the same
         distribution as the reference's ``jax.random.categorical``, not the
         same numbers."""
-        cache, logits = self.prefill(prompt)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        out = []
-        tok = self._sample(logits, temperature, gen)
-        for _ in range(n_tokens):
-            out.append(tok.cpu().numpy())
-            cache, logits = self.decode(cache, tok)
+        fits = prompt.shape[0] == self.batch and prompt.shape[1] <= self.max_len
+        if self.graphs and not fits:
+            raise ValueError(f"a prompt of shape {prompt.shape} does not fit a pool entry of "
+                             f"({self.batch}, {self.max_len}), and graphs decode only those")
+        k = self.acquire() if fits else None  # a pool entry: on the card, the graph
+        try:
+            cache, logits = self.prefill(prompt, entry=k)
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            out = []
             tok = self._sample(logits, temperature, gen)
+            for _ in range(n_tokens):
+                out.append(tok.cpu().numpy())
+                cache, logits = self.decode(cache, tok)
+                tok = self._sample(logits, temperature, gen)
+        finally:
+            if k is not None:
+                self.release(k)
         return np.concatenate(out, axis=1)
 
     @staticmethod

@@ -5,10 +5,12 @@ Port notes. (1) Retire waits on its own slot only: at dispatch the
 engine starts a non-blocking copy of the last position's logits into
 pinned host memory behind a CUDA event (``ServingEngine.fetch_last``),
 and retire waits on that event, where the reference relies on a JAX
-device→host transfer skipping the execute queue. (2) The edge↔pod
-serving seam (``attach_pod``, ``set_pod_outage``, ``set_offload``,
-``_ship_to_pod``, ``_poll_pod``) waits for ROADMAP queue 1 item 14;
-every request is served locally.
+device→host transfer skipping the execute queue. (2) A slot binds to one
+of the engine's pool caches (``acquire`` / ``release``) for the life of
+its group; on the card the engine replays that entry's CUDA graph for
+each decode, the port's counterpart of the reference's jitted step.
+Whenever slots are set, each engine ``reserve``s one entry per slot of
+the rings it serves, so that its captures precede the served traffic.
 
 The paper (§II-A) tunes concurrency as a first-class resource knob, which
 only means anything if ``c`` in-flight decode groups genuinely pipeline.
@@ -85,6 +87,9 @@ class Request:
     finished: float = 0.0
     tokens: List[int] = dataclasses.field(default_factory=list)
     output: Optional[np.ndarray] = None
+    # placement, decided once at admission: None until the request becomes
+    # admissible, then "edge" (local slots) or "pod" (shipped upstream)
+    route: Optional[str] = None
     # owning tenant ring, stamped at submit
     tenant: Optional[str] = None
 
@@ -92,10 +97,11 @@ class Request:
 class _Slot:
     """One in-flight decode group: KV cache + outstanding logits future."""
 
-    __slots__ = ("group", "cache", "logits", "live", "remaining")
+    __slots__ = ("group", "entry", "cache", "logits", "live", "remaining")
 
     def __init__(self):
         self.group: Optional[List[Request]] = None
+        self.entry: Optional[int] = None  # the engine's pool entry of this group
         self.cache = None
         self.logits = None  # HostLogits: the outstanding logits' copy to the host
         self.live: List[bool] = []
@@ -107,7 +113,7 @@ class _TenantRing:
 
     The ring owns everything per-tenant — its engine (model), batch
     shape, slot budget, τ-floor, pools and token/event accounting — and
-    borrows the shared pieces (clock, pacing) from the owning
+    borrows the shared pieces (clock, pacing, pod seam) from the owning
     ``ServingRuntime``.
     """
 
@@ -138,7 +144,8 @@ class _TenantRing:
     def _form_group(self) -> Optional[List[Request]]:
         """FIFO group of admissible requests sharing the head's prompt
         length — equal-length grouping, never pad/clip to another
-        request's shape."""
+        request's shape. Pod-routed requests never appear here:
+        ``_route_admissible`` removed them from the pool at admission."""
         now = self.rt.now()
         length = None
         picked: List[Request] = []
@@ -171,7 +178,8 @@ class _TenantRing:
         # retire: retire must only ever wait for this slot's own copy — a
         # read there would queue behind every other slot's in-flight
         # decode and serialize the whole ring.
-        slot.cache, logits = self.engine.prefill(prompts)
+        slot.entry = self.engine.acquire()
+        slot.cache, logits = self.engine.prefill(prompts, entry=slot.entry)
         slot.logits = self.engine.fetch_last(logits)
         slot.group = group
         slot.live = [True] * len(group)
@@ -202,10 +210,15 @@ class _TenantRing:
         self._record(t, n_live)
         self.steps += 1
         if any(slot.live):
+            # the slot's logits were waited on above, so this decode (on
+            # the card, a replay of the entry's graph) may overwrite the
+            # entry's static logits buffer: the only reader it had was
+            # that copy
             slot.cache, logits = self.engine.decode(slot.cache, tok[:, None])
             slot.logits = self.engine.fetch_last(logits)
         else:
-            slot.group = None
+            self.engine.release(slot.entry)
+            slot.group = slot.entry = None
             slot.cache = slot.logits = None
 
     def step_pass(self) -> bool:
@@ -291,6 +304,19 @@ class ServingRuntime:
             batch_size=batch_size,
             slots=concurrency,
         )
+        # ---- edge↔pod offload seam (attach_pod / set_offload) ----------
+        self.pod_network = None  # repro_torch.device.network.NetworkProfile
+        self.pod_time_per_token = 0.0
+        self.pod_timeout_s = 30.0  # shipped-request deadline (attach_pod)
+        self.pod_outage = False  # link down: responses lost until cleared
+        self.offload_frac = 0.0
+        self._route_acc = 0.0  # deterministic fractional-routing carry
+        # (done_at, deadline, request, owning ring)
+        self._pod_inflight: List[Tuple[float, float, Request, _TenantRing]] = []
+        self.pod_tokens_total = 0
+        self.pod_expired = 0  # shipped requests that hit the deadline
+        self.network_energy_j = 0.0
+
     # ------------------------------------------------------------------
     # tenants
     # ------------------------------------------------------------------
@@ -318,7 +344,17 @@ class ServingRuntime:
             tau_floor=tau_floor,
         )
         self.tenants[name] = ring
+        self._reserve()
         return ring
+
+    def _reserve(self) -> None:
+        """Have each engine's cache pool hold every slot of the rings it
+        serves (on the card, a captured graph each)."""
+        need: Dict[int, int] = collections.Counter()
+        for ring in self.tenants.values():
+            need[id(ring.engine)] += ring.slot_budget
+        for ring in self.tenants.values():
+            ring.engine.reserve(need[id(ring.engine)])
 
     def ring(self, tenant: Optional[str] = None) -> _TenantRing:
         """The named tenant's ring (default ring when ``tenant`` is None)."""
@@ -331,6 +367,7 @@ class ServingRuntime:
         semantics the single-tenant ``set_concurrency`` always had."""
         for name, c in alloc.items():
             self.tenants[name].slot_budget = max(1, int(c))
+        self._reserve()
 
     # ------------------------------------------------------------------
     # single-tenant compatibility surface (delegates to the default ring)
@@ -345,7 +382,7 @@ class ServingRuntime:
 
     @concurrency.setter
     def concurrency(self, c: int) -> None:
-        self._default.slot_budget = max(1, int(c))
+        self.set_concurrency(c)
 
     @property
     def waiting(self) -> List[Request]:
@@ -372,6 +409,7 @@ class ServingRuntime:
         *default* ring (the single-tenant special case; multi-tenant
         callers use ``set_slot_allocation``)."""
         self._default.slot_budget = max(1, int(c))
+        self._reserve()
 
     # ------------------------------------------------------------------
     # clock & admission
@@ -400,17 +438,155 @@ class ServingRuntime:
         self.rate_scale = min(1.0, max(0.05, float(scale)))
 
     # ------------------------------------------------------------------
+    # edge↔pod offload seam
+    # ------------------------------------------------------------------
+    def attach_pod(
+        self,
+        network,
+        pod_time_per_token: float = 2e-3,
+        timeout_s: float = 30.0,
+    ) -> None:
+        """Attach the uplink to the pod slice: ``network`` is a
+        ``repro_torch.device.network.NetworkProfile`` and ``pod_time_per_token``
+        the slice's per-token decode service time. Until ``set_offload``
+        raises the route fraction above 0, everything still runs locally.
+        ``timeout_s`` is the per-request response deadline: a shipped
+        request whose reply has not landed by then is re-admitted to its
+        owning ring and served locally (no silent leak).
+        """
+        self.pod_network = network
+        self.pod_time_per_token = float(pod_time_per_token)
+        self.pod_timeout_s = float(timeout_s)
+
+    def set_pod_outage(self, active: bool) -> None:
+        """Live fault knob: while the link is down, no new request ships
+        (admissions run locally) and responses stop arriving — in-flight
+        shipped requests sit until their deadline and are then re-admitted
+        to the edge. Clearing the outage before a request's deadline lets
+        its response land normally."""
+        self.pod_outage = bool(active)
+
+    def set_offload(self, frac: float) -> None:
+        """Live placement knob: the fraction of *admitted* requests routed
+        to the pod. Routing is decided once per request at admission by a
+        deterministic fractional accumulator (no RNG: every 1/frac-th
+        admissible request ships), so two runs with the same trace and
+        knob settings route identically."""
+        self.offload_frac = min(1.0, max(0.0, float(frac)))
+
+    def _ship_to_pod(self, r: Request, t: float, ring: _TenantRing) -> None:
+        """Ship one request over the attached uplink. End-to-end latency
+        is network + remote service: upload serialization + one RTT + the
+        pod slice's per-token decode time. The radio energy meter charges
+        per shipped token (prompt up, generated tokens down) — the only
+        place pod-routed work ever touches the edge power rail. The local
+        engine is never invoked for shipped requests."""
+        net = self.pod_network
+        n_tok = int(r.prompt.size) + int(r.max_new_tokens)
+        upload_s = int(r.prompt.size) * net.token_bytes / net.bandwidth
+        done_at = (
+            t
+            + upload_s
+            + net.rtt_s
+            + int(r.max_new_tokens) * self.pod_time_per_token
+        )
+        self.network_energy_j += n_tok * net.ship_energy_per_token_j
+        self.pod_tokens_total += int(r.max_new_tokens)
+        r.started = t
+        deadline = t + max(self.pod_timeout_s, done_at - t)
+        self._pod_inflight.append((done_at, deadline, r, ring))
+
+    def _route_admissible(self, t: float) -> bool:
+        """Admission-time placement: walk every ring's pool once, decide
+        edge vs pod for each newly-admissible request, and ship the
+        pod-routed ones. Requests stay route="edge" forever once
+        committed — the accumulator only advances on first admission, so
+        later knob changes affect later arrivals only. One accumulator
+        across tenants: the route fraction is a property of the shared
+        uplink, not of any one ring."""
+        if self.pod_network is None or self.pod_outage:
+            # link absent or down: requests stay route=None and the rings
+            # serve them locally; the accumulator holds so the route
+            # fraction resumes cleanly when the link returns
+            return False
+        now = self.now()
+        progressed = False
+        for ring in self.tenants.values():
+            shipped: List[Request] = []
+            for r in ring.waiting:
+                if r.route is not None:
+                    continue
+                if r.arrival_s is not None and r.arrival_s > now:
+                    continue
+                self._route_acc += self.offload_frac
+                if self._route_acc >= 1.0 - 1e-12:
+                    self._route_acc -= 1.0
+                    r.route = "pod"
+                    shipped.append(r)
+                else:
+                    r.route = "edge"
+            if not shipped:
+                continue
+            ids = {id(r) for r in shipped}
+            ring.waiting = [r for r in ring.waiting if id(r) not in ids]
+            for r in shipped:
+                self._ship_to_pod(r, t, ring)
+            progressed = True
+        return progressed
+
+    def _poll_pod(self, t: float) -> bool:
+        """Retire pod-routed requests whose (network + remote service)
+        completion time has passed, and expire the ones whose deadline
+        has. Completion is token-accounted like a local retire — on the
+        owning tenant's ring — so windowed throughput/latency metrics see
+        pod traffic, including its network latency, on equal terms.
+        Expired requests (deadline passed with no response — a dead link
+        or a stalled pod) are re-admitted to their owning ring pinned to
+        the edge route, so nothing the runtime accepted is ever leaked."""
+        if not self._pod_inflight:
+            return False
+        keep: List[Tuple[float, float, Request, _TenantRing]] = []
+        due: List[Tuple[float, float, Request, _TenantRing]] = []
+        expired: List[Tuple[float, float, Request, _TenantRing]] = []
+        for e in self._pod_inflight:
+            if not self.pod_outage and e[0] <= t:
+                due.append(e)
+            elif e[1] <= t:
+                expired.append(e)
+            else:
+                keep.append(e)
+        if not due and not expired:
+            return False
+        self._pod_inflight = keep
+        for done_at, _, r, ring in sorted(due, key=lambda e: e[0]):
+            r.finished = done_at
+            r.tokens = [0] * int(r.max_new_tokens)
+            r.output = np.zeros(int(r.max_new_tokens), np.int32)
+            ring.done.append(r)
+            ring._record(done_at, int(r.max_new_tokens))
+        for _, _, r, ring in expired:
+            # pin to the edge so the retry cannot bounce back to a dead
+            # link — the local ring serves it on its next pass
+            r.route = "edge"
+            r.tokens = []
+            self.pod_expired += 1
+            ring.waiting.append(r)
+        return True
+
+    # ------------------------------------------------------------------
     # the shared pass
     # ------------------------------------------------------------------
     def step(self) -> bool:
-        """One pass over every tenant's ring: each ring refills idle slots
-        from its own pool and retires+redispatches active ones. Returns False when nothing
+        """One pass over every tenant's ring: route/poll the pod seam,
+        then each ring refills idle slots from its own pool and
+        retires+redispatches active ones. Returns False when nothing
         could progress (all rings idle and no admissible request).
         Pacing is applied once, to the whole pass — shared DVFS means
         one clock domain for every tenant."""
         self.start_clock()
         t_pass = time.monotonic()
-        progressed = False
+        progressed = self._route_admissible(t_pass)
+        progressed |= self._poll_pod(t_pass)
         for ring in self.tenants.values():
             progressed |= ring.step_pass()
         if progressed and self.rate_scale < 1.0:
@@ -442,6 +618,9 @@ class ServingRuntime:
                 sum(s.group is not None for s in ring.slots)
                 for ring in self.tenants.values()
             ),
+            "pod_inflight": len(self._pod_inflight),
+            "pod_expired": self.pod_expired,
+            "network_energy_j": self.network_energy_j,
             "interval_s": span,
         }
 
@@ -514,7 +693,7 @@ class ServingRuntime:
         done0 = {n: len(r.done) for n, r in self.tenants.items()}
         while time.monotonic() - t0 < seconds:
             if not self.step():
-                if not idle_wait and not self._busy():
+                if not idle_wait and not self._busy() and not self._pod_inflight:
                     break
                 time.sleep(5e-4)
         span = time.monotonic() - t0
@@ -537,7 +716,7 @@ class ServingRuntime:
         t0 = time.monotonic()
         tok0 = {n: r._tokens_total for n, r in self.tenants.items()}
         done0 = {n: len(r.done) for n, r in self.tenants.items()}
-        while self._busy():
+        while self._busy() or self._pod_inflight:
             if time.monotonic() - t0 > timeout_s:
                 break
             if not self.step():

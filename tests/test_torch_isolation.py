@@ -44,6 +44,13 @@ def test_imports_no_jax_and_no_reference(path):
     assert bad == [], f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_serving_remainder_is_scanned():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for module in ("serving/controller.py", "device/measure.py", "serving/engine.py",
+                   "serving/runtime.py"):
+        assert f"src/repro_torch/{module}" in names
+
+
 def test_scan_catches_a_reference_import(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import os\nfrom repro.configs import base\nimport jax.numpy as jnp\n")
@@ -80,10 +87,17 @@ def test_entry_points_default_to_the_card():
     from repro_torch.experiments.fleet import run_fleet
     from repro_torch.launch.serve import build_engine, serve
     from repro_torch.models.convert import params_from_jax
+    from repro_torch.serving.controller import ServingController
+    from repro_torch.serving.engine import ServingEngine
 
     for fn in (serve, build_engine, params_from_jax, run_matrix, run_static_cell,
                run_drift_cell, run_fault_cell, run_offload_cell, run_cotenant_cell,
                run_static_requests, run_drift_requests,
                run_fault_requests, run_fleet_requests, run_fleet, run_coral_batch, run_regime, run_coral,
-               run_drift_regime, run_fault_regime, run_cell, CORAL, dcor_all):
+               run_drift_regime, run_fault_regime, run_cell, CORAL, dcor_all,
+               ServingController):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    # the engine runs where its weights lie (build_engine puts them on the
+    # card) and there replays its decode step from CUDA graphs by default
+    for fn in (build_engine, ServingEngine):
+        assert inspect.signature(fn).parameters["graphs"].default is None, fn

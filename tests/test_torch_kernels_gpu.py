@@ -32,6 +32,12 @@ the card: records against ``BENCH_matrix.json`` at rel 1e-12 (both rebuild
 τ and p in float64 from the same landscapes and noise). The fleet runs on
 the card: its windows launches bitwise at the fleet's shapes, its results
 block equal to ``BENCH_fleet.json``'s (``json.dumps`` with sorted keys).
+The serving engine's CUDA graph of the decode step (reduced Qwen2.5-3B,
+Mamba2-2.7B and a 4-layer Hymba-1.5B, bf16): its logits and caches
+bitwise equal to the eager step's (the same kernels in the same order),
+one capture per pool entry, an entry-less cache refused by a graphed
+engine, and the runtime's tokens through graphs equal to its tokens
+through the eager step.
 """
 import numpy as np
 import pytest
@@ -74,6 +80,9 @@ SWEEP = [
     (2, 25, 5, 2048, 64, 64, True, 1024),  # Hymba-1.5B prefill of 2048: the window masks
     (1, 16, 2, 4096, 128, 128, True, None),  # long prefill
     (2, 4, 2, 200, 128, 128, False, None),  # bidirectional, ragged
+    (4, 16, 2, 8, 128, 128, True, None),  # Qwen2.5-3B prompts of the control loop's trace,
+    (4, 16, 2, 32, 128, 128, True, None),  # of WalltimeDevice's probe and of the tau probe:
+    (4, 16, 2, 64, 128, 128, True, None),  # one query and one key tile hold the whole prompt
 ]
 
 
@@ -541,3 +550,141 @@ def test_fleet_on_the_card_reproduces_the_record(cuda):
     assert json.dumps(rec["results"], sort_keys=True) == json.dumps(
         record["results"], sort_keys=True)
     assert rec["engine"]["backend"] == "cuda" and rec["engine"]["peak_device_bytes"] > 0
+
+
+GRAPH_ARCHS = ["qwen2.5-3b", "mamba2-2.7b", "hymba-1.5b"]
+
+
+def _graph_engines(arch, batch=2, max_len=48):
+    """An eager and a graphed engine over the same reduced bf16 weights
+    (Hymba with 4 layers, so that one slides its window)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.runtime import RunConfig
+    from repro_torch.models.transformer import ApplyCtx, init_model_params
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_config(arch).reduced()
+    if cfg.arch_type == "hybrid":
+        cfg = dataclasses.replace(cfg, n_layers=4)
+    ctx = ApplyCtx(cfg, RunConfig(compute_dtype="bfloat16", use_kernels=True))
+    params = init_model_params(cfg, ctx.rcfg, torch.Generator(device="cuda").manual_seed(0),
+                               "cuda")
+    return (ServingEngine(ctx, params, batch, max_len, graphs=False),
+            ServingEngine(ctx, params, batch, max_len, graphs=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_graphed_decode_is_bitwise_the_eager_step(cuda, arch):
+    from repro_torch.serving.engine import capture_counts, reset_capture_counts
+
+    reset_capture_counts()
+    eager, graphed = _graph_engines(arch)
+    rng = np.random.default_rng(3)
+    vocab = eager.ctx.cfg.vocab
+    prompt = rng.integers(0, vocab, (2, 20), dtype=np.int32)
+    feeds = rng.integers(0, vocab, (12, 2, 1), dtype=np.int32)
+    out = {}
+    for name, eng in (("eager", eager), ("graphed", graphed)):
+        k = eng.acquire()
+        cache, logits = eng.prefill(prompt, entry=k)
+        steps = [logits.clone()]
+        for tok in feeds:
+            cache, logits = eng.decode(cache, tok)
+            steps.append(logits.clone())
+        torch.cuda.synchronize()
+        out[name] = (steps, {n: c.clone() for n, c in cache["main"].items()},
+                     int(cache["length"]))
+    assert capture_counts() == {graphed.ctx.cfg.name: 1} and len(graphed.pool) == 1
+    (es, ec, el), (gs, gc, gl) = out["eager"], out["graphed"]
+    assert el == gl == 20 + len(feeds)
+    for a, b in zip(es, gs):
+        assert torch.equal(a, b)
+    for n in ec:
+        assert torch.equal(ec[n], gc[n]), n
+
+
+@pytest.mark.gpu
+def test_graphed_engine_decodes_only_pool_entries(cuda):
+    """On an engine with graphs the eager step is never taken implicitly:
+    a cache from a prefill without a pool entry, or a prompt that fits
+    no entry, raises; ``graphs=False`` is the way to the eager step."""
+    eager, graphed = _graph_engines("qwen2.5-3b")
+    prompt = np.zeros((2, 8), np.int32)
+    cache, logits = graphed.prefill(prompt)
+    tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    with pytest.raises(ValueError, match="pool-entry caches"):
+        graphed.decode(cache, tok)
+    with pytest.raises(ValueError, match="does not fit a pool entry"):
+        graphed.generate(np.zeros((3, 8), np.int32), 2)
+    cache, logits = eager.prefill(prompt)
+    assert eager.decode(cache, tok)[1].shape == logits.shape
+    assert not graphed.pool and not eager.pool
+
+
+@pytest.mark.gpu
+def test_one_capture_per_pool_entry(cuda):
+    from repro_torch.serving import Request, ServingRuntime
+    from repro_torch.serving.engine import capture_counts, reset_capture_counts
+
+    _, graphed = _graph_engines("qwen2.5-3b")
+    reset_capture_counts()
+    for c in (3, 2):  # a second runtime reuses the entries of the first
+        rt = ServingRuntime(graphed, concurrency=c)
+        rng = np.random.default_rng(c)
+        for rid in range(12):
+            rt.submit(Request(rid, rng.integers(0, 500, 16, dtype=np.int32), 5))
+        m = rt.drain()
+        assert m["requests"] == 12
+    assert len(graphed.pool) == 3 and capture_counts() == {graphed.ctx.cfg.name: 3}
+    assert not any(e.busy for e in graphed.pool)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_static_logits_are_read_before_the_next_replay(cuda, arch):
+    """Three slots in flight on one queue: each retire's tokens come from
+    its own slot's step, so the graphed runtime gives every request the
+    tokens the eager runtime gives it."""
+    from repro_torch.serving import Request, ServingRuntime
+
+    outputs = {}
+    for eng in _graph_engines(arch):
+        rt = ServingRuntime(eng, concurrency=3)
+        rng = np.random.default_rng(7)
+        for rid in range(10):
+            rt.submit(Request(rid, rng.integers(0, eng.ctx.cfg.vocab, 12, dtype=np.int32),
+                              6 + rid % 3))
+        rt.drain()
+        outputs[eng.graphs] = {r.rid: r.output.tolist() for r in rt.done}
+    assert len(outputs[True]) == 10
+    assert outputs[True] == outputs[False]
+
+
+@pytest.mark.gpu
+def test_capture_survives_a_collected_engine(cuda):
+    """An engine left in a reference cycle (runtime <-> tenant ring) is
+    freed by the garbage collector, graphs and all; a graph freed while
+    another is being captured invalidates that capture. With collections
+    made as frequent as they go, a new engine still captures its pool."""
+    import gc
+
+    from repro_torch.serving import ServingEngine, ServingRuntime
+    from repro_torch.serving.engine import capture_counts, reset_capture_counts
+
+    _, old = _graph_engines("qwen2.5-3b")
+    old.acquire()
+    ctx, params = old.ctx, old.params
+    ServingRuntime(old)  # the cycle that holds the engine until a collection
+    del old
+    reset_capture_counts()
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        new = ServingEngine(ctx, params, 2, 48, graphs=True)
+        new.reserve(2)
+    finally:
+        gc.set_threshold(*thresholds)
+    assert len(new.pool) == 2 and capture_counts() == {ctx.cfg.name: 2}
