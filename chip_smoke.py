@@ -4,8 +4,10 @@ GPU, from the root of a checkout:
 
     python3 chip_smoke.py
 
-Five main paths, each at full size through its kernels (the fifth is the
-serving control loop, CORAL tuning live Qwen2.5-3B traffic, phase 6):
+Six main paths, each at full size through its kernels (the fifth is the
+serving control loop, CORAL tuning live Qwen2.5-3B traffic, phase 6; the
+sixth, Moonlight-16B-A3B served at full width and depth and DeepSeek-V2's
+MLA at full width, its depth cut to 2 layers, phases 3 and 4):
 Qwen2.5-3B served at full width (prefill attention through
 ``flash_attention``), Mamba2-2.7B
 served at full width (the SSD chunked scan through ``ssd_scan``), the
@@ -15,6 +17,9 @@ of ``BENCH_fleet.json`` (its windowed dCor through ``dcov``), and Hymba-1.5B
 served at full width (attention and
 Mamba2 heads side by side in every layer: ``flash_attention`` with a
 1024-token window on 29 of its 32 layers and ``ssd_scan`` at N = 16).
+Moonlight's bf16 weights take 56.8 GB of the card's 80 (one tree at a
+time: ``free_card`` checks before each is drawn), so the script needs a
+card with ~60 GB free.
 Phases, each of which exits non-zero on failure:
 
 1. Environment: the card's name and power limit, torch and CUDA versions;
@@ -33,8 +38,11 @@ Phases, each of which exits non-zero on failure:
    body ``body_for`` names (bf16 with D == Dv in {64, 128}: ``wgmma``),
    and timed at the serving shape (B=4, Hq=16, Hkv=2, S=512, D=128,
    causal, bf16; library: SDPA) on contiguous inputs and on the model's
-   (B, S, H, D) views, at S=4096 (B=1) and at Hymba-1.5B's serving shape
-   (B=4, Hq=25, Hkv=5, S=512, D=64), SDPA beside each as a yardstick;
+   (B, S, H, D) views, at S=4096 (B=1), at Hymba-1.5B's serving shape
+   (B=4, Hq=25, Hkv=5, S=512, D=64) and at DeepSeek-V2's MLA shape (B=4,
+   H=128, S=512, D=192, Dv=128: the ``simt`` body; contiguous and as the
+   model's strided views, v the Dv half of the expanded latent, row
+   stride H * 256), SDPA beside each as a yardstick;
    ``ssd_scan`` against
    ``ssd_ref`` in float32 and bfloat16, with a ragged tail, an initial
    state, 16 chunks at S=4096 and chunk 64 at S=1000, and the model's
@@ -79,7 +87,19 @@ Phases, each of which exits non-zero on failure:
    launches held to ``ssd_ref`` and each of its 32 flash launches to
    ``attention_ref`` on its own inputs, all on the ``wgmma`` bodies; in
    float32 the logits through both kernels against both call sites routed
-   to the plain versions (``hybrid_full_width_check``). Then the CORAL
+   to the plain versions (``hybrid_full_width_check``). Moonlight-16B-A3B
+   (48 layers, the dense layer 0 and 47 MoE layers of 64 experts, top-6,
+   2 shared) and DeepSeek-V2 (``DEPTH_CUT``: 2 layers, the dense layer 0
+   and one MoE layer of 160 experts, MLA) as Qwen2.5-3B, weights drawn in
+   bf16: (a) reduced in float32 card against CPU, (b) one 4 x 512 bf16
+   prefill, every flash launch held to ``attention_ref`` on its own inputs
+   (48 on the ``wgmma`` body for Moonlight, 2 on ``simt`` for DeepSeek-V2;
+   ``flash_body`` asks ``body_for``), logits within 5e-2 × max|logit| of
+   the plain route (Qwen2.5-3B's prefill is held the same way); Moonlight
+   over four prompts (``LOGIT_SEEDS``), each within ``LOGIT_REL_TOL`` ×
+   max|logit| and their mean gap within ``CONTROL_RATIO`` × that of the
+   plain route summed in other orders (the controls), and in float32
+   compute within 5e-2 × max|logit| as well. Then the CORAL
    slice (the main paths of ``dcov``): (a) ``run_matrix`` over the 54
    static cells x 3 seeds on the card as one batched call (10 dcov
    launches), each cell held to ``BENCH_matrix.json`` (configs, flags and
@@ -108,12 +128,15 @@ Phases, each of which exits non-zero on failure:
    prompt 512, 32 new tokens, batch 4, at concurrency 1, then 2, with
    launch counts reset just before and read just after each model's runs;
    each model's kernels must have launched once per layer and prefill, on
-   the ``wgmma`` bodies (Qwen2.5-3B: 36 flash; Mamba2-2.7B: 64 SSD;
-   Hymba-1.5B: 32 flash and 32 SSD), and each decode must have gone
+   the bodies their shapes take (Qwen2.5-3B: 36 flash; Mamba2-2.7B: 64 SSD;
+   Hymba-1.5B: 32 flash and 32 SSD; Moonlight-16B-A3B: 48 flash; all
+   ``wgmma``), and each decode must have gone
    through the engine's CUDA graphs, one capture per pool entry (c entries
-   at concurrency c), not one per step. Then, per model at full width,
-   16 greedy decode steps after one 4 x 512 prefill through the graph and
-   through the eager step over the same weights: logits bitwise equal.
+   at concurrency c), not one per step. Then, per model at full width
+   (DeepSeek-V2 too, at 2 layers), 16 greedy decode steps after one 4 x
+   512 prefill through the graph and through the eager step over the same
+   weights: logits bitwise equal; the two prefills' launches counted and
+   checked by body.
    For Qwen2.5-3B then the τ-vs-concurrency probe over c in 1 ... 5
    (``tpu_pod_space``'s values), graphed and eager engines in turns,
    after one prefill at its prompt length (64) with every flash launch
@@ -133,7 +156,10 @@ Phases, each of which exits non-zero on failure:
    share, and the heaviest kernels; every flash and SSD launch of the
    profiled prefills there on the ``wgmma`` bodies, one per layer (36 for
    Qwen, 64 for Mamba2, 32 of each for Hymba), with the device time of
-   each of the SSD body's three kernels; the
+   each of the SSD body's three kernels; for Moonlight-16B-A3B the
+   compute-all expert GEMMs (``moe._experts``) named by their kernels and
+   timed per layer at 4 and 2048 tokens, and the decode step's
+   weight-read bound; the
    dcov single-block form at n=1600, C=7 and n=16384, C=8, with the
    device time of each of its two kernels, from a profiled window that
    holds every launch of both (redone up to PROFILE_TRIES times, else
@@ -144,14 +170,15 @@ Phases, each of which exits non-zero on failure:
    ``ServingController`` on a bursty trace at 0.6 x the measured capacity,
    every ``IntervalRecord`` printed, after one prefill at each of the
    phase's prompt lengths (8 and 32) with every flash launch held to
-   ``attention_ref``; fails if an interval serves no request (admits no
-   group under the configuration it applied, or decodes no token: a
-   group's latency is close to 0.5 s, so an interval may complete none),
-   a released request is not served in full, or flash attention or dcov
-   never launched in the phase. Power there is the reference's
+   ``attention_ref``; fails if an interval that starts with requests
+   waiting admits no group, one that starts with a group in flight
+   decodes no token (a group's latency is close to 0.5 s, so an interval
+   may complete none), a released request is not served in full, or
+   flash attention or dcov never launched in the phase. Power there is the reference's
    analytical model on its TPU v5e constants, not the H100's.
-7. A ``{"kernels": [...]}`` line (launches: the main paths' and the
-   control loop's), then ``{"ok": true, "device": ...}`` as the last line.
+7. A ``{"kernels": [...]}`` line (launches: the main paths', the graph
+   checks' prefills and the control loop's), then ``{"ok": true,
+   "device": ...}`` as the last line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -172,6 +199,10 @@ SRC = ROOT / "src"
 ARCH = "qwen2.5-3b"
 SSM_ARCH = "mamba2-2.7b"
 HYBRID_ARCH = "hymba-1.5b"
+MOE_ARCH = "moonshot-v1-16b-a3b"  # 28.4 B parameters, 56.8 GB in bf16: full width and depth
+MLA_ARCH = "deepseek-v2-236b"  # 471 GB in bf16: full width, depth cut (DEPTH_CUT)
+DEPTH_CUT = {MLA_ARCH: 2}  # the dense layer 0 and one MoE layer of 160 experts: 5.4 B parameters
+FULL_TREE_GB = 56.8  # one full-width Moonlight parameter tree in bf16; two do not fit the card
 HYBRID_REDUCED_LAYERS = 4  # reduced() has 2, both global; with 4, layer 1 slides a window
 HYBRID_PREFILL = (2, 2048)  # the full-width check: windows of 1024 mask, 8 SSD chunks
 SERVE_SHAPE = dict(b=4, hq=16, hkv=2, s=512, d=128, dv=128, causal=True, window=None)
@@ -194,10 +225,13 @@ SWEEP = [  # the card tests' sweep (tests/test_torch_kernels_gpu.py), then the s
     dict(b=4, hq=16, hkv=2, s=8, d=128, dv=128, causal=True, window=None),
     dict(b=4, hq=16, hkv=2, s=32, d=128, dv=128, causal=True, window=None),
     dict(b=4, hq=16, hkv=2, s=64, d=128, dv=128, causal=True, window=None),
+    # DeepSeek-V2's MLA prefill (B=4 x 512): D = 128 + 64 != Dv = 128, the simt body
+    dict(b=4, hq=128, hkv=128, s=512, d=192, dv=128, causal=True, window=None),
 ]
 LONG_SHAPE = dict(b=1, hq=16, hkv=2, s=4096, d=128, dv=128, causal=True, window=None)
 # Hymba-1.5B's prefill (B=4 x 512): its window of 1024 masks nothing at S = 512
 HYMBA_FLASH = dict(b=4, hq=25, hkv=5, s=512, d=64, dv=64, causal=True, window=None)
+MLA_FLASH = SWEEP[-1]
 # (b, s, nh, hd, n, chunk, initial state): the CPU tests' sweep
 # (tests/test_torch_ssd_scan.py), a ragged tail, the reduced Mamba2,
 # full-width heads (hd 64, N 128, the wgmma body in bf16), ragged, 16
@@ -242,6 +276,23 @@ PROFILE_LEAD = 32  # spin kernels ahead of a profiled window's calls (see profil
 PROFILE_PAUSE_S = 0.02  # host pause between the lead spins and a window's first call
 PROFILE_TRIES = 3  # profiled windows, at most, until one holds every launch it must
 PREFILL_REL_TOL = 5e-2  # full-width bf16 logits, relative to max |logit|
+# Moonlight's full-width bf16 logits: 47 layers of top-6 routing turn a bf16
+# rounding anywhere into a flipped expert, so a change of summation order
+# alone (the controls, blocked_bhsd over CONTROL_TILES) moves its logits by
+# up to a fifth of max|logit|. tools/moe_logit_spread.py read 3 weight x 4
+# prompt seeds twice on an H100 (PERF.md section 6): the kernel's gap to the
+# plain route 0.083-0.227 of max|logit|, the controls' 0.073-0.189, the
+# kernel's mean over a weight seed's four prompts 1.13-1.27x the controls'.
+# So its bf16 prefills run over LOGIT_SEEDS prompts, each held at
+# LOGIT_REL_TOL x max|logit|, and their mean gap at CONTROL_RATIO x the
+# controls' mean; each flash launch is held to attention_ref on its own
+# inputs, and F32_LOGITS models are held at PREFILL_REL_TOL in float32
+# compute as well
+LOGIT_SEEDS = {MOE_ARCH: (1, 2, 3, 4)}
+LOGIT_REL_TOL = {MOE_ARCH: 0.3}
+CONTROL_TILES = (64, 128)
+CONTROL_RATIO = 2.0
+F32_LOGITS = (MOE_ARCH,)
 SLICE_FP32_TOL = 1e-4  # reduced fp32 logits, card vs CPU
 OVERLAP_MIN = 1.3  # tau(c=2) / tau(c=1) when host and card take 10 ms each
 SERVE = dict(requests=16, prompt_len=512, new_tokens=32, batch=4)
@@ -500,8 +551,50 @@ def phase_flash_check(torch):
     flash_times(torch, q, k, v, "Hymba-1.5B serving shape (B=4, Hq=25, Hkv=5, S=512, D=64; its "
                 "window of 1024 masks nothing at S=512), contiguous")
     del q, k, v
+    mla_flash_times(torch)
     torch.cuda.empty_cache()
     return {"max_abs_err": worst[("bfloat16", len(SWEEP))], "plain_ms": plain_ms, **row}
+
+
+def mla_flash_times(torch):
+    """DeepSeek-V2's MLA prefill shape (B=4, H=128, S=512, D=192, Dv=128,
+    bf16, causal): the kernel against ``attention_ref`` on the model's
+    strided views (q and k concatenated, v the Dv half of the expanded
+    (B, S, H, 256) latent, row stride H * 256) on the body ``body_for``
+    names, then the plain version's, the kernel's and SDPA's times on
+    contiguous inputs and on those views."""
+    import numpy as np
+
+    from repro_torch.kernels.flash_attention import attention_ref, body_for, flash_attention_bhsd
+
+    m = MLA_FLASH
+    b, h, s, d, dv = m["b"], m["hq"], m["s"], m["d"], m["dv"]
+    q, k, v = attention_inputs(torch, torch.bfloat16, b, h, h, s, d, dv, seed=len(SWEEP) + 3)
+    plain_ms = device_ms(lambda: attention_ref(q, k, v, causal=True))
+    say(f"  flash plain version at DeepSeek-V2's MLA shape: {plain_ms:.4f} ms")
+    flash_times(torch, q, k, v, "DeepSeek-V2 MLA shape (B=4, H=128, S=512, D=192, Dv=128), "
+                "contiguous")
+    del q, k, v
+    rng = np.random.default_rng(len(SWEEP) + 4)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to("cuda", torch.bfloat16)
+
+    dr = 64  # qk_rope_head_dim: D = qk_nope (128) + dr
+    kv = t(b, s, h, d - dr + dv)  # the expanded latent: k_nope and v per head
+    k_nope, vm = kv.split([d - dr, dv], dim=-1)
+    qm = t(b, s, h, d)
+    km = torch.cat([k_nope, t(b, s, 1, dr).expand(b, s, h, dr)], dim=-1)
+    qm, km, vm = (x.transpose(1, 2) for x in (qm, km, vm))
+    body = body_for(qm, km, vm)
+    out = flash_attention_bhsd(qm, km, vm, causal=True)
+    err = (out.float() - attention_ref(qm, km, vm, causal=True).float()).abs().max().item()
+    say(f"  flash bf16 at the MLA shape on the model's strided views (v row stride "
+        f"{vm.stride(2)}) ({body} body): max_abs_err {err:.3g} (tol {ATOL['bfloat16']})")
+    if body != "simt" or not err <= ATOL["bfloat16"]:
+        fail(f"flash at the MLA shape's strided views: {body} body, max_abs_err {err:.3g}")
+    flash_times(torch, qm, km, vm, "DeepSeek-V2 MLA shape, the model's strided views")
+    del out, qm, km, vm, kv
 
 
 def ssd_inputs(torch, dtype, b, s, nh, hd, n, state, seed):
@@ -963,14 +1056,45 @@ def phase_dcov_check(torch):
     }
 
 
-def launches_per_prefill(arch):
-    """(flash, SSD) launches one prefill of ``arch`` makes: one per
-    attention layer and one per Mamba2 layer (a hybrid layer has both)."""
+def full_config(arch):
+    """The full-width configuration of ``arch`` this script runs: every
+    model at full depth but DeepSeek-V2, cut to DEPTH_CUT layers."""
     from repro_torch.configs.registry import get_config
 
     cfg = get_config(arch)
+    if arch in DEPTH_CUT:
+        cfg = dataclasses.replace(cfg, n_layers=DEPTH_CUT[arch])
+    return cfg
+
+
+def launches_per_prefill(arch):
+    """(flash, SSD) launches one prefill of ``arch`` (``full_config``) makes:
+    one per attention layer, prologue included, and one per Mamba2 layer
+    (a hybrid layer has both)."""
+    cfg = full_config(arch)
     return (0 if cfg.arch_type == "ssm" else cfg.n_layers,
             cfg.n_layers if cfg.arch_type in ("ssm", "hybrid") else 0)
+
+
+def flash_body(torch, arch):
+    """The flash body a bf16 prefill of ``arch`` (``full_config``) takes:
+    ``body_for`` on empty tensors of its heads and head widths, laid out as
+    the model's (B, S, H, D) views (MLA: H key heads, D = qk_nope + rope,
+    Dv = v)."""
+    from repro_torch.kernels.flash_attention import body_for
+
+    cfg = full_config(arch)
+    if cfg.mla is not None:
+        hq = hkv = cfg.n_heads
+        d, dv = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim, cfg.mla.v_head_dim
+    else:
+        hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        dv = d
+
+    def view(h, width):
+        return torch.empty(1, 1, h, width, dtype=torch.bfloat16, device="cuda").transpose(1, 2)
+
+    return body_for(view(hq, d), view(hkv, d), view(hkv, dv))
 
 
 def plain_route(arch):
@@ -1007,7 +1131,6 @@ def reduced_config(arch):
 def phase_slice_check(torch, arch, reduced_len):
     import numpy as np
 
-    from repro_torch.configs.registry import get_config
     from repro_torch.configs.runtime import RunConfig
     from repro_torch.kernels import runtime
     from repro_torch.models.transformer import ApplyCtx, init_model_params, prefill
@@ -1034,51 +1157,155 @@ def phase_slice_check(torch, arch, reduced_len):
     if arch == HYBRID_ARCH:
         hybrid_full_width_check(torch)
         return
-    # (b) full width, bf16: through the kernel vs through its plain version
-    cfg = get_config(arch)
-    ctx = ApplyCtx(cfg, RunConfig(compute_dtype="bfloat16", use_kernels=True))
+    # (b) full width, bf16: through the kernel vs through its plain version;
+    # the weights drawn in bf16 (Moonlight would take 113.6 GB in float32)
+    cfg = full_config(arch)
+    ctx = ApplyCtx(cfg, RunConfig(param_dtype="bfloat16", compute_dtype="bfloat16",
+                                  use_kernels=True))
     gen = torch.Generator(device="cuda").manual_seed(0)
+    free_card(torch, f"the full-width {arch} weights")
     params = cast_for_compute(init_model_params(cfg, ctx.rcfg, gen, "cuda"),
                               torch.bfloat16)
-    tokens = np.random.default_rng(1).integers(0, cfg.vocab, (4, 512), dtype=np.int32)
-    tok = torch.from_numpy(tokens).cuda()
-    with torch.inference_mode():
-        runtime.reset_launch_counts()
-        _, via_kernel = prefill(ctx, params, {"tokens": tok})
-        check_bodies(arch, 1, f"the full-width {arch} prefill")
-        with plain_route(arch):
-            _, via_ref = prefill(ctx, params, {"tokens": tok})
-    a, b = via_kernel.float(), via_ref.float()
-    if a.shape != (4, 1, cfg.vocab) or not torch.isfinite(a).all():
-        fail(f"full-width {arch} prefill logits: shape {tuple(a.shape)} or non-finite values")
-    err = (a - b).abs().max().item()
-    scale = b.abs().max().item()
-    agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
-    say(f"  full-width {arch} bf16 prefill (4x512): max_abs_err {err:.4g} vs max|logit| "
-        f"{scale:.4g} (rel tol {PREFILL_REL_TOL}), argmax agreement {agree:.2f}")
-    if not err <= PREFILL_REL_TOL * scale:
-        fail(f"full-width {arch} prefill through the kernel disagrees with its plain version")
-    del params, via_kernel, via_ref
+    seeds = LOGIT_SEEDS.get(arch, (1,))
+    tol = LOGIT_REL_TOL.get(arch, PREFILL_REL_TOL)
+    worst = []
+    runtime.reset_launch_counts()
+    reads, logits = bf16_logit_readings(torch, ctx, params, seeds, worst)
+    check_bodies(arch, len(seeds), f"the full-width {arch} prefills")
+    if logits.shape != (4, 1, cfg.vocab) or not torch.isfinite(logits).all():
+        fail(f"full-width {arch} prefill logits: shape {tuple(logits.shape)} or non-finite values")
+    say(f"  full-width {arch} ({cfg.n_layers} layers{', depth cut' if arch in DEPTH_CUT else ''}) "
+        f"bf16 prefills (4x512, prompt seeds {list(seeds)}): {len(worst)} flash launches on the "
+        f"{flash_body(torch, arch)} body, each against attention_ref on its own inputs: worst "
+        f"error / tolerance {max(worst):.3g}")
+    if len(worst) != cfg.n_layers * len(seeds) or not max(worst) <= 1.0:
+        fail(f"a flash launch inside the full-width {arch} prefill disagrees with attention_ref")
+    for r in reads:
+        say(f"  full-width {arch} bf16 prefill (4x512, prompt seed {r['seed']}): max_abs_err "
+            f"{r['kernel']:.4g} vs max|logit| {r['scale']:.4g} (rel tol {tol}), argmax agreement "
+            f"{r['agree']:.2f}; controls, the plain route summed in key tiles (blocked_bhsd): "
+            + ", ".join(f"{t}: {e:.4g} ({g:.2f})" for t, (e, g) in r["controls"].items()))
+    over = [r["seed"] for r in reads if not r["kernel"] <= tol * r["scale"]]
+    if over:
+        fail(f"full-width {arch} prefill through the kernel disagrees with its plain version "
+             f"(prompt seeds {over})")
+    if len(seeds) > 1:
+        gap = sum(r["kernel"] / r["scale"] for r in reads) / len(reads)
+        ctl = sum(e / r["scale"] for r in reads for e, _ in r["controls"].values()) / (
+            len(reads) * len(CONTROL_TILES))
+        say(f"  full-width {arch} bf16 prefills: mean gap {gap:.4g} of max|logit| through the "
+            f"kernel, {ctl:.4g} through the controls (ratio {gap / ctl:.3g}, at most "
+            f"{CONTROL_RATIO})")
+        if not gap <= CONTROL_RATIO * ctl:
+            fail(f"full-width {arch} prefills through the kernel move the logits {gap / ctl:.3g}x "
+                 f"as far as a change of summation order does (at most {CONTROL_RATIO})")
+    del logits
+    if arch in F32_LOGITS:  # float32 compute over the same bf16 weights, widened at use
+        ctx = ApplyCtx(cfg, RunConfig(param_dtype="bfloat16", compute_dtype="float32",
+                                      use_kernels=True))
+        tok = torch.from_numpy(np.random.default_rng(seeds[0]).integers(
+            0, cfg.vocab, (4, 512), dtype=np.int32)).cuda()
+        with torch.inference_mode():
+            _, via_kernel = prefill(ctx, params, {"tokens": tok})
+            with plain_route(arch):
+                _, via_ref = prefill(ctx, params, {"tokens": tok})
+        if not torch.isfinite(via_kernel).all():
+            fail(f"full-width {arch} fp32 prefill logits are not finite")
+        err, scale, agree = logits_gap(torch, via_kernel, via_ref)
+        say(f"  full-width {arch} fp32 prefill (4x512, bf16 weights): max_abs_err {err:.4g} vs "
+            f"max|logit| {scale:.4g} (rel tol {PREFILL_REL_TOL}), argmax agreement {agree:.2f}")
+        if not err <= PREFILL_REL_TOL * scale:
+            fail(f"full-width {arch} fp32 prefill through the kernel disagrees with its plain "
+                 "version")
+        del via_kernel, via_ref
+    del params
     torch.cuda.empty_cache()
+
+
+def bf16_logit_readings(torch, ctx, params, seeds, worst):
+    """One 4 x 512 prefill of ``ctx``'s model (full width, on the card) per
+    prompt seed: through the kernel, each flash launch held to
+    ``attention_ref`` on its own inputs (its error / tolerance to
+    ``worst``); through its plain version (``plain_route``); and through
+    the plain route summed in key tiles of each of CONTROL_TILES
+    (``blocked_bhsd``: the same function in other summation orders, a
+    control for how far the model moves its logits on such a change
+    alone). Returns, per seed, the kernel's max |logit gap| to the plain
+    version, max|logit|, argmax agreement and each control's (gap,
+    agreement); and the first seed's logits through the kernel."""
+    import functools
+
+    import numpy as np
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.transformer import prefill
+
+    reads, first = [], None
+    for seed in seeds:
+        tok = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, ctx.cfg.vocab, (4, 512), dtype=np.int32)).cuda()
+        with torch.inference_mode():
+            with mock.patch.object(fa_ops, "flash_attention_bhsd",
+                                   flash_held_to_plain(torch, worst, [])):
+                _, via_kernel = prefill(ctx, params, {"tokens": tok})
+            with plain_route(ctx.cfg.name):
+                _, via_ref = prefill(ctx, params, {"tokens": tok})
+            controls = {}
+            for tile in CONTROL_TILES:
+                with mock.patch.object(fa_ops, "flash_attention_bhsd",
+                                       functools.partial(blocked_bhsd, tile=tile)):
+                    _, via_ctl = prefill(ctx, params, {"tokens": tok})
+                err, _, agree = logits_gap(torch, via_ctl, via_ref)
+                controls[tile] = (err, agree)
+        err, scale, agree = logits_gap(torch, via_kernel, via_ref)
+        reads.append({"seed": seed, "kernel": err, "scale": scale, "agree": agree,
+                      "controls": controls})
+        if first is None:
+            first = via_kernel.float()
+    return reads, first
+
+
+def blocked_bhsd(q, k, v, *, causal=True, window=None, tile=128):
+    """``attention_ref``'s function on (B, H, S, D) inputs summed in another
+    order: the port's plain online-softmax path (``attention._blocked``)
+    over ``tile``-key tiles. A control for the full-width logits: how far the
+    bf16 model moves its logits for a change of summation order alone."""
+    import math
+
+    import torch
+
+    from repro_torch.models import attention
+
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    qg = q.transpose(1, 2).reshape(b, s, hkv, hq // hkv, d)
+    pos = torch.arange(s, dtype=torch.int32, device=q.device).expand(b, s)
+    out = attention._blocked(qg, k.transpose(1, 2), v.transpose(1, 2), pos, pos, causal, window,
+                             1.0 / math.sqrt(d), tile, tile)
+    return out.reshape(b, s, hq, v.shape[-1]).transpose(1, 2)
 
 
 def check_bodies(arch, prefills, what):
     """Since the counts were reset, flash attention and the SSD scan each
     launched as often as ``prefills`` prefills of ``arch`` make
-    (``launches_per_prefill``), every launch on its wgmma body."""
+    (``launches_per_prefill``), every launch on the body its shapes take
+    (flash: ``flash_body``; the SSD scan: wgmma)."""
+    import torch
+
     from repro_torch.kernels import runtime
     from repro_torch.kernels.flash_attention import body_launches as flash_bodies
     from repro_torch.kernels.ssd_scan.ssd_scan import body_launches as ssd_bodies
 
     counts = runtime.launch_counts()
-    for name, per, bodies in zip(("flash_attention", "ssd_scan"), launches_per_prefill(arch),
-                                 (flash_bodies(), ssd_bodies())):
+    for name, per, bodies, body in zip(("flash_attention", "ssd_scan"), launches_per_prefill(arch),
+                                       (flash_bodies(), ssd_bodies()),
+                                       (flash_body(torch, arch), "wgmma")):
         want = per * prefills
         say(f"  {name} launches in {what}: {counts[name]} over {prefills} prefills, by body "
             f"{bodies}")
-        if not counts[name] == bodies["wgmma"] == want:
-            fail(f"{what}: {counts[name]} {name} launches, {bodies['wgmma']} on the wgmma body; "
-                 f"want {want}, all on the wgmma body")
+        if not counts[name] == bodies[body] == want:
+            fail(f"{what}: {counts[name]} {name} launches, {bodies[body]} on the {body} body; "
+                 f"want {want}, all on the {body} body")
 
 
 def logits_gap(torch, a, b):
@@ -1313,6 +1540,21 @@ def hybrid_full_width_check(torch):
     torch.cuda.empty_cache()
 
 
+def free_card(torch, what):
+    """Collect what earlier phases left (an engine in a reference cycle
+    holds its weights until a collection) and check that no full-width
+    parameter tree is still alive before ``what`` is made: two Moonlight
+    trees (2 x FULL_TREE_GB) do not fit the card."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
+    if held > FULL_TREE_GB / 2:
+        fail(f"{held:.1f} GB still allocated on the card before {what}: an earlier "
+             "parameter tree is alive")
+
+
 def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
@@ -1329,7 +1571,11 @@ def serve_runs(torch, arch):
     torch.cuda.reset_peak_memory_stats()
     runtime.reset_launch_counts()
     reset_capture_counts()
-    metrics = [serve(arch, **SERVE, concurrency=c, device="cuda") for c in SERVE_ORDER]
+    metrics = []
+    for c in SERVE_ORDER:
+        free_card(torch, f"the {arch} serve() run at c={c}")
+        metrics.append(serve(arch, **SERVE, concurrency=c, layers=DEPTH_CUT.get(arch),
+                             device="cuda"))
     counts = runtime.launch_counts()
     captures = sum(capture_counts().values())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1356,7 +1602,7 @@ def phase_serve(torch):
     from repro_torch.serving import measure_concurrency_curve
 
     totals = dict.fromkeys(("flash_attention", "ssd_scan"), 0)
-    for arch in (ARCH, SSM_ARCH, HYBRID_ARCH):
+    for arch in (ARCH, SSM_ARCH, HYBRID_ARCH, MOE_ARCH):
         counts, prefills = serve_runs(torch, arch)
         check_bodies(arch, prefills, f"the {arch} serve() runs")
         for name in totals:
@@ -1364,8 +1610,10 @@ def phase_serve(torch):
     missing = [k for k, n in totals.items() if n == 0]
     if missing:
         fail(f"kernels never launched on the serving paths: {missing}")
-    for arch in (ARCH, SSM_ARCH, HYBRID_ARCH):
-        graph_bitwise_check(torch, arch)
+    for arch in (ARCH, SSM_ARCH, HYBRID_ARCH, MOE_ARCH, MLA_ARCH):
+        counts = graph_bitwise_check(torch, arch)
+        for name in totals:
+            totals[name] += counts[name]
 
     batch = SERVE["batch"]
     c_values = concurrency_values()
@@ -1414,19 +1662,26 @@ def eager_twin(engine):
 
 
 def graph_bitwise_check(torch, arch):
-    """``arch`` at full width: one prompt (B=4 x 512) prefilled into a pool
-    entry, then GRAPH_STEPS greedy decode steps through the engine's CUDA
-    graph and through the eager step over the same weights. The same
-    kernels run in the same order, so every step's logits must be equal
-    bit for bit, and the graphed engine must capture once."""
+    """``arch`` at full width (``full_config``): one prompt (B=4 x 512)
+    prefilled into a pool entry, then GRAPH_STEPS greedy decode steps
+    through the engine's CUDA graph and through the eager step over the
+    same weights (one parameter tree). The same kernels run in the same
+    order, so every step's logits must be equal bit for bit, and the
+    graphed engine must capture once. The two prefills go through the
+    engine's entry point: their launches, counted from 0 and checked by
+    body, are returned."""
     import numpy as np
 
+    from repro_torch.kernels import runtime
     from repro_torch.launch.serve import build_engine
     from repro_torch.serving.engine import capture_counts, reset_capture_counts
 
     reset_capture_counts()
-    graphed = build_engine(arch, 4, 512 + GRAPH_STEPS + 1, device="cuda")
+    free_card(torch, f"the {arch} graph check")
+    graphed = build_engine(arch, 4, 512 + GRAPH_STEPS + 1, layers=DEPTH_CUT.get(arch),
+                           device="cuda")
     eager = eager_twin(graphed)
+    runtime.reset_launch_counts()
     prompt = np.random.default_rng(4).integers(0, graphed.ctx.cfg.vocab, (4, 512),
                                                dtype=np.int32)
     steps = {}
@@ -1440,6 +1695,8 @@ def graph_bitwise_check(torch, arch):
             out.append(logits.float())
         eng.release(k)
         steps[name] = torch.stack(out)
+    counts = runtime.launch_counts()
+    check_bodies(arch, 2, f"the {arch} graph check's prefills")
     a, b = steps["graphed"], steps["eager"]
     if not torch.isfinite(b).all():
         fail(f"{arch}: the eager decode steps' logits are not finite")
@@ -1453,6 +1710,7 @@ def graph_bitwise_check(torch, arch):
              f"{captures} graphs for {len(graphed.pool)} pool entries")
     del graphed, eager, steps
     torch.cuda.empty_cache()
+    return counts
 
 
 class SpinEngine:
@@ -1559,7 +1817,8 @@ def phase_profile(torch, arch):
     from repro_torch.kernels import runtime
     from repro_torch.launch.serve import build_engine
 
-    engine = build_engine(arch, 4, 512 + 16, device="cuda")
+    free_card(torch, f"the {arch} profile")
+    engine = build_engine(arch, 4, 512 + 16, layers=DEPTH_CUT.get(arch), device="cuda")
     prompt = np.random.default_rng(2).integers(0, 1000, (4, 512), dtype=np.int32)
     state = {"prefills": 0}
 
@@ -1583,8 +1842,52 @@ def phase_profile(torch, arch):
 
         profile_window(torch, f"{arch} decode step {name} (B=4, cache 528)", decode, reps=5)
         eng.release(k)
+    if engine.ctx.cfg.moe is not None:
+        moe_step_costs(torch, engine)
     del engine, state
     torch.cuda.empty_cache()
+
+
+def moe_step_costs(torch, engine):
+    """Where an MoE model's time goes beside the profile: the compute-all
+    expert GEMMs (``models/moe.py::_experts``: gate, up and down over every
+    expert for every token) named by their kernels, their device time per
+    layer at the decode step's 4 tokens and at the prefill's 4 x 512, over
+    all MoE layers; and the decode step's least time, the bytes of every
+    weight it reads (all but the embedding table, of which it reads 4
+    rows) over the card's memory rate, the experts' share apart."""
+    import numpy as np
+
+    from repro_torch.models import moe
+
+    cfg = engine.ctx.cfg
+    lp = {k: v[0] for k, v in engine.params["layers"]["ffn"].items()}
+    n_moe = cfg.n_layers - cfg.moe.first_moe_layer
+    rng = np.random.default_rng(3)
+    for label, t in (("decode step, 4 tokens", 4), ("prefill, 4 x 512 tokens", 2048)):
+        xt = torch.from_numpy(rng.normal(size=(t, cfg.d_model)).astype(np.float32)).to(
+            "cuda", torch.bfloat16)
+        ms = device_ms(lambda: moe._experts(lp, xt))
+        kern, _, _ = profiled_kernels(torch, lambda: moe._experts(lp, xt), reps=3)
+        names = sorted({e.key[:60] for e in kern or []})
+        say(f"  {cfg.name} compute-all expert GEMMs ({label}): {ms:.4f} ms a layer, "
+            f"{ms * n_moe:.3f} ms over {n_moe} MoE layers; kernels {names}")
+    leaves = []
+
+    def walk(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v)
+            else:
+                leaves.append((k, v))
+
+    walk(engine.params)
+    expert = sum(v.numel() * v.element_size() for k, v in leaves if k.startswith("we_"))
+    read = sum(v.numel() * v.element_size() for k, v in leaves if k != "embed")
+    read += 4 * cfg.d_model * engine.params["embed"].element_size()
+    say(f"  {cfg.name} decode step's weight-read bound: {read / 1e9:.2f} GB at "
+        f"{PEAK_BYTES / 1e12:.2f} TB/s = {read / PEAK_BYTES * 1e3:.3f} ms (the expert weights "
+        f"alone: {expert / 1e9:.2f} GB, {expert / PEAK_BYTES * 1e3:.3f} ms); {card_line()}")
 
 
 def static_grid():
@@ -2006,10 +2309,13 @@ def phase_control_loop(torch):
     LOOP_INTERVAL_S. Power is the reference's analytical model on its TPU
     v5e constants, not the H100's. First one prefill at each of the
     phase's prompt lengths holds every flash launch to ``attention_ref``.
-    Fails if an interval serves no request (admits no group, or decodes
-    no token), a released request is not served in full by the end, or
-    flash attention or dcov never launched. Returns the phase's
-    launches."""
+    Fails if an interval that starts with a request waiting (arrived, not
+    admitted) admits no group, if one that starts with a group in flight
+    decodes no token, if a released request is not served in full by the
+    end, or if flash attention or dcov never launched. A request that
+    arrives during an interval and is not admitted in it is its next
+    interval's waiting work; an interval that starts with neither (a gap
+    of the bursty trace) is reported. Returns the phase's launches."""
     from repro_torch.core.evaluate import run_coral
     from repro_torch.core.space import tpu_pod_space
     from repro_torch.device.measure import WalltimeDevice, analytic_scale_and_power
@@ -2062,12 +2368,19 @@ def phase_control_loop(torch):
 
     rt.submit = counted_submit
     admitted = []  # groups each interval's run_for started (prefilled)
+    decoded = []  # tokens each interval's run_for decoded
+    work = []  # (requests arrived and waiting, groups in flight) at each interval's start
     run_for = rt.run_for
 
     def counted_run_for(seconds, idle_wait=False):
-        n = rt.prefills
+        now, rings = rt.now(), list(rt.tenants.values())
+        work.append((sum(r.arrival_s is None or r.arrival_s <= now
+                         for ring in rings for r in ring.waiting),
+                     sum(s.group is not None for ring in rings for s in ring.slots)))
+        n, tokens = rt.prefills, sum(ring._tokens_total for ring in rings)
         m = run_for(seconds, idle_wait=idle_wait)
         admitted.append(rt.prefills - n)
+        decoded.append(sum(ring._tokens_total for ring in rings) - tokens)
         return m
 
     rt.run_for = counted_run_for
@@ -2079,7 +2392,8 @@ def phase_control_loop(torch):
         f"{LOOP_INTERVALS} intervals of {LOOP_INTERVAL_S} s:")
     for k, r in enumerate(records):
         say(f"    [{k}] {json.dumps(dataclasses.asdict(r))}")
-    say(f"      groups admitted in each interval: {admitted}")
+    say(f"      groups admitted in each interval: {admitted}; tokens decoded: {decoded}; "
+        f"(requests waiting, groups in flight) at each interval's start: {work}")
     feasible = outcome.feasible(tau_target, p_budget)
     say(f"      CORAL found {outcome.config}: tau {outcome.tau:.2f} tok/s, p {outcome.power:.1f} W "
         f"(analytical), feasible {feasible}")
@@ -2096,13 +2410,18 @@ def phase_control_loop(torch):
         iters=LOOP_INTERVALS, interval_s=LOOP_INTERVAL_S, tau_target=tau_target,
         p_budget=p_budget, outcome=outcome, records=records, include_intervals=True)
     say(json.dumps({"serving_record": record}, sort_keys=True))
-    # an interval serves requests when it admits a group under the
-    # configuration it applied and decodes tokens; whether a request also
-    # completes inside the 0.5 s depends on the groups' ~0.4 s latency
-    idle = [k for k, r in enumerate(records) if not (admitted[k] > 0 and r.tau > 0)]
-    if len(admitted) != len(records) or idle:
-        fail(f"control intervals {idle} served no request (no group admitted or no token "
-             f"decoded; groups admitted {admitted})")
+    # each interval is held to the work it starts with: waiting requests
+    # must be admitted, groups in flight must decode; whether a request
+    # also completes inside the 0.5 s depends on the groups' ~0.4 s latency
+    unadmitted = [k for k in range(len(records)) if work[k][0] and not admitted[k]]
+    undecoded = [k for k in range(len(records)) if work[k][1] and not decoded[k]]
+    gaps = [k for k in range(len(records)) if not any(work[k])]
+    say(f"      intervals that start with no request waiting and no group in flight (trace "
+        f"gaps): {gaps}")
+    if len(admitted) != len(records) or unadmitted or undecoded:
+        fail(f"control intervals {unadmitted} started with requests waiting and admitted no "
+             f"group, or {undecoded} started with a group in flight and decoded no token "
+             f"(groups admitted {admitted}, tokens decoded {decoded}, work {work})")
     if lost or short:
         fail(f"the control loop lost requests {lost} or cut {short} short")
     for name in ("flash_attention", "dcov"):
@@ -2133,6 +2452,8 @@ def main() -> None:
     phase_slice_check(torch, ARCH, 96)
     phase_slice_check(torch, SSM_ARCH, 93)
     phase_slice_check(torch, HYBRID_ARCH, 40)
+    phase_slice_check(torch, MOE_ARCH, 96)
+    phase_slice_check(torch, MLA_ARCH, 96)
     counts = {"dcov": phase_coral_slice(torch)}
     counts["dcov"] += phase_fleet(torch)
     say(f"  dcov launches on the main paths, the fleet's included: {counts['dcov']}")
@@ -2142,6 +2463,7 @@ def main() -> None:
     phase_profile(torch, ARCH)
     phase_profile(torch, SSM_ARCH)
     phase_profile(torch, HYBRID_ARCH)
+    phase_profile(torch, MOE_ARCH)
     phase_coral_profile(torch)
     say("== phase 6: control loop")
     for name, n in phase_control_loop(torch).items():

@@ -6,9 +6,12 @@ place of ``jnp`` ones. The reference's ``use_pallas`` ("prefill attention
 goes through the Pallas TPU kernel") is ``use_kernels`` here: prefill
 attention (``Sq > 1``) goes through the hand-written Hopper flash
 attention kernel, ``repro_torch.kernels.flash_attention``. Decode
-(``Sq == 1``) takes the plain path in both packages. Fields that only the
-JAX package's training, sharding and MoE paths read (remat, sharding
-rules, MoE capacity, decode TP) wait for the slices that port them.
+(``Sq == 1``) takes the plain path in both packages. ``moe_impl`` takes
+the reference's one-device values, ``"auto"`` and ``"dense"`` (both the
+compute-all-experts path: there is no mesh); its expert-parallel values
+raise in ``models/moe.py``. Fields that only the JAX package's training
+and sharding paths read (remat, sharding rules, MoE capacity, decode TP)
+wait for the slices that port them (ROADMAP queue 1 items 15 and 16).
 """
 from __future__ import annotations
 
@@ -31,6 +34,8 @@ class RunConfig:
     # prefill attention through the hand-written flash attention kernel
     # (the reference's TPU deployment flag ``use_pallas``)
     use_kernels: bool = False
+    # MoE FFN: dense | auto (on one device, auto is dense) | expert_parallel[_2d]
+    moe_impl: str = "auto"
 
     @property
     def pdtype(self) -> torch.dtype:

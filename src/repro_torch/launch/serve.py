@@ -4,10 +4,16 @@ knob (the counterpart of ``repro/launch/serve.py``).
 Serves the full configuration on the card through the hand-written
 kernels: prefill attention through the flash attention kernel for a dense
 decoder (``qwen2.5-3b``), the SSD chunked scan through its kernel for
-Mamba2 (``mamba2-2.7b``), and both, side by side in every layer, for the
-hybrid Hymba (``hymba-1.5b``). ``--reduced`` serves ``cfg.reduced()`` instead
-(the reference hard-codes it, because it runs on a CPU); the CPU tests
-pass ``reduced=True, device="cpu"``.
+Mamba2 (``mamba2-2.7b``), both, side by side in every layer, for the
+hybrid Hymba (``hymba-1.5b``), flash attention beside the compute-all MoE
+FFN for Moonlight-16B-A3B (``moonshot-v1-16b-a3b``: 28.4 B parameters,
+56.8 GB in bf16, one card at full width and depth), and MLA's prefill
+(D = 192, Dv = 128) for DeepSeek-V2 (``deepseek-v2-236b``), which at
+235.7 B parameters fits no single card: serve it with its depth cut,
+``--layers 2`` (the dense layer 0 and one MoE layer of 160 experts, 5.4 B
+parameters). ``--reduced`` serves ``cfg.reduced()`` instead (the
+reference hard-codes it, because it runs on a CPU); the CPU tests pass
+``reduced=True, device="cpu"``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
       --requests 16 --prompt-len 512 --new-tokens 32 --batch 4 --concurrency 2
@@ -15,10 +21,16 @@ pass ``reduced=True, device="cpu"``.
       --requests 16 --prompt-len 512 --new-tokens 32 --batch 4 --concurrency 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
       --requests 16 --prompt-len 512 --new-tokens 32 --batch 4 --concurrency 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b \
+      --requests 16 --prompt-len 512 --new-tokens 32 --batch 4 --concurrency 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b --layers 2 \
+      --requests 16 --prompt-len 512 --new-tokens 32 --batch 4 --concurrency 2
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -37,19 +49,25 @@ def build_engine(
     seed: int = 0,
     *,
     reduced: bool = False,
+    layers: Optional[int] = None,
     device="cuda",
     graphs=None,
 ) -> ServingEngine:
-    """A bf16 serving engine over random weights drawn from a
-    ``torch.Generator`` seeded with ``seed``, with the model's kernels on
-    (``use_kernels``: flash attention and/or the SSD scan in prefill) and,
-    on the card, its decode step replayed from CUDA graphs unless
-    ``graphs=False``. Its pool caches (and their graphs) are made as a
-    runtime reserves them."""
+    """A bf16 serving engine over random weights drawn in bf16 from a
+    ``torch.Generator`` seeded with ``seed`` (the engine serves every
+    weight in bf16 but those the reference reads in float32; drawn in
+    float32, Moonlight-16B-A3B would take 113.6 GB), with the model's
+    kernels on (``use_kernels``: flash attention and/or the SSD scan in
+    prefill) and, on the card, its decode step replayed from CUDA graphs
+    unless ``graphs=False``. ``layers`` cuts the depth to that many layers
+    (the first MoE layer stays where it was). Its pool caches (and their
+    graphs) are made as a runtime reserves them."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
-    rcfg = RunConfig(compute_dtype="bfloat16", use_kernels=True)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    rcfg = RunConfig(param_dtype="bfloat16", compute_dtype="bfloat16", use_kernels=True)
     gen = torch.Generator(device=device).manual_seed(seed)
     params = init_model_params(cfg, rcfg, gen, device)
     return ServingEngine(ApplyCtx(cfg, rcfg), params, batch, max_len, graphs=graphs)
@@ -65,6 +83,7 @@ def serve(
     seed: int = 0,
     *,
     reduced: bool = False,
+    layers: Optional[int] = None,
     device="cuda",
 ):
     """Serve ``requests`` random prompts through the runtime and return its
@@ -74,7 +93,7 @@ def serve(
     CPU)."""
     captures = sum(capture_counts().values())
     engine = build_engine(arch, batch, prompt_len + new_tokens + 1, seed, reduced=reduced,
-                          device=device)
+                          layers=layers, device=device)
     cfg = engine.ctx.cfg
     runtime = ServingRuntime(engine, batch_size=batch, concurrency=concurrency)
     rng = np.random.default_rng(seed)
@@ -98,7 +117,9 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
                     help="a ported config: a dense decoder (e.g. qwen2.5-3b), "
-                         "Mamba2 (mamba2-2.7b) or the hybrid Hymba (hymba-1.5b)")
+                         "Mamba2 (mamba2-2.7b), the hybrid Hymba (hymba-1.5b), an MoE "
+                         "model (moonshot-v1-16b-a3b, qwen3-moe-235b-a22b) or MLA "
+                         "(deepseek-v2-236b, with --layers)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
@@ -106,10 +127,13 @@ def main():
     ap.add_argument("--concurrency", type=int, default=1)
     ap.add_argument("--reduced", action="store_true",
                     help="serve cfg.reduced() (the CPU smoke size)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (a model too large for the card)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     serve(args.arch, args.requests, args.prompt_len, args.new_tokens,
-          args.batch, args.concurrency, reduced=args.reduced, device=args.device)
+          args.batch, args.concurrency, reduced=args.reduced, layers=args.layers,
+          device=args.device)
 
 
 if __name__ == "__main__":

@@ -2,9 +2,12 @@
 
 The JAX model and this one share one parameter tree (nested dicts,
 per-layer tensors with a leading ``layers`` axis), so the conversion is a
-leaf-by-leaf copy. ``jax.random`` and ``torch.Generator`` give different
-numbers from one seed, so the parity tests build both models on the same
-numbers through this function. It takes numpy arrays (the caller turns
+leaf-by-leaf copy, whatever the subtrees: the dense decoder's, the
+Mamba2 and hybrid layers', the MoE FFN's (``router``, ``we_*``,
+``ws_*``), MLA's (``wq_a`` ... ``wkv_b``) and the dense ``"prologue"``
+stack ahead of an MoE stack all come across as they are. ``jax.random``
+and ``torch.Generator`` give different numbers from one seed, so the
+parity tests build both models on the same numbers through this function. It takes numpy arrays (the caller turns
 the JAX tree into numpy), so this module never imports JAX.
 """
 from __future__ import annotations

@@ -6,8 +6,15 @@ logical axes, init — and ``init_params`` draws real parameters from it
 with an explicit ``torch.Generator``. ``torch.Generator`` and
 ``jax.random`` give different numbers from one seed, so parity with the
 JAX package goes through ``repro_torch.models.convert.params_from_jax``.
+A leaf of more than ``WHOLE_DRAW_MAX`` elements is drawn slice by slice
+along its leading axis, each slice in float32 and cast straight into the
+leaf's dtype: Moonlight-16B-A3B's expert weights, (47, 64, 2048, 1408),
+would take 34.7 GB in float32 drawn whole. That changes the numbers of
+those leaves only: no leaf of the other served models (Qwen2.5-3B,
+Mamba2-2.7B, Hymba-1.5B; the 2-layer DeepSeek-V2) is that large, so
+their draws are what they were, and no CPU test depends on a draw.
 ``layer_norm``, ``gelu_mlp``, M-RoPE and sinusoidal positions wait for
-the models that use them (ROADMAP queue 1 item 13).
+the models that use them (ROADMAP queue 1 item 13(b)).
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 Tree = Any
+WHOLE_DRAW_MAX = 1 << 31  # elements (8 GiB in float32) a leaf may have to be drawn whole
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,8 +56,19 @@ def init_params(
     device=None,
 ) -> Tree:
     """Draw parameters for ``specs`` on ``device`` (the generator's) from
-    ``generator``: normal(0, scale / sqrt(fan_in)), zeros or ones."""
+    ``generator``: normal(0, scale / sqrt(fan_in)), zeros or ones. A leaf
+    larger than ``WHOLE_DRAW_MAX`` is drawn one leading-axis slice at a
+    time into a tensor of ``dtype`` (module note)."""
     device = generator.device if device is None else torch.device(device)
+
+    def normal(shape, std) -> torch.Tensor:
+        if int(np.prod(shape)) <= WHOLE_DRAW_MAX:
+            x = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+            return (x * std).to(dtype)
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for i in range(shape[0]):
+            out[i] = normal(shape[1:], std)
+        return out
 
     def one(s: ParamSpec) -> torch.Tensor:
         if s.init == "zeros":
@@ -57,9 +76,7 @@ def init_params(
         if s.init == "ones":
             return torch.ones(s.shape, dtype=dtype, device=device)
         fan_in = s.shape[-2] if len(s.shape) >= 2 else max(s.shape[-1], 1)
-        std = s.scale / np.sqrt(fan_in)
-        x = torch.randn(s.shape, generator=generator, dtype=torch.float32, device=device)
-        return (x * std).to(dtype)
+        return normal(s.shape, s.scale / np.sqrt(fan_in))
 
     return tree_map_specs(one, specs)
 

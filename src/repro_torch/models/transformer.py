@@ -1,12 +1,16 @@
-"""Model assembly for the dense decoder, the Mamba2 (SSM) stack and the
-hybrid attention + Mamba2 stack (the counterpart of
-``repro/models/transformer.py``).
+"""Model assembly for the dense decoder, the Mamba2 (SSM) stack, the
+hybrid attention + Mamba2 stack and the DeepSeek family's MoE and MLA
+branches (the counterpart of ``repro/models/transformer.py``).
 
 Parameters keep the reference's tree: per-layer tensors carry a leading
 ``layers`` axis, so ``repro_torch.models.convert.params_from_jax`` maps
 the JAX package's tree one to one. The reference applies the stack with
 ``lax.scan``; here ``run_stack`` is a Python loop over layers that indexes
-each stacked tensor (a view, no copy).
+each stacked tensor (a view, no copy). A model whose first MoE layer is
+not layer 0 (DeepSeek-V2, Moonlight) keeps its leading dense-FFN layers
+apart, in the ``"prologue"`` subtree, applied before the main stack as
+the reference's ``run_prologue`` applies it (here ``run_stack`` runs both,
+in the order ``_parts`` gives).
 
 Entry points:
   prefill(ctx, params, batch, capacity, out) -> (cache, last_logits)
@@ -24,8 +28,11 @@ rounded again, at the reference's places. A hybrid (Hymba) layer keeps
 both: K/V for its attention heads and ``ssm`` / ``conv`` for its Mamba2
 heads, which read the same normed input side by side; their outputs are
 mixed by ``sigmoid(mix_gate)`` in float32 and cast back to the compute
-dtype, as in the reference. Where the reference builds a
-new cache with ``jnp.pad`` and ``dynamic_update_slice``, this port
+dtype, as in the reference. An MLA layer keeps no K/V but the normed
+latent ``ckv`` (L, B, W, kv_lora_rank) and the rotated RoPE key ``krope``
+(L, B, W, qk_rope_head_dim), on the same ring of W slots. The prologue's
+layers have a cache of their own, ``"pro"``, beside ``"main"``. Where the
+reference builds a new cache with ``jnp.pad`` and ``dynamic_update_slice``, this port
 preallocates the cache at prefill and writes each layer's entries and
 each step's K/V or states in place, so ``decode_step`` mutates the
 tensors of the cache it is given (the returned dict shares them).
@@ -35,8 +42,9 @@ the device and reads nothing back to the host, so the whole step can be
 captured once in a CUDA graph and replayed (``serving/engine.py``, whose
 serve step advances ``length`` in place).
 
-The dense decoder, the pure SSM stack and the hybrid stack are ported.
-The MoE, MLA, encoder-decoder (audio) and M-RoPE (vision) branches raise
+The dense decoder, the pure SSM stack, the hybrid stack, the MoE FFN
+(``models/moe.py``), MLA (``models/mla.py``) and the dense prologue are
+ported. The encoder-decoder (audio) and M-RoPE (vision) branches raise
 ``NotImplementedError`` naming the ROADMAP item that ports them. Hymba's
 meta tokens and cross-layer KV sharing are not in the reference, so not
 here either.
@@ -50,7 +58,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.runtime import RunConfig
-from repro_torch.models import ssm
+from repro_torch.models import moe, ssm
 from repro_torch.models.attention import attention
 from repro_torch.models.layers import (
     ParamSpec,
@@ -59,6 +67,7 @@ from repro_torch.models.layers import (
     rms_norm,
     swiglu,
 )
+from repro_torch.models.mla import _latent, mla_decode, mla_full, mla_param_specs
 
 KV_DTYPE = torch.bfloat16  # the reference's cache dtype, whatever the compute dtype
 
@@ -75,8 +84,6 @@ class ApplyCtx:
 def require_ported(cfg: ModelConfig) -> None:
     """Raise for architecture branches this port does not have yet."""
     waits = {
-        "MoE FFN (models/moe.py)": cfg.moe is not None,
-        "MLA attention (models/mla.py)": cfg.mla is not None,
         "the encoder-decoder (audio) path": cfg.is_encoder_decoder
         or cfg.arch_type == "audio",
         "M-RoPE (vision) positions": cfg.rope_type == "mrope",
@@ -84,7 +91,7 @@ def require_ported(cfg: ModelConfig) -> None:
     for what, missing in waits.items():
         if missing:
             raise NotImplementedError(
-                f"{cfg.name}: {what} waits for ROADMAP queue 1 item 13"
+                f"{cfg.name}: {what} waits for ROADMAP queue 1 item 13(b)"
             )
 
 
@@ -94,6 +101,8 @@ def require_ported(cfg: ModelConfig) -> None:
 
 
 def _attn_specs(cfg: ModelConfig, n: int) -> dict:
+    if cfg.mla is not None:
+        return mla_param_specs(cfg, n)
     d, hd = cfg.d_model, cfg.resolved_head_dim
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     L = (n,)
@@ -114,7 +123,9 @@ def _attn_specs(cfg: ModelConfig, n: int) -> dict:
     return s
 
 
-def _ffn_specs(cfg: ModelConfig, n: int) -> dict:
+def _ffn_specs(cfg: ModelConfig, n: int, dense: bool) -> dict:
+    if cfg.moe is not None and not dense:
+        return moe.moe_param_specs(cfg, n)
     d = cfg.d_model
     L = (n,)
     lx = ("layers",)
@@ -125,7 +136,7 @@ def _ffn_specs(cfg: ModelConfig, n: int) -> dict:
     }
 
 
-def _layer_specs(cfg: ModelConfig, n: int) -> dict:
+def _layer_specs(cfg: ModelConfig, n: int, dense_ffn: bool = False) -> dict:
     lx = ("layers",)
     ln1 = ParamSpec((n, cfg.d_model), lx + (None,), init="ones")
     if cfg.arch_type == "ssm":  # the Mamba2 block is the whole mixer
@@ -135,21 +146,29 @@ def _layer_specs(cfg: ModelConfig, n: int) -> dict:
         s["ssm"] = ssm.ssm_param_specs(cfg, n)
         s["mix_gate"] = ParamSpec((n, 2), lx + (None,), init="ones")
     s["ln2"] = ParamSpec((n, cfg.d_model), lx + (None,), init="ones")
-    s["ffn"] = _ffn_specs(cfg, n)
+    s["ffn"] = _ffn_specs(cfg, n, dense_ffn)
     return s
+
+
+def _n_prologue(cfg: ModelConfig) -> int:
+    """Leading dense-FFN layers before an MoE stack (0 without MoE)."""
+    return cfg.moe.first_moe_layer if cfg.moe is not None else 0
 
 
 def param_specs(cfg: ModelConfig) -> dict:
     """The model's ``ParamSpec`` tree (the reference's, key for key)."""
     require_ported(cfg)
     d = cfg.d_model
+    n_pro = _n_prologue(cfg)
     specs = {
         "embed": ParamSpec((cfg.vocab, d), ("vocab", "embed"), scale=d**0.5),
         "final_norm": ParamSpec((d,), (None,), init="ones"),
-        "layers": _layer_specs(cfg, cfg.n_layers),
+        "layers": _layer_specs(cfg, cfg.n_layers - n_pro),
     }
     if not cfg.tie_embeddings:
         specs["head"] = ParamSpec((d, cfg.vocab), ("embed", "vocab"))
+    if n_pro:
+        specs["prologue"] = _layer_specs(cfg, n_pro, dense_ffn=True)
     return specs
 
 
@@ -158,11 +177,13 @@ def param_specs(cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def layer_windows(cfg: ModelConfig) -> list:
-    """Per-layer attention window (None = global attention)."""
+def layer_windows(cfg: ModelConfig, n_layers: Optional[int] = None, offset: int = 0) -> list:
+    """Per-layer attention window (None = global attention) of the
+    ``n_layers`` layers (all by default) from layer ``offset`` on."""
     w = []
     globals_ = {0, cfg.n_layers // 2, cfg.n_layers - 1}
-    for i in range(cfg.n_layers):
+    n = cfg.n_layers if n_layers is None else n_layers
+    for i in range(offset, offset + n):
         if cfg.sliding_window is not None and i not in globals_:
             w.append(cfg.sliding_window)
         else:
@@ -243,7 +264,8 @@ def layer_full(
 ) -> torch.Tensor:
     """One layer over the whole sequence; returns the new hidden state.
     With ``lcache`` (this layer's cache tensors), writes its entries in
-    place: K/V to slots [0, S), the SSM and conv states, or both."""
+    place: K/V (or MLA's latent and RoPE key) to slots [0, S), the SSM and
+    conv states, or both."""
     cfg = ctx.cfg
     hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
 
@@ -256,17 +278,30 @@ def layer_full(
 
     if cfg.arch_type == "ssm":
         return h + mamba2()
-    attn_out, (k, v) = attn_full(ctx, lp["attn"], hn, positions, window)
-    if lcache is not None:
-        s = h.shape[1]
-        lcache["k"][:, :s] = k
-        lcache["v"][:, :s] = v
+    s = h.shape[1]
+    if cfg.mla is not None:
+        attn_out, (latent, krope) = mla_full(cfg, lp["attn"], hn, positions, ctx.rcfg)
+        if lcache is not None:
+            lcache["ckv"][:, :s] = latent
+            lcache["krope"][:, :s] = krope
+    else:
+        attn_out, (k, v) = attn_full(ctx, lp["attn"], hn, positions, window)
+        if lcache is not None:
+            lcache["k"][:, :s] = k
+            lcache["v"][:, :s] = v
     if cfg.arch_type == "hybrid":
         attn_out = _mix(lp, attn_out, mamba2(), hn.dtype)
     h = h + attn_out
-    hn2 = rms_norm(h, lp["ln2"], cfg.norm_eps)
+    return h + _ffn(ctx, lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
+
+
+def _ffn(ctx: ApplyCtx, lp: dict, hn2: torch.Tensor) -> torch.Tensor:
+    """The layer's FFN: the MoE FFN (its aux loss dropped, as the
+    reference's prefill and decode drop it) or the dense SwiGLU."""
     fp = lp["ffn"]
-    return h + swiglu(hn2, fp["wg"], fp["wu"], fp["wd"])
+    if "router" in fp:
+        return moe.moe_ffn(ctx.cfg, ctx.rcfg, fp, hn2)[0]
+    return swiglu(hn2, fp["wg"], fp["wu"], fp["wd"])
 
 
 def run_stack(
@@ -278,7 +313,9 @@ def run_stack(
     cache: Optional[Dict[str, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Apply every layer in order. With ``cache`` (stacked (L, ...) cache
-    tensors), each layer writes its entries in place (``layer_full``)."""
+    tensors), each layer writes its entries in place (``layer_full``).
+    The prologue (the reference's unrolled ``run_prologue``) and the main
+    stack each run through here (``_parts``)."""
     for i, win in enumerate(windows):
         lcache = None if cache is None else {name: c[i] for name, c in cache.items()}
         h = layer_full(ctx, _layer(stack_params, i), win, h, positions, lcache)
@@ -307,14 +344,30 @@ def unembed(ctx: ApplyCtx, params, h: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _empty_cache(cfg: ModelConfig, b: int, w: int, dev) -> Dict[str, torch.Tensor]:
-    """The stacked bf16 cache tensors of a batch of ``b`` rows: K/V with
-    ``w`` slots, zero-filled, and/or the SSM and conv states of a Mamba2
-    or hybrid model (every layer's prefill overwrites them, so they start
+RING_KEYS = ("k", "v", "ckv", "krope")  # the cache tensors with a slot axis
+
+
+def _parts(cfg: ModelConfig) -> list:
+    """(params key, cache key, windows) of each stack in order: the dense
+    prologue, if the model has one, then the main stack, whose windows
+    count its layers from past the prologue."""
+    n_pro = _n_prologue(cfg)
+    main = ("layers", "main", layer_windows(cfg, cfg.n_layers - n_pro, n_pro))
+    return ([("prologue", "pro", layer_windows(cfg, n_pro))] if n_pro else []) + [main]
+
+
+def _empty_cache(cfg: ModelConfig, n: int, b: int, w: int, dev) -> Dict[str, torch.Tensor]:
+    """The stacked bf16 cache tensors of ``n`` layers and a batch of ``b``
+    rows: K/V (or MLA's latent and RoPE key) with ``w`` slots,
+    zero-filled, and/or the SSM and conv states of a Mamba2 or hybrid
+    model (every layer's prefill overwrites them, so they start
     uninitialised)."""
-    n = cfg.n_layers
     cache = {}
-    if cfg.arch_type != "ssm":
+    if cfg.mla is not None:
+        m = cfg.mla
+        cache["ckv"] = torch.zeros((n, b, w, m.kv_lora_rank), dtype=KV_DTYPE, device=dev)
+        cache["krope"] = torch.zeros((n, b, w, m.qk_rope_head_dim), dtype=KV_DTYPE, device=dev)
+    elif cfg.arch_type != "ssm":
         shape = (n, b, w, cfg.n_kv_heads, cfg.resolved_head_dim)
         cache["k"] = torch.zeros(shape, dtype=KV_DTYPE, device=dev)
         cache["v"] = torch.zeros(shape, dtype=KV_DTYPE, device=dev)
@@ -335,7 +388,9 @@ def prefill(ctx: ApplyCtx, params, batch, capacity: Optional[int] = None,
     to the prompt length; decode then ring-overwrites the oldest slots,
     which is only correct for pure sliding-window attention). ``out`` is
     a cache of ``empty_cache`` to fill in place instead of a new one (its
-    K/V are zeroed first, as a new cache's are); it is returned.
+    slot tensors, K/V or MLA's latent and RoPE key, prologue's included,
+    are zeroed first, as a new cache's are: masked slots then hold zeros
+    and not an earlier group's entries); it is returned.
     """
     cfg = ctx.cfg
     require_ported(cfg)
@@ -347,10 +402,12 @@ def prefill(ctx: ApplyCtx, params, batch, capacity: Optional[int] = None,
     if out is None:
         out = empty_cache(cfg, b, max(s, capacity or 0), dev)
     else:  # a cache preallocated by the caller, prefilled in place
-        for name in ("k", "v"):
-            if name in out["main"]:
-                out["main"][name].zero_()
-    h = run_stack(ctx, params["layers"], layer_windows(cfg), h, positions, out["main"])
+        for _, part, _ in _parts(cfg):
+            for name in RING_KEYS:
+                if name in out[part]:
+                    out[part][name].zero_()
+    for key, part, windows in _parts(cfg):
+        h = run_stack(ctx, params[key], windows, h, positions, out[part])
     logits = unembed(ctx, params, h[:, -1:])
     out["length"].fill_(s)
     return out, logits
@@ -363,9 +420,14 @@ def prefill(ctx: ApplyCtx, params, batch, capacity: Optional[int] = None,
 
 def empty_cache(cfg: ModelConfig, b: int, w: int, device=None) -> dict:
     """A cache of ``b`` rows and ``w`` K/V slots, for ``prefill(...,
-    out=)``: the stacked tensors and a zero ``length``."""
-    return {"main": _empty_cache(cfg, b, w, device),
-            "length": torch.zeros((), dtype=torch.int32, device=device)}
+    out=)``: the stacked tensors of the main stack (``"main"``) and of the
+    prologue (``"pro"``, where the model has one), and a zero ``length``."""
+    n_pro = _n_prologue(cfg)
+    cache = {"main": _empty_cache(cfg, cfg.n_layers - n_pro, b, w, device)}
+    if n_pro:
+        cache["pro"] = _empty_cache(cfg, n_pro, b, w, device)
+    cache["length"] = torch.zeros((), dtype=torch.int32, device=device)
+    return cache
 
 
 def _ring_kv_pos(length: torch.Tensor, w: int, device=None) -> torch.Tensor:
@@ -391,10 +453,10 @@ def layer_decode(
     ctx: ApplyCtx, lp: dict, window, lcache: dict, h: torch.Tensor, pos, ring
 ) -> torch.Tensor:
     """One-token decode through one layer at positions ``pos``: writes this
-    step's K/V into ring slot ``slot`` of ``lcache``, where ``ring`` is
-    (slot, kv_pos) from ``_ring`` (None for a model without K/V), and/or
-    a Mamba2 layer's new states over its old ones (in place), and returns
-    the new hidden state."""
+    step's K/V (or MLA's latent and RoPE key) into ring slot ``slot`` of
+    ``lcache``, where ``ring`` is (slot, kv_pos) from ``_ring`` (None for
+    a model without a ring), and/or a Mamba2 layer's new states over its
+    old ones (in place), and returns the new hidden state."""
     cfg = ctx.cfg
     b = h.shape[0]
     hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
@@ -409,23 +471,29 @@ def layer_decode(
 
     if cfg.arch_type == "ssm":
         return h + mamba2()
-    q, k, v = _qkv(cfg, lp["attn"], hn)
-    q, k = _rope_qk(cfg, q, k, pos)
-    kc, vc = lcache["k"], lcache["v"]
     slot, kv_pos = ring
-    kc.index_copy_(1, slot, k.to(kc.dtype))
-    vc.index_copy_(1, slot, v.to(vc.dtype))
-    attn_out = attention(
-        q, kc.to(hn.dtype), vc.to(hn.dtype), pos, kv_pos,
-        causal=True, window=window, rcfg=ctx.rcfg,
-    )
-    attn_out = attn_out.reshape(b, 1, -1) @ lp["attn"]["wo"].to(hn.dtype)
+    if cfg.mla is not None:
+        latent, krope = _latent(cfg, lp["attn"], hn, pos)
+        ckv, krc = lcache["ckv"], lcache["krope"]
+        ckv.index_copy_(1, slot, latent.to(ckv.dtype))
+        krc.index_copy_(1, slot, krope.to(krc.dtype))
+        attn_out = mla_decode(cfg, lp["attn"], hn, pos, ckv.to(hn.dtype), krc.to(hn.dtype),
+                              kv_pos)
+    else:
+        q, k, v = _qkv(cfg, lp["attn"], hn)
+        q, k = _rope_qk(cfg, q, k, pos)
+        kc, vc = lcache["k"], lcache["v"]
+        kc.index_copy_(1, slot, k.to(kc.dtype))
+        vc.index_copy_(1, slot, v.to(vc.dtype))
+        attn_out = attention(
+            q, kc.to(hn.dtype), vc.to(hn.dtype), pos, kv_pos,
+            causal=True, window=window, rcfg=ctx.rcfg,
+        )
+        attn_out = attn_out.reshape(b, 1, -1) @ lp["attn"]["wo"].to(hn.dtype)
     if cfg.arch_type == "hybrid":
         attn_out = _mix(lp, attn_out, mamba2(), hn.dtype)
     h = h + attn_out
-    hn2 = rms_norm(h, lp["ln2"], cfg.norm_eps)
-    fp = lp["ffn"]
-    return h + swiglu(hn2, fp["wg"], fp["wu"], fp["wd"])
+    return h + _ffn(ctx, lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
 
 
 def decode_step(ctx: ApplyCtx, params, cache, tokens: torch.Tensor):
@@ -444,10 +512,12 @@ def decode_step(ctx: ApplyCtx, params, cache, tokens: torch.Tensor):
     pos = t.reshape(1, 1).expand(b, 1)
     h = embed(ctx, params, tokens)
     main = cache["main"]
-    ring = _ring(t, main["k"].shape[2], b) if "k" in main else None
-    for i, win in enumerate(layer_windows(cfg)):
-        lc = {name: c[i] for name, c in main.items()}
-        h = layer_decode(ctx, _layer(params["layers"], i), win, lc, h, pos, ring)
+    slots = next((main[name] for name in ("k", "ckv") if name in main), None)
+    ring = None if slots is None else _ring(t, slots.shape[2], b)  # one width for every layer
+    for key, part, windows in _parts(cfg):  # the prologue's layers, then the main stack's
+        for i, win in enumerate(windows):
+            lc = {name: c[i] for name, c in cache[part].items()}
+            h = layer_decode(ctx, _layer(params[key], i), win, lc, h, pos, ring)
     new_cache = dict(cache)
     new_cache["length"] = t + 1
     return new_cache, unembed(ctx, params, h)

@@ -11,7 +11,9 @@ in-flight group had nothing to hide behind. A replay is one launch.
 Graphs hold fixed addresses, so the engine owns a pool of caches
 (``acquire`` / ``release``), each allocated once, of ``batch_size`` rows
 and ``max_len`` slots: a runtime slot binds to one entry for the life of
-its group and prefills into it in place. The runtime ``reserve``s as
+its group and prefills into it in place (the cache tree of
+``transformer.empty_cache``: the main stack's, and the dense prologue's
+``"pro"`` for an MoE model that has one). The runtime ``reserve``s as
 many entries as its rings have slots whenever it sets them, so that no
 capture falls inside a served interval; ``acquire`` adds an entry when
 all are busy. Each entry has a static (B, 1) int32 token buffer, and on
@@ -35,8 +37,11 @@ deterministic, and the model's per-use ``.to(dtype)`` is then a no-op).
 What the reference reads in float32 stays float32, since a round trip
 through bf16 would not be exact: the norm weights (``rms_norm`` widens
 them, Mamba2's ``norm_w`` too), Mamba2's ``dt_bias`` (added to the
-float32 dt) and ``A_log`` (cast to float32 before ``exp``), and a hybrid
-layer's ``mix_gate`` (cast to float32 before ``sigmoid``).
+float32 dt) and ``A_log`` (cast to float32 before ``exp``), a hybrid
+layer's ``mix_gate`` (cast to float32 before ``sigmoid``), an MoE layer's
+``router`` (the reference routes with float32 logits from float32 router
+weights; bf16 weights would change what top-k ranks) and MLA's
+``kv_norm`` and ``q_norm`` (read by ``rms_norm``).
 
 Logits reach the host without waiting on other slots
 (``fetch_last``): at dispatch, the last position is cast to float32 and
@@ -57,10 +62,11 @@ import torch
 from repro_torch.models.transformer import ApplyCtx, decode_step, empty_cache, prefill
 
 # parameters the reference reads in float32 at use: the norm weights
-# (rms_norm widens them), Mamba2's dt_bias (added to the float32 dt) and
-# A_log (cast to float32 before exp), the hybrid mix_gate (before sigmoid)
-_FLOAT32_KEYS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "norm_w", "dt_bias", "A_log",
-                 "mix_gate")
+# (rms_norm widens them; MLA's kv_norm too), Mamba2's dt_bias (added to the
+# float32 dt) and A_log (cast to float32 before exp), the hybrid mix_gate
+# (before sigmoid), the MoE router (float32 routing logits)
+_FLOAT32_KEYS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "kv_norm", "norm_w", "dt_bias",
+                 "A_log", "mix_gate", "router")
 
 
 def cast_for_compute(params: dict, dtype: torch.dtype) -> dict:

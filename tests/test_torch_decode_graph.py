@@ -2,7 +2,9 @@
 cache's ``length`` an int32 scalar tensor, run eagerly through the
 engine's pool, against the JAX package's teacher-forced logits
 (``tests/test_decode_multistep.py``'s property) for Qwen2.5-3B,
-Mamba2-2.7B and Hymba-1.5B at reduced width; the step reads no device
+Mamba2-2.7B, Hymba-1.5B, DeepSeek-V2-236B (MLA's latent cache, MoE, a
+dense prologue) and Moonlight-16B-A3B (MoE with shared experts, a dense
+prologue) at reduced width; the step reads no device
 value on the host; a pool entry reused by another group gives the
 logits of a new cache.
 
@@ -37,7 +39,7 @@ from repro_torch.models.transformer import ApplyCtx, decode_step, prefill
 from repro_torch.serving import ServingEngine, make_prefill_step, make_serve_step
 from repro_torch.serving.engine import capture_counts, reset_capture_counts
 
-ARCHS = ["qwen2.5-3b", "mamba2-2.7b", "hymba-1.5b"]
+ARCHS = ["qwen2.5-3b", "mamba2-2.7b", "hymba-1.5b", "deepseek-v2-236b", "moonshot-v1-16b-a3b"]
 B, S, N_DEC = 2, 24, 4  # prefill S - N_DEC tokens, decode the last N_DEC
 
 
@@ -101,8 +103,10 @@ def test_step_functions_equal_the_model_path_bitwise(arch):
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
     assert int(cache["length"]) == int(ref_cache["length"]) == 15
-    for name, t in ref_cache["main"].items():
-        assert torch.equal(cache["main"][name], t), name
+    assert set(cache) - {"entry"} == set(ref_cache)
+    for part in ("pro", "main"):
+        for name, t in ref_cache.get(part, {}).items():
+            assert torch.equal(cache[part][name], t), (part, name)
 
 
 class _HostRead(AssertionError):
@@ -139,7 +143,8 @@ def test_serve_step_reads_no_device_value_on_the_host(arch, monkeypatch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_reused_pool_entry_equals_a_new_cache(arch):
     """A group prefilled into an entry a longer group used before gets
-    the logits of a new cache: the K/V slots are zeroed, the states and
+    the logits of a new cache: the K/V (or MLA latent and RoPE key) slots
+    of every stack, prologue included, are zeroed, the states and
     ``length`` overwritten."""
     _, _, tctx, params = _models(arch)
     rng = np.random.default_rng(4)

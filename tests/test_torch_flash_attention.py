@@ -265,3 +265,20 @@ def test_ablation_variants_take_out_what_they_name():
     assert "wgmma_n64_rs(o[cb]" in src and "wgmma_n64_rs(o[cb]" not in v["no products"]
     assert "wgmma_n128_ss(s," not in v["no products"]
     assert "D == 128 ? 2 : 4" in v["two stages"] and "D == 128 ? 2 : 4" not in src
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("case", [SWEEP[1], SWEEP[-1]], ids=["gqa", "dv_ne_d"])
+def test_logit_control_computes_attention_ref(case, tile):
+    """chip_smoke.py's control for the full-width logits
+    (``blocked_bhsd``: the plain route summed in key tiles) must compute
+    ``attention_ref``'s function, so that its logit gap measures a change
+    of summation order alone."""
+    import chip_smoke
+
+    b, hq, hkv, s, d, dv, causal, window = case
+    q, k, v = (torch.from_numpy(x) for x in _inputs(5, b, hq, hkv, s, d, dv))
+    out = chip_smoke.blocked_bhsd(q, k, v, causal=causal, window=window, tile=tile)
+    ref = attention_ref(q, k, v, causal=causal, window=window)
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=2e-5, rtol=0)

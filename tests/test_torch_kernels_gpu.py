@@ -33,7 +33,8 @@ the card: records against ``BENCH_matrix.json`` at rel 1e-12 (both rebuild
 the card: its windows launches bitwise at the fleet's shapes, its results
 block equal to ``BENCH_fleet.json``'s (``json.dumps`` with sorted keys).
 The serving engine's CUDA graph of the decode step (reduced Qwen2.5-3B,
-Mamba2-2.7B and a 4-layer Hymba-1.5B, bf16): its logits and caches
+Mamba2-2.7B, a 4-layer Hymba-1.5B, DeepSeek-V2-236B and
+Moonlight-16B-A3B, bf16): its logits and caches
 bitwise equal to the eager step's (the same kernels in the same order),
 one capture per pool entry, an entry-less cache refused by a graphed
 engine, and the runtime's tokens through graphs equal to its tokens
@@ -83,6 +84,7 @@ SWEEP = [
     (4, 16, 2, 8, 128, 128, True, None),  # Qwen2.5-3B prompts of the control loop's trace,
     (4, 16, 2, 32, 128, 128, True, None),  # of WalltimeDevice's probe and of the tau probe:
     (4, 16, 2, 64, 128, 128, True, None),  # one query and one key tile hold the whole prompt
+    (4, 128, 128, 512, 192, 128, True, None),  # DeepSeek-V2 MLA prefill: D 192 != Dv 128 (simt)
 ]
 
 
@@ -157,6 +159,35 @@ def test_models_strided_views_through_the_wgmma_body(cuda, monkeypatch):
     out = flash_attention(qg, k, v)
     torch.cuda.synchronize()
     assert body_launches()["wgmma"] == before + 1
+    monkeypatch.setattr(fa_ops, "flash_attention_bhsd", attention_ref)
+    ref = flash_attention(qg, k, v)
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=0)
+
+
+@pytest.mark.gpu
+def test_mla_strided_views_through_the_simt_body(cuda, monkeypatch):
+    """q, k and v as models/mla.py makes them at DeepSeek-V2's widths (128
+    heads, D = 128 + 64, Dv = 128): q and k concatenated, v the Dv half of
+    the expanded (B, S, H, 256) latent, row stride H * 256. They go
+    through ``flash_attention`` on the simt body, read in place, and agree
+    with the plain route on the same views."""
+    rng = np.random.default_rng(3)
+    b, s, h, dn, dr, dv = 2, 256, 128, 128, 64, 128
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda, torch.bfloat16)
+
+    kv = t(b, s, h, dn + dv)
+    k_nope, v = kv.split([dn, dv], dim=-1)
+    q = torch.cat([t(b, s, h, dn), t(b, s, h, dr)], dim=-1)
+    k = torch.cat([k_nope, t(b, s, 1, dr).expand(b, s, h, dr)], dim=-1)
+    assert v.stride(1) == h * (dn + dv) and not v.is_contiguous()
+    qg = q.reshape(b, s, h, 1, dn + dr)
+    assert body_for(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)) == "simt"
+    before = body_launches()["simt"]
+    out = flash_attention(qg, k, v)
+    torch.cuda.synchronize()
+    assert body_launches()["simt"] == before + 1 and out.shape == (b, s, h, 1, dv)
     monkeypatch.setattr(fa_ops, "flash_attention_bhsd", attention_ref)
     ref = flash_attention(qg, k, v)
     torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=0)
@@ -552,7 +583,8 @@ def test_fleet_on_the_card_reproduces_the_record(cuda):
     assert rec["engine"]["backend"] == "cuda" and rec["engine"]["peak_device_bytes"] > 0
 
 
-GRAPH_ARCHS = ["qwen2.5-3b", "mamba2-2.7b", "hymba-1.5b"]
+GRAPH_ARCHS = ["qwen2.5-3b", "mamba2-2.7b", "hymba-1.5b", "deepseek-v2-236b",
+               "moonshot-v1-16b-a3b"]
 
 
 def _graph_engines(arch, batch=2, max_len=48):
@@ -595,8 +627,8 @@ def test_graphed_decode_is_bitwise_the_eager_step(cuda, arch):
             cache, logits = eng.decode(cache, tok)
             steps.append(logits.clone())
         torch.cuda.synchronize()
-        out[name] = (steps, {n: c.clone() for n, c in cache["main"].items()},
-                     int(cache["length"]))
+        out[name] = (steps, {(p, n): c.clone() for p in ("pro", "main") if p in cache
+                             for n, c in cache[p].items()}, int(cache["length"]))
     assert capture_counts() == {graphed.ctx.cfg.name: 1} and len(graphed.pool) == 1
     (es, ec, el), (gs, gc, gl) = out["eager"], out["graphed"]
     assert el == gl == 20 + len(feeds)

@@ -111,12 +111,10 @@ def test_attention_paths_match_jax(sq, skv, window, threshold):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b",
-                                  "deepseek-v2-236b", "whisper-medium",
-                                  "qwen2-vl-72b"])
+@pytest.mark.parametrize("arch", ["whisper-medium", "qwen2-vl-72b"])
 def test_unported_branches_raise(arch):
     cfg = REGISTRY[arch].reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 13\(b\)"):
         param_specs(cfg)
     ctx = ApplyCtx(cfg, RunConfig())
     with pytest.raises(NotImplementedError):

@@ -1,5 +1,5 @@
-"""The port's serving slice on reduced Qwen2.5-3B (and reduced Mamba2-2.7B
-where named) against the JAX package, with the JAX model's weights carried over by ``params_from_jax``
+"""The port's serving slice on reduced Qwen2.5-3B (and reduced Mamba2-2.7B,
+Moonlight-16B-A3B and DeepSeek-V2-236B where named) against the JAX package, with the JAX model's weights carried over by ``params_from_jax``
 so both run on the same numbers.
 
 Tolerances. Float32 compute: rtol/atol 1e-4 — only summation order
@@ -241,6 +241,67 @@ def test_serve_mamba2_reduced_on_cpu():
     m = serve(MAMBA, requests=3, prompt_len=8, new_tokens=3, batch=2,
               concurrency=2, reduced=True, device="cpu")
     assert m["requests"] == 3 and m["throughput_tok_s"] > 0
+
+
+MOE_MLA = ["moonshot-v1-16b-a3b", "deepseek-v2-236b"]
+
+
+@pytest.mark.parametrize("arch", MOE_MLA)
+def test_moe_and_mla_weights_cast_once_keep_what_is_read_in_float32(arch):
+    """The engine casts the experts, the shared experts and MLA's
+    projections to bf16 at load, and keeps the router (float32 routing
+    logits), MLA's q_norm and kv_norm and the layer norms float32, so its
+    prefill equals the model's on float32 weights cast at use, bit for
+    bit. The norms are drawn, so that a bf16 round trip would show."""
+    cfg = JAX_REGISTRY[arch].reduced()
+    np_params = jax.tree.map(np.asarray, jax_init(jax.random.PRNGKey(2), cfg, JaxRunConfig()))
+    rng = np.random.default_rng(2)
+
+    def drawn(w):
+        return rng.uniform(0.5, 1.5, w.shape).astype(np.float32)
+
+    for tree in (np_params["layers"], np_params["prologue"]):
+        tree["ln1"] = drawn(tree["ln1"])
+        for name in ("q_norm", "kv_norm"):
+            if name in tree["attn"]:
+                tree["attn"][name] = drawn(tree["attn"][name])
+    tctx = ApplyCtx(REGISTRY[arch].reduced(),
+                    RunConfig(compute_dtype="bfloat16", use_kernels=True))
+    params = params_from_jax(np_params, "cpu")
+    eng = ServingEngine(tctx, params, 2, 16)
+    lp = eng.params["layers"]
+    assert lp["ffn"]["router"].dtype == lp["ln1"].dtype == torch.float32
+    assert lp["ffn"]["we_gate"].dtype == lp["ffn"]["ws_down"].dtype == torch.bfloat16
+    assert eng.params["prologue"]["ffn"]["wg"].dtype == torch.bfloat16
+    if cfg.mla is not None:
+        assert lp["attn"]["kv_norm"].dtype == lp["attn"]["q_norm"].dtype == torch.float32
+        assert lp["attn"]["wkv_b"].dtype == torch.bfloat16
+    prompt = np.arange(16, dtype=np.int32).reshape(2, 8)
+    _, logits = eng.prefill(prompt)
+    with torch.inference_mode():
+        _, at_use = prefill(tctx, params, {"tokens": torch.from_numpy(prompt)}, capacity=16)
+    assert torch.equal(logits, at_use)
+
+
+@pytest.mark.parametrize("arch", MOE_MLA)
+def test_serve_moe_and_mla_reduced_on_cpu(arch):
+    """The launcher's MoE and MLA arches; DeepSeek-V2 with its depth cut
+    as the full-width card run cuts it (``layers=2``: the dense layer 0
+    and one MoE layer)."""
+    m = serve(arch, requests=3, prompt_len=8, new_tokens=3, batch=2, concurrency=2,
+              reduced=True, layers=2, device="cpu")
+    assert m["requests"] == 3 and m["throughput_tok_s"] > 0 and m["graph_captures"] == 0
+
+
+def test_build_engine_cuts_depth_and_draws_bf16():
+    from repro_torch.launch.serve import build_engine
+
+    eng = build_engine("deepseek-v2-236b", 2, 8, reduced=True, layers=2, device="cpu")
+    cfg = eng.ctx.cfg
+    assert cfg.n_layers == 2 and cfg.moe.first_moe_layer == 1
+    assert eng.params["layers"]["attn"]["wkv_a"].shape[0] == 1  # one MoE layer past the prologue
+    assert eng.ctx.rcfg.pdtype == torch.bfloat16
+    assert eng.params["layers"]["ffn"]["router"].dtype == torch.bfloat16  # drawn in bf16
 
 
 @pytest.mark.parametrize(
