@@ -35,14 +35,17 @@ Phases, each of which exits non-zero on failure:
    plain version's and (where one exists) a library call's device times
    at that shape, each call back to back behind a spin kernel.
    ``flash_attention_bhsd`` against ``attention_ref``, each case on the
-   body ``body_for`` names (bf16 with D == Dv in {64, 128}: ``wgmma``),
-   and timed at the serving shape (B=4, Hq=16, Hkv=2, S=512, D=128,
-   causal, bf16; library: SDPA) on contiguous inputs and on the model's
-   (B, S, H, D) views, at S=4096 (B=1), at Hymba-1.5B's serving shape
-   (B=4, Hq=25, Hkv=5, S=512, D=64) and at DeepSeek-V2's MLA shape (B=4,
-   H=128, S=512, D=192, Dv=128: the ``simt`` body; contiguous and as the
-   model's strided views, v the Dv half of the expanded latent, row
-   stride H * 256), SDPA beside each as a yardstick;
+   body ``body_for`` names (bf16 with (D, Dv) in {(64, 64), (128, 128),
+   (192, 128)}: ``wgmma``; MLA's widths also at S = 8, 32, 300, 2048,
+   bidirectional and GQA), and timed at the serving shape (B=4, Hq=16,
+   Hkv=2, S=512, D=128, causal, bf16; library: SDPA) on contiguous inputs
+   and on the model's (B, S, H, D) views, at S=4096 (B=1), at
+   Hymba-1.5B's serving shape (B=4, Hq=25, Hkv=5, S=512, D=64) and at
+   DeepSeek-V2's MLA shape (B=4, H=128, S=512, D=192, Dv=128; contiguous
+   and as the model's strided views, v the Dv half of the expanded
+   latent, row stride H * 256: the ``wgmma`` and ``simt`` bodies each
+   held to ``attention_ref``, then timed in turns), SDPA beside each as a
+   yardstick;
    ``ssd_scan`` against
    ``ssd_ref`` in float32 and bfloat16, with a ragged tail, an initial
    state, 16 chunks at S=4096 and chunk 64 at S=1000, and the model's
@@ -93,8 +96,8 @@ Phases, each of which exits non-zero on failure:
    and one MoE layer of 160 experts, MLA) as Qwen2.5-3B, weights drawn in
    bf16: (a) reduced in float32 card against CPU, (b) one 4 x 512 bf16
    prefill, every flash launch held to ``attention_ref`` on its own inputs
-   (48 on the ``wgmma`` body for Moonlight, 2 on ``simt`` for DeepSeek-V2;
-   ``flash_body`` asks ``body_for``), logits within 5e-2 × max|logit| of
+   (48 for Moonlight, 2 for DeepSeek-V2, all on the ``wgmma`` body, which
+   ``flash_body`` must find ``body_for`` naming), logits within 5e-2 × max|logit| of
    the plain route (Qwen2.5-3B's prefill is held the same way); Moonlight
    over four prompts (``LOGIT_SEEDS``), each within ``LOGIT_REL_TOL`` ×
    max|logit| and their mean gap within ``CONTROL_RATIO`` × that of the
@@ -159,7 +162,10 @@ Phases, each of which exits non-zero on failure:
    each of the SSD body's three kernels; for Moonlight-16B-A3B the
    compute-all expert GEMMs (``moe._experts``) named by their kernels and
    timed per layer at 4 and 2048 tokens, and the decode step's
-   weight-read bound; the
+   weight-read bound; DeepSeek-V2's 2-layer prefill (4 x 512) under each
+   flash body in turns (wgmma, simt, simt, wgmma: ``body_for`` pointed at
+   simt for the simt turns), each turn's 2 launches a prefill on its
+   body; the
    dcov single-block form at n=1600, C=7 and n=16384, C=8, with the
    device time of each of its two kernels, from a profiled window that
    holds every launch of both (redone up to PROFILE_TRIES times, else
@@ -206,6 +212,8 @@ FULL_TREE_GB = 56.8  # one full-width Moonlight parameter tree in bf16; two do n
 HYBRID_REDUCED_LAYERS = 4  # reduced() has 2, both global; with 4, layer 1 slides a window
 HYBRID_PREFILL = (2, 2048)  # the full-width check: windows of 1024 mask, 8 SSD chunks
 SERVE_SHAPE = dict(b=4, hq=16, hkv=2, s=512, d=128, dv=128, causal=True, window=None)
+# DeepSeek-V2's MLA prefill (B=4 x 512): D = 128 + 64, Dv = 128, the wgmma body
+MLA_FLASH = dict(b=4, hq=128, hkv=128, s=512, d=192, dv=128, causal=True, window=None)
 SWEEP = [  # the card tests' sweep (tests/test_torch_kernels_gpu.py), then the serving shape
     dict(b=1, hq=2, hkv=2, s=64, d=32, dv=32, causal=True, window=None),
     dict(b=2, hq=4, hkv=2, s=96, d=32, dv=32, causal=True, window=None),
@@ -225,13 +233,23 @@ SWEEP = [  # the card tests' sweep (tests/test_torch_kernels_gpu.py), then the s
     dict(b=4, hq=16, hkv=2, s=8, d=128, dv=128, causal=True, window=None),
     dict(b=4, hq=16, hkv=2, s=32, d=128, dv=128, causal=True, window=None),
     dict(b=4, hq=16, hkv=2, s=64, d=128, dv=128, causal=True, window=None),
-    # DeepSeek-V2's MLA prefill (B=4 x 512): D = 128 + 64 != Dv = 128, the simt body
-    dict(b=4, hq=128, hkv=128, s=512, d=192, dv=128, causal=True, window=None),
+    MLA_FLASH,
+    # the MLA widths: one tile, mostly empty; ragged; bidirectional; 16 key
+    # tiles through the ring of two stages; GQA
+    dict(b=2, hq=8, hkv=8, s=8, d=192, dv=128, causal=True, window=None),
+    dict(b=2, hq=8, hkv=8, s=32, d=192, dv=128, causal=True, window=None),
+    dict(b=2, hq=8, hkv=8, s=300, d=192, dv=128, causal=True, window=None),
+    dict(b=2, hq=8, hkv=8, s=200, d=192, dv=128, causal=False, window=None),
+    dict(b=1, hq=8, hkv=8, s=2048, d=192, dv=128, causal=True, window=None),
+    dict(b=2, hq=16, hkv=2, s=256, d=192, dv=128, causal=True, window=None),
 ]
+# (D, Dv) pairs of the flash kernel's tensor-core bodies in bf16, with
+# 16-byte aligned rows (flash_attention.py::body_for); the rest is simt
+FLASH_WGMMA_DIMS = {(64, 64), (128, 128), (192, 128)}
+FLASH_MMA_DIMS = {(16, 16), (32, 32)}
 LONG_SHAPE = dict(b=1, hq=16, hkv=2, s=4096, d=128, dv=128, causal=True, window=None)
 # Hymba-1.5B's prefill (B=4 x 512): its window of 1024 masks nothing at S = 512
 HYMBA_FLASH = dict(b=4, hq=25, hkv=5, s=512, d=64, dv=64, causal=True, window=None)
-MLA_FLASH = SWEEP[-1]
 # (b, s, nh, hd, n, chunk, initial state): the CPU tests' sweep
 # (tests/test_torch_ssd_scan.py), a ragged tail, the reduced Mamba2,
 # full-width heads (hd 64, N 128, the wgmma body in bf16), ragged, 16
@@ -486,7 +504,7 @@ def flash_times(torch, q, k, v, label, causal=True):
         f"{flops / 1e9:.2f} GFLOP), kernel / bound {ms / bound_ms:.2f}, kernel / SDPA "
         f"{ms / library_ms:.2f}")
     return {"ms": ms, "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "body": body_for(q, k, v)}
 
 
 def phase_flash_check(torch):
@@ -505,8 +523,9 @@ def phase_flash_check(torch):
             dims = {k: shp[k] for k in ("b", "hq", "hkv", "s", "d", "dv")}
             q, k, v = attention_inputs(torch, dtype, **dims, seed=i)
             body = body_for(q, k, v, kw["window"])
-            want = ("simt" if dtype != torch.bfloat16 or dims["d"] != dims["dv"] else
-                    "wgmma" if dims["d"] in (64, 128) else "mma")
+            pair = (dims["d"], dims["dv"])
+            want = ("simt" if dtype != torch.bfloat16 else "wgmma" if pair in FLASH_WGMMA_DIMS
+                    else "mma" if pair in FLASH_MMA_DIMS else "simt")
             if body != want:
                 fail(f"flash {shp} {dname}: body_for names {body}, not {want}")
             before = body_launches()[body]
@@ -551,30 +570,33 @@ def phase_flash_check(torch):
     flash_times(torch, q, k, v, "Hymba-1.5B serving shape (B=4, Hq=25, Hkv=5, S=512, D=64; its "
                 "window of 1024 masks nothing at S=512), contiguous")
     del q, k, v
-    mla_flash_times(torch)
+    mla = mla_flash_times(torch)
     torch.cuda.empty_cache()
-    return {"max_abs_err": worst[("bfloat16", len(SWEEP))], "plain_ms": plain_ms, **row}
+    return {"max_abs_err": worst[("bfloat16", len(SWEEP))], "plain_ms": plain_ms, **row,
+            "mla": mla}
 
 
 def mla_flash_times(torch):
     """DeepSeek-V2's MLA prefill shape (B=4, H=128, S=512, D=192, Dv=128,
-    bf16, causal): the kernel against ``attention_ref`` on the model's
-    strided views (q and k concatenated, v the Dv half of the expanded
-    (B, S, H, 256) latent, row stride H * 256) on the body ``body_for``
-    names, then the plain version's, the kernel's and SDPA's times on
-    contiguous inputs and on those views."""
+    bf16, causal), on contiguous inputs and on the model's strided views
+    (q and k concatenated, v the Dv half of the expanded (B, S, H, 256)
+    latent, row stride H * 256): the wgmma body that ``body_for`` names
+    and the simt body (``body_for`` pointed at it) each against
+    ``attention_ref``, then the plain version's, SDPA's and the two
+    bodies' times, the bodies in turns. Returns the contiguous row."""
     import numpy as np
 
-    from repro_torch.kernels.flash_attention import attention_ref, body_for, flash_attention_bhsd
+    from repro_torch.kernels.flash_attention import (
+        attention_ref,
+        body_for,
+        body_launches,
+        flash_attention_bhsd,
+    )
 
+    module = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
     m = MLA_FLASH
     b, h, s, d, dv = m["b"], m["hq"], m["s"], m["d"], m["dv"]
     q, k, v = attention_inputs(torch, torch.bfloat16, b, h, h, s, d, dv, seed=len(SWEEP) + 3)
-    plain_ms = device_ms(lambda: attention_ref(q, k, v, causal=True))
-    say(f"  flash plain version at DeepSeek-V2's MLA shape: {plain_ms:.4f} ms")
-    flash_times(torch, q, k, v, "DeepSeek-V2 MLA shape (B=4, H=128, S=512, D=192, Dv=128), "
-                "contiguous")
-    del q, k, v
     rng = np.random.default_rng(len(SWEEP) + 4)
 
     def t(*shape):
@@ -586,15 +608,57 @@ def mla_flash_times(torch):
     qm = t(b, s, h, d)
     km = torch.cat([k_nope, t(b, s, 1, dr).expand(b, s, h, dr)], dim=-1)
     qm, km, vm = (x.transpose(1, 2) for x in (qm, km, vm))
-    body = body_for(qm, km, vm)
-    out = flash_attention_bhsd(qm, km, vm, causal=True)
-    err = (out.float() - attention_ref(qm, km, vm, causal=True).float()).abs().max().item()
-    say(f"  flash bf16 at the MLA shape on the model's strided views (v row stride "
-        f"{vm.stride(2)}) ({body} body): max_abs_err {err:.3g} (tol {ATOL['bfloat16']})")
-    if body != "simt" or not err <= ATOL["bfloat16"]:
-        fail(f"flash at the MLA shape's strided views: {body} body, max_abs_err {err:.3g}")
+    for label, (x, y, z) in (("contiguous", (q, k, v)),
+                             (f"the model's strided views (v row stride {vm.stride(2)})",
+                              (qm, km, vm))):
+        if body_for(x, y, z) != "wgmma":
+            fail(f"flash at the MLA shape, {label}: body_for names {body_for(x, y, z)}, not wgmma")
+        ref = attention_ref(x, y, z, causal=True).float()
+        for body in ("wgmma", "simt"):
+            with mock.patch.object(module, "body_for", lambda *a, _b=body: _b):
+                before = body_launches()[body]
+                out = flash_attention_bhsd(x, y, z, causal=True)
+                torch.cuda.synchronize()
+            err = (out.float() - ref).abs().max().item()
+            ok = err <= ATOL["bfloat16"] and body_launches()[body] == before + 1
+            say(f"  flash bf16 at the MLA shape, {label}, {body} body: max_abs_err {err:.3g} "
+                f"(tol {ATOL['bfloat16']}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"flash at the MLA shape, {label}: the {body} body did not launch or "
+                     f"disagrees with attention_ref (max_abs_err {err:.3g})")
+        del out, ref
+    plain_ms = device_ms(lambda: attention_ref(q, k, v, causal=True))
+    say(f"  flash plain version at DeepSeek-V2's MLA shape: {plain_ms:.4f} ms")
+    row = flash_times(torch, q, k, v, "DeepSeek-V2 MLA shape (B=4, H=128, S=512, D=192, Dv=128), "
+                      "contiguous")
+    turns = bodies_in_turns(torch, module, q, k, v, "DeepSeek-V2 MLA shape, contiguous",
+                            row["bound_ms"])
     flash_times(torch, qm, km, vm, "DeepSeek-V2 MLA shape, the model's strided views")
-    del out, qm, km, vm, kv
+    bodies_in_turns(torch, module, qm, km, vm, "DeepSeek-V2 MLA shape, the model's strided views",
+                    row["bound_ms"])
+    del q, k, v, qm, km, vm, kv
+    return {**row, "plain_ms": plain_ms, "simt_ms": min(turns["simt"])}
+
+
+def bodies_in_turns(torch, module, q, k, v, label, bound_ms):
+    """Device times of the flash kernel's wgmma and simt bodies on the same
+    inputs, in turns (wgmma, simt, simt, wgmma), each launch on the body
+    asked for; returns {body: [ms, ms]}."""
+    from repro_torch.kernels.flash_attention import body_launches, flash_attention_bhsd
+
+    times = {"wgmma": [], "simt": []}
+    for body in ("wgmma", "simt", "simt", "wgmma"):
+        with mock.patch.object(module, "body_for", lambda *a, _b=body: _b):
+            before = body_launches()[body]
+            times[body].append(device_ms(lambda: flash_attention_bhsd(q, k, v, causal=True)))
+            if body_launches()[body] == before:
+                fail(f"flash {label}: the {body} body did not launch")
+    w, si = min(times["wgmma"]), min(times["simt"])
+    say(f"  flash {label}, bodies in turns (wgmma, simt, simt, wgmma): wgmma "
+        + " / ".join(f"{x:.4f}" for x in times["wgmma"]) + " ms, simt "
+        + " / ".join(f"{x:.4f}" for x in times["simt"]) + f" ms; simt / wgmma {si / w:.1f}, "
+        f"wgmma / bound {w / bound_ms:.2f}; {card_line()}")
+    return times
 
 
 def ssd_inputs(torch, dtype, b, s, nh, hd, n, state, seed):
@@ -759,6 +823,8 @@ def phase_ssd_check(torch):
     b, s, nh, hd, n, chunk, state = SSD_SERVE
     args, _ = ssd_inputs(torch, torch.bfloat16, b, s, nh, hd, n, state, seed=len(SSD_SWEEP))
     row = ssd_times(torch, args, chunk, f"serving shape {SSD_SERVE[:6]}, contiguous")
+    body = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan").body_for(
+        args[0], args[3], args[4], chunk)
     ssd_times(torch, ssd_views(torch, torch.bfloat16, b, s, nh, hd, n, seed=8), chunk,
               "serving shape, the model's views")
     del args
@@ -768,7 +834,7 @@ def phase_ssd_check(torch):
     del args
     ssd_hymba_times(torch)
     torch.cuda.empty_cache()
-    return {"max_abs_err": serve_err, **row}
+    return {"max_abs_err": serve_err, **row, "body": body}
 
 
 def ssd_hymba_times(torch):
@@ -1052,7 +1118,7 @@ def phase_dcov_check(torch):
     return {
         "max_abs_err": grid_err,
         "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_ms": bound_ms, "bound_by": bound_by, "body": "windows form",
     }
 
 
@@ -1288,8 +1354,9 @@ def blocked_bhsd(q, k, v, *, causal=True, window=None, tile=128):
 def check_bodies(arch, prefills, what):
     """Since the counts were reset, flash attention and the SSD scan each
     launched as often as ``prefills`` prefills of ``arch`` make
-    (``launches_per_prefill``), every launch on the body its shapes take
-    (flash: ``flash_body``; the SSD scan: wgmma)."""
+    (``launches_per_prefill``), every launch on the wgmma body, which
+    ``flash_body`` must name for the model's flash shapes (DeepSeek-V2's
+    MLA at D = 192, Dv = 128 included)."""
     import torch
 
     from repro_torch.kernels import runtime
@@ -1300,6 +1367,9 @@ def check_bodies(arch, prefills, what):
     for name, per, bodies, body in zip(("flash_attention", "ssd_scan"), launches_per_prefill(arch),
                                        (flash_bodies(), ssd_bodies()),
                                        (flash_body(torch, arch), "wgmma")):
+        if per and body != "wgmma":
+            fail(f"{what}: body_for names the {body} body for {arch}'s {name} launches; every "
+                 "model's prefill takes the wgmma body")
         want = per * prefills
         say(f"  {name} launches in {what}: {counts[name]} over {prefills} prefills, by body "
             f"{bodies}")
@@ -1844,6 +1914,48 @@ def phase_profile(torch, arch):
         eng.release(k)
     if engine.ctx.cfg.moe is not None:
         moe_step_costs(torch, engine)
+    del engine, state
+    torch.cuda.empty_cache()
+
+
+def phase_profile_mla_bodies(torch):
+    """DeepSeek-V2 (``DEPTH_CUT`` layers) 4 x 512 bf16 prefill under each
+    flash body, in turns (wgmma, simt, simt, wgmma): wall, host enqueue,
+    device busy, idle share and kernels per call (``profile_window``).
+    The wgmma turns take the body ``body_for`` names; the simt turns point
+    ``body_for`` at the simt body. Fails unless every flash launch of a
+    turn, one a layer and prefill, is on its body."""
+    import contextlib
+
+    import numpy as np
+
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.flash_attention import body_launches
+    from repro_torch.launch.serve import build_engine
+
+    module = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
+    free_card(torch, f"the {MLA_ARCH} prefill profile")
+    engine = build_engine(MLA_ARCH, 4, 512 + 16, layers=DEPTH_CUT[MLA_ARCH], device="cuda")
+    prompt = np.random.default_rng(2).integers(0, 1000, (4, 512), dtype=np.int32)
+    state = {"prefills": 0}
+
+    def prefill():
+        engine.prefill(prompt)
+        state["prefills"] += 1
+
+    per = launches_per_prefill(MLA_ARCH)[0]
+    for body in ("wgmma", "simt", "simt", "wgmma"):
+        runtime.reset_launch_counts()
+        state["prefills"] = 0
+        forced = (mock.patch.object(module, "body_for", lambda *a: "simt") if body == "simt"
+                  else contextlib.nullcontext())
+        with forced:
+            profile_window(torch, f"{MLA_ARCH} prefill 4x512, flash {body} body", prefill, reps=3)
+        n, on = runtime.launch_counts()["flash_attention"], body_launches()[body]
+        if not n == on == per * state["prefills"]:
+            fail(f"{MLA_ARCH} prefills on the {body} body: {n} flash launches, {on} on that "
+                 f"body; want {per * state['prefills']}")
+    say(f"  {MLA_ARCH} prefills: every flash launch on the body of its turn; {card_line()}")
     del engine, state
     torch.cuda.empty_cache()
 
@@ -2464,6 +2576,7 @@ def main() -> None:
     phase_profile(torch, SSM_ARCH)
     phase_profile(torch, HYBRID_ARCH)
     phase_profile(torch, MOE_ARCH)
+    phase_profile_mla_bodies(torch)
     phase_coral_profile(torch)
     say("== phase 6: control loop")
     for name, n in phase_control_loop(torch).items():

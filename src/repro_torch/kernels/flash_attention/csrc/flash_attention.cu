@@ -19,14 +19,18 @@
 // What bounds it on the card: at the serving shape (B=4, Hq=16, Hkv=2,
 // S=512, D=128, bf16, causal) the function moves 18.9 MB and does 4.30
 // GFLOP, so the roofline is the memory side: 18.9 MB at 3.35 TB/s =
-// 5.63 us (the FLOPs take 4.3 us at 989 TFLOP/s).
+// 5.63 us (the FLOPs take 4.3 us at 989 TFLOP/s). At DeepSeek-V2's MLA
+// prefill (B=4, H=128, S=512, D=192, Dv=128) it is the memory side too:
+// 335.5 MB, 100.2 us, above 43.0 GFLOP at 989 TFLOP/s (43.5 us).
 //
 // Three bodies; the wrapper (flash_attention.py::body_for) names one and
 // the entry launches exactly that one or returns an error:
 //
-// * flash_fwd_wgmma — bf16 with D == Dv in {64, 128} and 16-byte aligned
-//   rows: the serving path (Qwen2.5-3B, Granite, InternLM2, Hymba). What
-//   it does about what held the Ampere-style body back:
+// * flash_fwd_wgmma — bf16 with (D, Dv) in {(64, 64), (128, 128),
+//   (192, 128)} and 16-byte aligned rows: the serving path (Qwen2.5-3B,
+//   Granite, InternLM2, Hymba, Moonlight-16B-A3B; DeepSeek-V2's MLA at
+//   D = qk_nope + qk_rope = 192, Dv = 128). What it does about what held
+//   the Ampere-style body back:
 //   1. Tensor cores: both products on wgmma. S = Q K^T is m64n128k16 with
 //      Q and K read K-major from shared memory; O += P V takes P (rounded
 //      to bf16, as before) as the A operand from registers and V from
@@ -38,16 +42,21 @@
 //      compute, each in its own time, so one's softmax can run under the
 //      other's products; setmaxnreg moves registers from the producer (24)
 //      to the consumers (240). At D = 128: Q 32 KB + 3 x (K 32 KB + V 32 KB)
-//      = 224 KB of shared memory, one CTA per SM.
-//   3. Heavy first: blockIdx.y counts query tiles from the last, so the
-//      causal tiles with the most key tiles start in the first wave.
+//      = 224 KB of shared memory, one CTA per SM. At D = 192, Dv = 128
+//      the K tile is 48 KB and the V tile 32 KB: Q 48 KB + 2 x 80 KB =
+//      208 KB; a third stage would not fit (WsSmem derives the depth).
+//   3. Heavy first: the grid counts query tiles from the last, so the
+//      causal tiles with the most key tiles start first: over all heads
+//      for D == Dv (GQA: a K/V tile serves many query heads), within each
+//      head at D = 192 (MHA over 128 wide heads: the query tiles of one
+//      head run side by side and share its K/V through L2).
 //   4. Masking only where needed: the causal, window and tail mask runs
 //      only on tiles that cross the diagonal, the window edge or the tail,
 //      as two compares against per-row bounds; the softmax is exp2 of one
 //      FFMA (scale * log2 e folded in).
-//   5. Pipeline: three stages (four at D = 64) in flight; Q, K and V land
-//      on barriers of their own, so S = Q K^T starts while V is in flight;
-//      no __syncthreads runs in the key loop.
+//   5. Pipeline: three stages (four at D = 64, two at D = 192) in flight;
+//      Q, K and V land on barriers of their own, so S = Q K^T starts while
+//      V is in flight; no __syncthreads runs in the key loop.
 //   6. Host cost: the entry does not switch devices; it encodes three
 //      tensor maps over the strided (B, H, S, D) views as given (the
 //      model's (B, S, H, D) memory is read in place) and launches.
@@ -57,8 +66,9 @@
 //   warps of mma.sync m16n8k16 over 64 x 64 tiles, cp.async double
 //   buffering (the first tensor-core body, kept for the widths the wgmma
 //   body does not take).
-// * flash_fwd_simt — every other case (float32, Dv != D, unaligned views):
-//   float32 FMAs on the CUDA cores from float32 tiles in shared memory.
+// * flash_fwd_simt — every other case (float32, other D != Dv, unaligned
+//   views): float32 FMAs on the CUDA cores from float32 tiles in shared
+//   memory.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -469,38 +479,54 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_mma(Params p) {
 
 
 // ---------------------------------------------------------- wgmma body
-// bf16, D == Dv in {64, 128}. One CTA owns a 128-row query tile of one
-// (batch, query head) and three warpgroups:
+// bf16, (D, Dv) in {(64, 64), (128, 128), (192, 128)}. One CTA owns a
+// 128-row query tile of one (batch, query head) and three warpgroups:
 //   WG 0, 1  consumers: each owns 64 query rows, runs S = Q K^T and
 //            O += P V on wgmma and the online softmax in registers;
 //   WG 2     producer: one thread issues TMA loads of Q (once) and of the
-//            K/V tiles into a ring of WsSmem<D>::STAGES stages.
+//            K/V tiles into a ring of WsSmem<D, DV>::STAGES stages.
 // Shared-memory tiles are TMA boxes of 64 columns (128 bytes) x 128 rows
-// in the 128-byte swizzle; a D-wide tile is D / 64 such boxes one after
-// another. The wgmma descriptors read the same swizzle: Q and K K-major,
-// V MN-major (the transpose bit), so V is never transposed in memory.
+// in the 128-byte swizzle; a Q or K tile is D / 64 such boxes one after
+// another, a V tile DV / 64. The wgmma descriptors read the same swizzle:
+// Q and K K-major, V MN-major (the transpose bit), so V is never
+// transposed in memory.
 constexpr int WS_BQ = 128;                  // query rows per CTA
 constexpr int WS_BK = 128;                  // keys per tile
 constexpr int WS_THREADS = 3 * 128;         // two consumer WGs, one producer WG
 constexpr int WS_CONSUMERS = 2 * 128;
 constexpr uint32_t WS_BOX_BYTES = 128 * 128;  // one 64-column box of 128 rows
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr uint32_t WS_SMEM_MAX = 232448;  // the most shared memory a block may use
 
 // Shared-memory layout, in bytes from a 1024-aligned base: Q, then the
 // ring's (K, V) stages, then the mbarriers (q, k_full[STAGES],
-// v_full[STAGES], empty[STAGES]).
-// D = 128: 32 KB + 3 x 64 KB; D = 64: 16 KB + 4 x 32 KB. Either way more
-// than half the SM's shared memory, so one CTA per SM: the consumers'
-// setmaxnreg.inc can always be granted.
-template <int D>
+// v_full[STAGES], empty[STAGES]). The ring is as deep as the 227 KB a
+// block may use allows (1024 bytes go to aligning the base), at most four
+// stages: D = 64, 16 KB + 4 x 32 KB; D = 128, 32 KB + 3 x 64 KB; D = 192,
+// Dv = 128, 48 KB + 2 x (48 + 32) KB. Each is more than half the SM's
+// shared memory, so one CTA per SM: the consumers' setmaxnreg.inc can
+// always be granted.
+template <int D, int DV>
 struct WsSmem {
-  static constexpr int STAGES = D == 128 ? 3 : 4;            // K/V ring depth
-  static constexpr uint32_t TILE = (D / 64) * WS_BOX_BYTES;  // Q, K or V tile
+  static constexpr uint32_t QK_TILE = (D / 64) * WS_BOX_BYTES;  // a Q or K tile
+  static constexpr uint32_t V_TILE = (DV / 64) * WS_BOX_BYTES;
+  static constexpr int FIT = (WS_SMEM_MAX - 1024 - QK_TILE - 8) / (QK_TILE + V_TILE + 24);
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;  // K/V ring depth
+  static_assert(STAGES >= 1, "one K/V stage must fit beside Q");
   static constexpr uint32_t Q = 0;
-  __host__ __device__ static constexpr uint32_t K(int st) { return TILE * (1 + 2 * st); }
-  __host__ __device__ static constexpr uint32_t V(int st) { return TILE * (2 + 2 * st); }
-  static constexpr uint32_t BAR = TILE * (1 + 2 * STAGES);
+  __host__ __device__ static constexpr uint32_t K(int st) {
+    return QK_TILE + st * (QK_TILE + V_TILE);
+  }
+  __host__ __device__ static constexpr uint32_t V(int st) { return K(st) + QK_TILE; }
+  static constexpr uint32_t BAR = QK_TILE + STAGES * (QK_TILE + V_TILE);
   static constexpr uint32_t BYTES = BAR + 8 * (1 + 3 * STAGES);
+  // Grid order. Heavy first over all heads (the last query tile of every
+  // (batch, head), then the one before, ...) suits GQA, where a K/V tile
+  // serves many query heads. Head-major runs the query tiles of one
+  // (batch, head) side by side, heaviest first, so at MHA with wide heads
+  // (MLA: 128 heads, 320 KB of K and V a head at S = 512) each head's K/V
+  // is read from device memory once and from L2 by the other tiles.
+  static constexpr bool HEAD_MAJOR = D != DV;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -633,13 +659,13 @@ __device__ __forceinline__ float fast_exp2(float x) {
 // tile crosses the diagonal, the window edge or the tail, the online
 // softmax, and O += P V once V has landed (phase `parity` of barrier
 // `v_full`).
-template <int D>
-__device__ __forceinline__ void consume_tile(const Params& p, float (&o)[D / 64][32],
+template <int D, int DV>
+__device__ __forceinline__ void consume_tile(const Params& p, float (&o)[DV / 64][32],
                                              float (&m)[2], float (&l)[2], uint32_t q_rows,
                                              uint32_t k_tile, uint32_t v_tile,
                                              uint32_t v_full, uint32_t parity, int k0,
                                              int r_first, int row0, int tq4) {
-  constexpr int NCB = D / 64;
+  constexpr int NCB = DV / 64;  // 64-column boxes of O and V
   const float sl2 = p.scale * LOG2E;
 
   // S = Q K^T: D / 16 steps of k16; within a box a step is 32 bytes on
@@ -732,13 +758,14 @@ __device__ __forceinline__ void consume_tile(const Params& p, float (&o)[D / 64]
   for (int kk = 0; kk < WS_BK / 16; ++kk) fence_regs(pa[kk]);
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(WS_THREADS, 1)
     flash_fwd_wgmma(const __grid_constant__ Params p, const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv) {
-  using L = WsSmem<D>;
-  constexpr int NCB = D / 64;  // 64-column boxes per row
+  using L = WsSmem<D, DV>;
+  constexpr int NQB = D / 64;   // 64-column boxes per Q or K row
+  constexpr int NCB = DV / 64;  // 64-column boxes per V or O row
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -750,11 +777,17 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   auto v_full = [&](int st) { return base + L::BAR + 8 * (1 + L::STAGES + st); };
   auto empty_bar = [&](int st) { return base + L::BAR + 8 * (1 + 2 * L::STAGES + st); };
 
-  // heavy first: blockIdx.y = 0 takes the last query tile, which under the
-  // causal mask needs the most key tiles, so the longest CTAs start first
-  const int nq = gridDim.y;
-  const int q0 = (nq - 1 - blockIdx.y) * WS_BQ;
-  const int h = blockIdx.x % p.hq, b = blockIdx.x / p.hq;
+  // heavy first: tile 0 is the last query tile, which under the causal
+  // mask needs the most key tiles, so the longest CTAs start first: over
+  // all heads on a (heads, query tiles) grid, or within one head on a 1-D
+  // grid (L::HEAD_MAJOR). On the 2-D grid the tile and head come straight
+  // from the block index: decoding them from a linear index by division
+  // made the D == Dv shapes measurably slower (PERF.md §6).
+  const int nq = L::HEAD_MAJOR ? (p.sq + WS_BQ - 1) / WS_BQ : gridDim.y;
+  const int tile = L::HEAD_MAJOR ? blockIdx.x % nq : blockIdx.y;
+  const int bh = L::HEAD_MAJOR ? blockIdx.x / nq : blockIdx.x;
+  const int q0 = (nq - 1 - tile) * WS_BQ;
+  const int h = bh % p.hq, b = bh / p.hq;
   const int hk = h / (p.hq / p.hkv);
 
   const int q_last = min(q0 + WS_BQ, p.sq) - 1;
@@ -784,17 +817,17 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       prefetch_map(tq);
       prefetch_map(tk);
       prefetch_map(tv);
-      mbar_expect_tx(q_bar, L::TILE);
-      for (int cb = 0; cb < NCB; ++cb)
+      mbar_expect_tx(q_bar, L::QK_TILE);
+      for (int cb = 0; cb < NQB; ++cb)
         tma_load(base + L::Q + cb * WS_BOX_BYTES, tq, cb * 64, q0, h, b, q_bar);
       for (int j = j_begin; j < j_end; ++j) {
         const int it = j - j_begin, st = it % L::STAGES;
         mbar_wait(empty_bar(st), ((it / L::STAGES) & 1) ^ 1);
-        mbar_expect_tx(k_full(st), L::TILE);
-        for (int cb = 0; cb < NCB; ++cb)
+        mbar_expect_tx(k_full(st), L::QK_TILE);
+        for (int cb = 0; cb < NQB; ++cb)
           tma_load(base + L::K(st) + cb * WS_BOX_BYTES, tk, cb * 64, j * WS_BK, hk, b,
                    k_full(st));
-        mbar_expect_tx(v_full(st), L::TILE);
+        mbar_expect_tx(v_full(st), L::V_TILE);
         for (int cb = 0; cb < NCB; ++cb)
           tma_load(base + L::V(st) + cb * WS_BOX_BYTES, tv, cb * 64, j * WS_BK, hk, b,
                    v_full(st));
@@ -824,15 +857,16 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       const uint32_t parity = (it / L::STAGES) & 1;
       mbar_wait(k_full(st), parity);
 
-      consume_tile<D>(p, o, m, l, q_rows, base + L::K(st), base + L::V(st), v_full(st),
+      consume_tile<D, DV>(p, o, m, l, q_rows, base + L::K(st), base + L::V(st), v_full(st),
                       parity, k0, r_first, row0, tq4);
       mbar_arrive(empty_bar(st));  // this stage's K and V are free again
     }
 
     // epilogue: O / l, staged as bf16 in this WG's (now free) Q rows in the
     // same swizzle (16-byte chunk c of row r at chunk c ^ (r % 8): the
-    // fragment stores hit 32 distinct banks), then 16-byte stores in
-    // (B, Sq, Hq, Dv) order, rows past Sq dropped
+    // fragment stores hit 32 distinct banks; O fills the first DV / 64 of
+    // the rows' D / 64 boxes), then 16-byte stores in (B, Sq, Hq, Dv)
+    // order, rows past Sq dropped
     float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -859,7 +893,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     named_sync(WS_EPI_BAR + wg, 128);
     __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
     const unsigned char* stage = base_ptr + L::Q + wg * 64 * 128;
-    constexpr int CH = D / 8;  // 16-byte chunks per row
+    constexpr int CH = DV / 8;  // 16-byte chunks per output row
 #pragma unroll
     for (int i = t; i < 64 * CH; i += 128) {
       const int lr = i / CH, c = i % CH;
@@ -952,7 +986,7 @@ int encode_bhsd(EncodeTiled encode, CUtensorMap* map, const void* ptr, int batch
   return res == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP + static_cast<int>(res);
 }
 
-template <int D>
+template <int D, int DV>
 int launch_wgmma(const Params& p, int batch, cudaStream_t stream) {
   static_assert(WS_BQ == WS_BK, "Q and K/V tiles share one tensor-map box");
   EncodeTiled encode;
@@ -961,14 +995,17 @@ int launch_wgmma(const Params& p, int batch, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if ((rc = encode_bhsd(encode, &tq, p.q, batch, p.hq, p.sq, D, p.q_sb, p.q_sh, p.q_ss)) ||
       (rc = encode_bhsd(encode, &tk, p.k, batch, p.hkv, p.sk, D, p.k_sb, p.k_sh, p.k_ss)) ||
-      (rc = encode_bhsd(encode, &tv, p.v, batch, p.hkv, p.sk, D, p.v_sb, p.v_sh, p.v_ss)))
+      (rc = encode_bhsd(encode, &tv, p.v, batch, p.hkv, p.sk, DV, p.v_sb, p.v_sh, p.v_ss)))
     return rc;
-  const size_t smem = WsSmem<D>::BYTES + 1024;  // + room to align the tiles to 1024
+  const size_t smem = WsSmem<D, DV>::BYTES + 1024;  // + room to align the tiles to 1024
+  static_assert(WsSmem<D, DV>::BYTES + 1024 <= WS_SMEM_MAX, "the ring must fit the block");
   static size_t granted = 48 * 1024;
-  cudaError_t err = grant_smem(flash_fwd_wgmma<D>, smem, granted);
+  cudaError_t err = grant_smem(flash_fwd_wgmma<D, DV>, smem, granted);
   if (err != cudaSuccess) return err;
-  const dim3 grid(batch * p.hq, (p.sq + WS_BQ - 1) / WS_BQ);
-  flash_fwd_wgmma<D><<<grid, WS_THREADS, smem, stream>>>(p, tq, tk, tv);
+  // one CTA per (batch, head, query tile), in the order WsSmem::HEAD_MAJOR names
+  const int nq = (p.sq + WS_BQ - 1) / WS_BQ;
+  const dim3 grid = WsSmem<D, DV>::HEAD_MAJOR ? dim3(batch * p.hq * nq) : dim3(batch * p.hq, nq);
+  flash_fwd_wgmma<D, DV><<<grid, WS_THREADS, smem, stream>>>(p, tq, tk, tv);
   return cudaGetLastError();
 }
 
@@ -998,7 +1035,8 @@ bool vector_aligned(const Params& p) {
 // The body is chosen by the caller (flash_attention.py::body_for):
 // 0 simt (float32 or bfloat16, any D <= 256, Dv in {16, 32, 64, 128}),
 // 1 mma (bfloat16, D == Dv in {16, 32}, rows 16-byte aligned),
-// 2 wgmma (bfloat16, D == Dv in {64, 128}, rows 16-byte aligned).
+// 2 wgmma (bfloat16, (D, Dv) in {(64, 64), (128, 128), (192, 128)}, rows
+//   16-byte aligned).
 // A body asked for a case it does not take returns cudaErrorInvalidValue;
 // nothing here picks another body. dtype: 0 float32, 1 bfloat16. Strides
 // are in elements; the last axis of every tensor is contiguous. window <= 0
@@ -1016,19 +1054,20 @@ extern "C" int repro_flash_attention_fwd(
            q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,   v_sh,   v_ss,
            o_sb, o_sh, o_ss, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool tensor_core = dtype == 1 && d == dv && vector_aligned(p);
+  const bool tensor_core = dtype == 1 && vector_aligned(p);  // the (D, Dv) pair decides
   switch (body) {
     case 0:
       if (dtype == 0) return dispatch_simt<float>(p, batch, dv, s);
       if (dtype == 1) return dispatch_simt<__nv_bfloat16>(p, batch, dv, s);
       return cudaErrorInvalidValue;
     case 1:
-      if (tensor_core && d == 16) return launch_mma<16>(p, batch, s);
-      if (tensor_core && d == 32) return launch_mma<32>(p, batch, s);
+      if (tensor_core && d == 16 && dv == 16) return launch_mma<16>(p, batch, s);
+      if (tensor_core && d == 32 && dv == 32) return launch_mma<32>(p, batch, s);
       return cudaErrorInvalidValue;
     case 2:
-      if (tensor_core && d == 64) return launch_wgmma<64>(p, batch, s);
-      if (tensor_core && d == 128) return launch_wgmma<128>(p, batch, s);
+      if (tensor_core && d == 64 && dv == 64) return launch_wgmma<64, 64>(p, batch, s);
+      if (tensor_core && d == 128 && dv == 128) return launch_wgmma<128, 128>(p, batch, s);
+      if (tensor_core && d == 192 && dv == 128) return launch_wgmma<192, 128>(p, batch, s);
       return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;

@@ -11,26 +11,31 @@ masked, positions contiguous from 0, output in ``v.dtype``.
 What bounds it on the card: at the serving shape (B=4, Hq=16, Hkv=2,
 S=512, D=128, bf16, causal) the least time is the memory side, 18.9 MB
 at 3.35 TB/s = 5.63 µs; the 4.30 causal GFLOP at the bf16 tensor-core
-rate take less. The kernel has three bodies, and :func:`body_for` names
-the one a call takes; the C entry launches exactly that one or fails:
+rate take less. At DeepSeek-V2's MLA prefill (B=4, H=128, S=512, D=192,
+Dv=128) it is the memory side too, 335.5 MB, 100.2 µs. The kernel has
+three bodies, and :func:`body_for` names the one a call takes; the C
+entry launches exactly that one or fails:
 
-* ``"wgmma"`` — bf16, D == Dv in {64, 128}, rows 16-byte aligned (the
-  serving path). A 128-row query tile per CTA: one producer thread loads
-  Q once and 128-key K/V tiles into a shared-memory ring of three stages
-  (four at D = 64) by TMA, with mbarriers, while two consumer warpgroups
-  of 64 rows run S = Q·Kᵀ and O += P·V on ``wgmma`` (V read through the
-  descriptor's transpose bit, P from registers) and the online softmax
-  in f32 registers (``exp2`` of one FFMA; the mask only on tiles that
-  cross the diagonal, the window edge or the tail); ``setmaxnreg`` moves
-  registers from the producer to the consumers;
-  causal tiles run heaviest first; O leaves through shared memory in
-  16-byte stores. The tensor maps are built over the strided views as
-  given, so the model's (B, S, H, D) memory is read in place; the entry
-  does no device switch.
+* ``"wgmma"`` — bf16, (D, Dv) in {(64, 64), (128, 128), (192, 128)},
+  rows 16-byte aligned (the serving path, and MLA's D = qk_nope + qk_rope
+  = 192 with Dv = 128). A 128-row query tile per CTA: one producer thread
+  loads Q once and 128-key K/V tiles into a shared-memory ring as deep as
+  227 KB allows (four stages at D = 64, three at 128, two at 192) by TMA,
+  with mbarriers, while two consumer warpgroups of 64 rows run S = Q·Kᵀ
+  and O += P·V on ``wgmma`` (V read through the descriptor's transpose
+  bit, P from registers) and the online softmax in f32 registers
+  (``exp2`` of one FFMA; the mask only on tiles that cross the diagonal,
+  the window edge or the tail); ``setmaxnreg`` moves registers from the
+  producer to the consumers; causal tiles run heaviest first (at D = 192
+  within each head, so a head's query tiles share its K/V through L2); O
+  leaves through shared memory in 16-byte stores. The tensor maps are
+  built over the strided views as given, so the model's (B, S, H, D)
+  memory (and MLA's V, the Dv half of the expanded latent) is read in
+  place; the entry does no device switch.
 * ``"mma"`` — bf16, D == Dv in {16, 32}, aligned: ``mma.sync`` m16n8k16
   with ``cp.async`` double buffering over 64 × 64 tiles.
-* ``"simt"`` — everything else (float32, Dv != D, unaligned views):
-  float32 FMAs on the CUDA cores.
+* ``"simt"`` — everything else (float32, other (D, Dv) pairs, unaligned
+  views): float32 FMAs on the CUDA cores.
 
 A query row that sees no key (a window with Sq ≥ Sk + window) gets
 ``attention_ref``'s answer on every body, the mean of V over the Sk keys:
@@ -58,7 +63,9 @@ NAME = "flash_attention"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 VALUE_HEAD_DIMS = (16, 32, 64, 128)  # instantiated in the CUDA source
 BODIES = ("simt", "mma", "wgmma")  # the C entry's body codes 0, 1, 2
-_TENSOR_CORE_DIMS = {"mma": (16, 32), "wgmma": (64, 128)}
+# (D, Dv) pairs each tensor-core body is instantiated for in the CUDA source
+_TENSOR_CORE_DIMS = {"mma": {(16, 16), (32, 32)},
+                     "wgmma": {(64, 64), (128, 128), (192, 128)}}
 MAX_HEAD_DIM = 256  # keeps the shared-memory tiles under the 227 KB a block may use
 
 _ARGTYPES = (
@@ -98,14 +105,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window) -> None:
 
 def body_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window=None) -> str:
     """The body of the kernel that (B, H, S, D) inputs take: ``"wgmma"``
-    for bf16 with D == Dv in {64, 128}, ``"mma"`` for bf16 with D == Dv in
-    {16, 32}, each only where every base pointer is 16-byte aligned and
-    every stride is a positive multiple of 8 elements with the last axis
-    contiguous (TMA boxes and 16-byte vectors); ``"simt"`` otherwise. Every
-    body takes the causal mask and any ``window``, so the window does not
-    decide."""
-    d, dv = q.shape[-1], v.shape[-1]
-    if q.dtype != torch.bfloat16 or d != dv:
+    for bf16 with (D, Dv) in {(64, 64), (128, 128), (192, 128)}, ``"mma"``
+    for bf16 with (D, Dv) in {(16, 16), (32, 32)}, each only where every
+    base pointer is 16-byte aligned and every stride is a positive
+    multiple of 8 elements with the last axis contiguous (TMA boxes and
+    16-byte vectors); ``"simt"`` otherwise. Every body takes the causal
+    mask and any ``window``, so the window does not decide."""
+    dims = (q.shape[-1], v.shape[-1])
+    if q.dtype != torch.bfloat16:
         return "simt"
     aligned = all(
         t.data_ptr() % 16 == 0 and t.stride(-1) == 1
@@ -113,8 +120,8 @@ def body_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window=None) -> 
         for t in (q, k, v)
     )
     if aligned:
-        for body, dims in _TENSOR_CORE_DIMS.items():
-            if d in dims:
+        for body, pairs in _TENSOR_CORE_DIMS.items():
+            if dims in pairs:
                 return body
     return "simt"
 

@@ -4,9 +4,10 @@ counterpart of ``repro/models/mla.py``).
 Prefill: the latent is expanded to per-head K/V and goes through the
 port's ``attention``, so with ``use_kernels`` it reaches the flash
 attention kernel with D = qk_nope + qk_rope (192 for DeepSeek-V2) and
-Dv = v_head_dim (128): the kernel's ``simt`` body, the one that takes
-Dv != D. V is a view of the expanded (B, S, H, nope + Dv) tensor, read in
-place with its row stride. Decode: the reference's matrix-absorption
+Dv = v_head_dim (128): in bf16 the kernel's ``wgmma`` body, instantiated
+for that (D, Dv) pair (other pairs, and float32, take its ``simt`` body).
+V is a view of the expanded (B, S, H, nope + Dv) tensor, read in place
+with its row stride. Decode: the reference's matrix-absorption
 form, in float32: scores against the cached latent plus the shared RoPE
 key, so a token costs O(W·r) rather than O(W·H·d). The cache holds only
 (latent, k_rope), kv_lora_rank + qk_rope_head_dim values a token.

@@ -166,10 +166,26 @@ def _one_in(b, h, s, d):
     return torch.zeros((b, h, s, d + 1), dtype=torch.bfloat16)[..., 1:]
 
 
+def _mla_views(b, s, h, dtype=torch.bfloat16, pad=0):
+    """q, k and v as models/mla.py hands them to the kernel at DeepSeek-V2's
+    head widths (qk_nope 128, qk_rope 64, v 128), seen as (B, H, S, D): q
+    and k concatenated, v the Dv half of the expanded (B, S, H, 256)
+    latent (row stride H * 256). ``pad`` widens the latent by that many
+    columns ahead of v, so v's rows lose their 16-byte alignment."""
+    dn, dr, dv = 128, 64, 128
+    kv = torch.zeros((b, s, h, dn + pad + dv), dtype=dtype)
+    k_nope, v = kv[..., :dn], kv[..., dn + pad:]
+    q = torch.cat([torch.zeros((b, s, h, dn), dtype=dtype),
+                   torch.zeros((b, s, h, dr), dtype=dtype)], dim=-1)
+    k = torch.cat([k_nope, torch.zeros((b, s, 1, dr), dtype=dtype).expand(b, s, h, dr)], dim=-1)
+    return tuple(t.transpose(1, 2) for t in (q, k, v))
+
+
 # (q, k, v, window, body): the serving shape (Qwen2.5-3B prefill, B=4,
 # Hq=16, Hkv=2, S=512, D=128) contiguous and in the model's views, D = 64
-# with a window (Hymba's widths), D = 32 (the mma body's widths), and the
-# cases no tensor-core body takes
+# with a window (Hymba's widths), D = 32 (the mma body's widths),
+# DeepSeek-V2's MLA widths (D = 192, Dv = 128) contiguous and in the
+# model's views, and the cases no tensor-core body takes
 BODY_CASES = [
     ("serving-contiguous", lambda: (_bhsd(4, 16, 512, 128), _bhsd(4, 2, 512, 128),
                                     _bhsd(4, 2, 512, 128)), None, "wgmma"),
@@ -178,6 +194,15 @@ BODY_CASES = [
     ("d64-window", lambda: (_bhsd(1, 25, 96, 64), _bhsd(1, 5, 96, 64), _bhsd(1, 5, 96, 64)),
      1024, "wgmma"),
     ("d32", lambda: (_bhsd(1, 4, 64, 32), _bhsd(1, 2, 64, 32), _bhsd(1, 2, 64, 32)), None, "mma"),
+    ("mla-contiguous", lambda: (_bhsd(2, 8, 64, 192), _bhsd(2, 8, 64, 192), _bhsd(2, 8, 64, 128)),
+     None, "wgmma"),
+    ("mla-model-views", lambda: _mla_views(2, 64, 8), None, "wgmma"),
+    ("mla-float32", lambda: _mla_views(2, 64, 8, torch.float32), None, "simt"),
+    ("d192-dv64", lambda: (_bhsd(2, 8, 64, 192), _bhsd(2, 8, 64, 192), _bhsd(2, 8, 64, 64)),
+     None, "simt"),
+    ("d160-dv128", lambda: (_bhsd(2, 8, 64, 160), _bhsd(2, 8, 64, 160), _bhsd(2, 8, 64, 128)),
+     None, "simt"),
+    ("mla-unaligned", lambda: _mla_views(2, 64, 8, pad=1), None, "simt"),
     ("float32", lambda: (_bhsd(1, 4, 64, 128, torch.float32), _bhsd(1, 2, 64, 128, torch.float32),
                          _bhsd(1, 2, 64, 128, torch.float32)), None, "simt"),
     ("dv-not-d", lambda: (_bhsd(1, 4, 64, 64), _bhsd(1, 2, 64, 64), _bhsd(1, 2, 64, 128)),
@@ -264,7 +289,9 @@ def test_ablation_variants_take_out_what_they_name():
     assert "fast_exp2(fmaf(s[i]" in src and "fast_exp2(fmaf(s[i]" not in v["no softmax"]
     assert "wgmma_n64_rs(o[cb]" in src and "wgmma_n64_rs(o[cb]" not in v["no products"]
     assert "wgmma_n128_ss(s," not in v["no products"]
-    assert "D == 128 ? 2 : 4" in v["two stages"] and "D == 128 ? 2 : 4" not in src
+    assert "(FIT < 4 ? FIT : 4) - 1;" in v["one stage fewer"]
+    assert "(FIT < 4 ? FIT : 4) - 1;" not in src
+    assert "HEAD_MAJOR = D == DV;" in v["grid order flipped"] and "HEAD_MAJOR = D != DV;" in src
 
 
 @pytest.mark.parametrize("tile", [16, 32])

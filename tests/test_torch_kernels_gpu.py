@@ -40,6 +40,8 @@ one capture per pool entry, an entry-less cache refused by a graphed
 engine, and the runtime's tokens through graphs equal to its tokens
 through the eager step.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -84,8 +86,16 @@ SWEEP = [
     (4, 16, 2, 8, 128, 128, True, None),  # Qwen2.5-3B prompts of the control loop's trace,
     (4, 16, 2, 32, 128, 128, True, None),  # of WalltimeDevice's probe and of the tau probe:
     (4, 16, 2, 64, 128, 128, True, None),  # one query and one key tile hold the whole prompt
-    (4, 128, 128, 512, 192, 128, True, None),  # DeepSeek-V2 MLA prefill: D 192 != Dv 128 (simt)
+    (4, 128, 128, 512, 192, 128, True, None),  # DeepSeek-V2 MLA prefill: D 192, Dv 128
+    (2, 8, 8, 8, 192, 128, True, None),  # MLA widths: one query and one key tile, mostly empty
+    (2, 8, 8, 32, 192, 128, True, None),
+    (2, 8, 8, 300, 192, 128, True, None),  # ragged tail in the query and key tiles
+    (2, 8, 8, 200, 192, 128, False, None),  # bidirectional, ragged
+    (1, 8, 8, 2048, 192, 128, True, None),  # 16 key tiles through a ring of two stages
+    (2, 16, 2, 256, 192, 128, True, None),  # GQA at the MLA widths
 ]
+# (D, Dv) pairs the tensor-core bodies take in bf16 (flash_attention.py)
+WGMMA_DIMS = {(64, 64), (128, 128), (192, 128)}
 
 
 @pytest.fixture
@@ -111,8 +121,8 @@ def _inputs(device, dtype, b, hq, hkv, s, d, dv):
 def test_flash_kernel_matches_ref(cuda, b, hq, hkv, s, d, dv, causal, window, dtype):
     q, k, v = _inputs(cuda, dtype, b, hq, hkv, s, d, dv)
     body = body_for(q, k, v, window)
-    assert body == ("wgmma" if dtype == torch.bfloat16 and d == dv and d >= 64 else
-                    "mma" if dtype == torch.bfloat16 and d == dv else "simt")
+    assert body == ("simt" if dtype != torch.bfloat16 else
+                    "wgmma" if (d, dv) in WGMMA_DIMS else "mma" if d == dv else "simt")
     before = runtime.launch_counts()["flash_attention"]
     before_body = body_launches()[body]
     out = flash_attention_bhsd(q, k, v, causal=causal, window=window)
@@ -165,12 +175,13 @@ def test_models_strided_views_through_the_wgmma_body(cuda, monkeypatch):
 
 
 @pytest.mark.gpu
-def test_mla_strided_views_through_the_simt_body(cuda, monkeypatch):
+def test_mla_strided_views_through_the_wgmma_body(cuda, monkeypatch):
     """q, k and v as models/mla.py makes them at DeepSeek-V2's widths (128
     heads, D = 128 + 64, Dv = 128): q and k concatenated, v the Dv half of
     the expanded (B, S, H, 256) latent, row stride H * 256. They go
-    through ``flash_attention`` on the simt body, read in place, and agree
-    with the plain route on the same views."""
+    through ``flash_attention`` on the wgmma body, V read in place by TMA
+    at its 256-byte offset, and agree with the plain route on the same
+    views."""
     rng = np.random.default_rng(3)
     b, s, h, dn, dr, dv = 2, 256, 128, 128, 64, 128
 
@@ -183,11 +194,11 @@ def test_mla_strided_views_through_the_simt_body(cuda, monkeypatch):
     k = torch.cat([k_nope, t(b, s, 1, dr).expand(b, s, h, dr)], dim=-1)
     assert v.stride(1) == h * (dn + dv) and not v.is_contiguous()
     qg = q.reshape(b, s, h, 1, dn + dr)
-    assert body_for(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)) == "simt"
-    before = body_launches()["simt"]
+    assert body_for(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)) == "wgmma"
+    before = body_launches()["wgmma"]
     out = flash_attention(qg, k, v)
     torch.cuda.synchronize()
-    assert body_launches()["simt"] == before + 1 and out.shape == (b, s, h, 1, dv)
+    assert body_launches()["wgmma"] == before + 1 and out.shape == (b, s, h, 1, dv)
     monkeypatch.setattr(fa_ops, "flash_attention_bhsd", attention_ref)
     ref = flash_attention(qg, k, v)
     torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=0)
@@ -217,6 +228,25 @@ def test_flash_rows_that_see_no_key(cuda, d, dtype):
     mean = v.float().mean(dim=2).repeat_interleave(hq // hkv, dim=1)
     torch.testing.assert_close(out[:, :, blind:].float(),
                                mean[:, :, None].expand(-1, -1, sq - blind, -1), atol=atol, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_simt_body_still_computes_the_mla_widths(cuda, monkeypatch, causal):
+    """D = 192, Dv = 128 in bf16 forced onto the simt body (body_for names
+    wgmma there): the generic body stays held to attention_ref at the
+    widths that no longer reach it on the serving path."""
+    fa_module = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
+    q, k, v = _inputs(cuda, torch.bfloat16, 2, 8, 8, 300, 192, 128)
+    assert body_for(q, k, v) == "wgmma"
+    monkeypatch.setattr(fa_module, "body_for", lambda *a: "simt")
+    before = body_launches()
+    out = flash_attention_bhsd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    after = body_launches()
+    assert after["simt"] == before["simt"] + 1 and after["wgmma"] == before["wgmma"]
+    torch.testing.assert_close(out.float(), attention_ref(q, k, v, causal=causal).float(),
+                               atol=3e-2, rtol=0)
 
 
 @pytest.mark.gpu
