@@ -4,10 +4,14 @@ GPU, from the root of a checkout:
 
     python3 chip_smoke.py
 
-Six main paths, each at full size through its kernels (the fifth is the
-serving control loop, CORAL tuning live Qwen2.5-3B traffic, phase 6; the
-sixth, Moonlight-16B-A3B served at full width and depth and DeepSeek-V2's
-MLA at full width, its depth cut to 2 layers, phases 3 and 4):
+Seven main paths, each at full size through its kernels (the fifth is
+the serving control loop, CORAL tuning live Qwen2.5-3B traffic, phase 6;
+the sixth, Moonlight-16B-A3B served at full width and depth and
+DeepSeek-V2's MLA at full width, its depth cut to 2 layers, phases 3 and
+4; the seventh, Whisper-medium's encoder-decoder path at full width and
+depth through ``ServingEngine.generate`` with its encoder features, and
+Qwen2-VL-72B's M-RoPE at full width, its depth cut to 8 layers, served
+text-only by ``serve()``, phases 2–5):
 Qwen2.5-3B served at full width (prefill attention through
 ``flash_attention``), Mamba2-2.7B
 served at full width (the SSD chunked scan through ``ssd_scan``), the
@@ -44,8 +48,11 @@ Phases, each of which exits non-zero on failure:
    DeepSeek-V2's MLA shape (B=4, H=128, S=512, D=192, Dv=128; contiguous
    and as the model's strided views, v the Dv half of the expanded
    latent, row stride H * 256: the ``wgmma`` and ``simt`` bodies each
-   held to ``attention_ref``, then timed in turns), SDPA beside each as a
-   yardstick;
+   held to ``attention_ref``, then timed in turns), at Whisper-medium's
+   encoder (B=4, H=16, S=1500, D=64, bidirectional), its cross attention
+   (Sq=128 over Sk=1500, non-causal; Sq in {1, 64, 128, 200} at D = 64
+   and 128 held to ``attention_ref`` first) and Qwen2-VL-72B's prefill
+   (B=4, Hq=64, Hkv=8, S=512, D=128), SDPA beside each as a yardstick;
    ``ssd_scan`` against
    ``ssd_ref`` in float32 and bfloat16, with a ragged tail, an initial
    state, 16 chunks at S=4096 and chunk 64 at S=1000, and the model's
@@ -98,7 +105,11 @@ Phases, each of which exits non-zero on failure:
    prefill, every flash launch held to ``attention_ref`` on its own inputs
    (48 for Moonlight, 2 for DeepSeek-V2, all on the ``wgmma`` body, which
    ``flash_body`` must find ``body_for`` naming), logits within 5e-2 × max|logit| of
-   the plain route (Qwen2.5-3B's prefill is held the same way); Moonlight
+   the plain route (Qwen2.5-3B's prefill is held the same way, and so are
+   Whisper-medium's, 4 x 128 with 1500 encoder frames of ``enc_feats``:
+   72 launches, encoder, self and cross attention, and Qwen2-VL-72B's at
+   8 layers, 4 x 512 with the first 256 positions ``vision_embeds``: 8
+   launches; the stub inputs drawn at EXTRAS_STD); Moonlight
    over four prompts (``LOGIT_SEEDS``), each within ``LOGIT_REL_TOL`` ×
    max|logit| and their mean gap within ``CONTROL_RATIO`` × that of the
    plain route summed in other orders (the controls), and in float32
@@ -132,14 +143,21 @@ Phases, each of which exits non-zero on failure:
    launch counts reset just before and read just after each model's runs;
    each model's kernels must have launched once per layer and prefill, on
    the bodies their shapes take (Qwen2.5-3B: 36 flash; Mamba2-2.7B: 64 SSD;
-   Hymba-1.5B: 32 flash and 32 SSD; Moonlight-16B-A3B: 48 flash; all
-   ``wgmma``), and each decode must have gone
+   Hymba-1.5B: 32 flash and 32 SSD; Moonlight-16B-A3B: 48 flash;
+   Qwen2-VL-72B at 8 layers, text-only: 8 flash; all ``wgmma``), and
+   each decode must have gone
    through the engine's CUDA graphs, one capture per pool entry (c entries
-   at concurrency c), not one per step. Then, per model at full width
-   (DeepSeek-V2 too, at 2 layers), 16 greedy decode steps after one 4 x
-   512 prefill through the graph and through the eager step over the same
-   weights: logits bitwise equal; the two prefills' launches counted and
-   checked by body.
+   at concurrency c), not one per step. Whisper-medium, which the runtime
+   does not serve (it takes no encoder features, as the reference's does
+   not), runs ``ServingEngine.generate`` (4 x 128, 32 new tokens, its
+   ``enc_feats``) with its counts reset before and read after: 72 flash
+   launches, one capture. Then, per model at full width (DeepSeek-V2 too,
+   at 2 layers, Qwen2-VL-72B at 8), 16 greedy decode steps after one 4 x
+   512 prefill (Whisper: 4 x 128) through the graph and through the eager
+   step over the same weights: logits bitwise equal; for Whisper and
+   Qwen2-VL with their stub inputs, and ``generate`` with them on both
+   engines giving the same greedy tokens; the prefills' launches counted
+   and checked by body.
    For Qwen2.5-3B then the τ-vs-concurrency probe over c in 1 ... 5
    (``tpu_pod_space``'s values), graphed and eager engines in turns,
    after one prefill at its prompt length (64) with every flash launch
@@ -159,7 +177,9 @@ Phases, each of which exits non-zero on failure:
    share, and the heaviest kernels; every flash and SSD launch of the
    profiled prefills there on the ``wgmma`` bodies, one per layer (36 for
    Qwen, 64 for Mamba2, 32 of each for Hymba), with the device time of
-   each of the SSD body's three kernels; for Moonlight-16B-A3B the
+   each of the SSD body's three kernels; Qwen2-VL-72B's (8 layers, its
+   vision embeds) and Whisper-medium's (4 x 128, the encoder's 1500
+   frames included) likewise; for Moonlight-16B-A3B the
    compute-all expert GEMMs (``moe._experts``) named by their kernels and
    timed per layer at 4 and 2048 tokens, and the decode step's
    weight-read bound; DeepSeek-V2's 2-layer prefill (4 x 512) under each
@@ -207,13 +227,31 @@ SSM_ARCH = "mamba2-2.7b"
 HYBRID_ARCH = "hymba-1.5b"
 MOE_ARCH = "moonshot-v1-16b-a3b"  # 28.4 B parameters, 56.8 GB in bf16: full width and depth
 MLA_ARCH = "deepseek-v2-236b"  # 471 GB in bf16: full width, depth cut (DEPTH_CUT)
-DEPTH_CUT = {MLA_ARCH: 2}  # the dense layer 0 and one MoE layer of 160 experts: 5.4 B parameters
+VLM_ARCH = "qwen2-vl-72b"  # M-RoPE; 145 GB in bf16: full width, depth cut (DEPTH_CUT)
+AUDIO_ARCH = "whisper-medium"  # encoder-decoder, 0.81 B parameters: full width and depth
+# DeepSeek-V2: the dense layer 0 and one MoE layer of 160 experts, 5.4 B parameters;
+# Qwen2-VL-72B: 8 of its 80 layers, 9.5 B parameters (0.878 B a layer, 2.49 B embedding + head)
+DEPTH_CUT = {MLA_ARCH: 2, VLM_ARCH: 8}
+# the decoder prompt of each model's full-width checks (Whisper's decoder context is 448)
+PROMPT_LEN = {AUDIO_ARCH: 128}
+# the stub front ends' inputs (``multimodal_extras``) at normal(0, 1): the reference's
+# 0.02 would leave Whisper's encoder rows near-identical (its sinusoidal positions are the
+# same in every row), and a kernel that mixed rows up would not show
+EXTRAS_STD = 1.0
 FULL_TREE_GB = 56.8  # one full-width Moonlight parameter tree in bf16; two do not fit the card
 HYBRID_REDUCED_LAYERS = 4  # reduced() has 2, both global; with 4, layer 1 slides a window
 HYBRID_PREFILL = (2, 2048)  # the full-width check: windows of 1024 mask, 8 SSD chunks
 SERVE_SHAPE = dict(b=4, hq=16, hkv=2, s=512, d=128, dv=128, causal=True, window=None)
 # DeepSeek-V2's MLA prefill (B=4 x 512): D = 128 + 64, Dv = 128, the wgmma body
 MLA_FLASH = dict(b=4, hq=128, hkv=128, s=512, d=192, dv=128, causal=True, window=None)
+# Whisper-medium's encoder (B=4 x 1500 frames, MHA, bidirectional: a 92-row tail in
+# the query and the key tiles) and Qwen2-VL-72B's prefill (B=4 x 512, group 8)
+WHISPER_FLASH = dict(b=4, hq=16, hkv=16, s=1500, d=64, dv=64, causal=False, window=None)
+QWEN_VL_FLASH = dict(b=4, hq=64, hkv=8, s=512, d=128, dv=128, causal=True, window=None)
+# Whisper's cross attention: the decoder's Sq queries over Sk = 1500 encoder frames,
+# non-causal, Sq < Sk; (b, h, sq, sk, d): the card tests' cases, then the serving shape
+CROSS_SWEEP = [(2, 16, sq, 1500, d) for sq in (1, 64, 128, 200) for d in (64, 128)]
+WHISPER_CROSS = (4, 16, 128, 1500, 64)
 SWEEP = [  # the card tests' sweep (tests/test_torch_kernels_gpu.py), then the serving shape
     dict(b=1, hq=2, hkv=2, s=64, d=32, dv=32, causal=True, window=None),
     dict(b=2, hq=4, hkv=2, s=96, d=32, dv=32, causal=True, window=None),
@@ -242,6 +280,8 @@ SWEEP = [  # the card tests' sweep (tests/test_torch_kernels_gpu.py), then the s
     dict(b=2, hq=8, hkv=8, s=200, d=192, dv=128, causal=False, window=None),
     dict(b=1, hq=8, hkv=8, s=2048, d=192, dv=128, causal=True, window=None),
     dict(b=2, hq=16, hkv=2, s=256, d=192, dv=128, causal=True, window=None),
+    WHISPER_FLASH,
+    QWEN_VL_FLASH,
 ]
 # (D, Dv) pairs of the flash kernel's tensor-core bodies in bf16, with
 # 16-byte aligned rows (flash_attention.py::body_for); the rest is simt
@@ -472,12 +512,14 @@ def ptxas_report(log, needle):
     return out
 
 
-def flash_work(b, hq, hkv, s, d, dv, causal):
+def flash_work(b, hq, hkv, s, d, dv, causal, sk=None):
     """Bytes the function must move (q, k, v read once, the output written
     once, bf16) and its operations: 2 (D + Dv) per visible (query, key)
-    pair, causal pairs only where causal."""
-    pairs = s * (s + 1) // 2 if causal else s * s
-    nbytes = 2 * (b * hq * s * d + b * hkv * s * (d + dv) + b * hq * s * dv)
+    pair, causal pairs only where causal; ``sk`` keys (``s`` by default)
+    for the ``s`` queries."""
+    sk = s if sk is None else sk
+    pairs = s * (s + 1) // 2 if causal else s * sk
+    nbytes = 2 * (b * hq * s * d + b * hkv * sk * (d + dv) + b * hq * s * dv)
     return nbytes, 2.0 * (d + dv) * pairs * b * hq
 
 
@@ -496,7 +538,7 @@ def flash_times(torch, q, k, v, label, causal=True):
     library_ms = device_ms(sdpa)
     lib_err = (sdpa().float() - attention_ref(q, k, v, causal=causal).float()).abs().max().item()
     b, hq, s, d = q.shape
-    nbytes, flops = flash_work(b, hq, k.shape[1], s, d, v.shape[3], causal)
+    nbytes, flops = flash_work(b, hq, k.shape[1], s, d, v.shape[3], causal, sk=k.shape[2])
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
     bound_ms = max(t_bytes, t_ops)
     say(f"  flash {label} ({body_for(q, k, v)} body): kernel {ms:.4f} ms, SDPA {library_ms:.4f} ms "
@@ -571,9 +613,66 @@ def phase_flash_check(torch):
                 "window of 1024 masks nothing at S=512), contiguous")
     del q, k, v
     mla = mla_flash_times(torch)
+    new_rows = {"whisper_encoder": shape_times(
+                    torch, WHISPER_FLASH, len(SWEEP) + 5,
+                    "Whisper-medium encoder (B=4, H=16, S=1500, D=64, bidirectional)"),
+                "whisper_cross": cross_flash_check(torch),
+                "qwen2_vl": shape_times(torch, QWEN_VL_FLASH, len(SWEEP) + 6,
+                                        "Qwen2-VL-72B (B=4, Hq=64, Hkv=8, S=512, D=128)")}
     torch.cuda.empty_cache()
     return {"max_abs_err": worst[("bfloat16", len(SWEEP))], "plain_ms": plain_ms, **row,
-            "mla": mla}
+            "mla": mla, **new_rows}
+
+
+def shape_times(torch, shp, seed, label):
+    """The plain version's, the kernel's and SDPA's device times at one
+    (B, H, S, D) shape in bf16, contiguous, with the bound."""
+    from repro_torch.kernels.flash_attention import attention_ref
+
+    q, k, v = attention_inputs(torch, torch.bfloat16, shp["b"], shp["hq"], shp["hkv"], shp["s"],
+                               shp["d"], shp["dv"], seed=seed)
+    plain_ms = device_ms(lambda: attention_ref(q, k, v, causal=shp["causal"]))
+    say(f"  flash plain version at the {label} shape: {plain_ms:.4f} ms")
+    row = flash_times(torch, q, k, v, f"{label}, contiguous", causal=shp["causal"])
+    return {**row, "plain_ms": plain_ms}
+
+
+def cross_flash_check(torch):
+    """Whisper's cross attention, non-causal with Sq < Sk = 1500: each
+    CROSS_SWEEP case and the serving shape WHISPER_CROSS on the wgmma body
+    against ``attention_ref``, then the times at the serving shape."""
+    import numpy as np
+
+    from repro_torch.kernels.flash_attention import (
+        attention_ref,
+        body_for,
+        body_launches,
+        flash_attention_bhsd,
+    )
+
+    for i, (b, h, sq, sk, d) in enumerate(CROSS_SWEEP + [WHISPER_CROSS]):
+        rng = np.random.default_rng(100 + i)
+        q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                   .to("cuda", torch.bfloat16)
+                   for shape in ((b, h, sq, d), (b, h, sk, d), (b, h, sk, d)))
+        body = body_for(q, k, v)
+        before = body_launches()["wgmma"]
+        out = flash_attention_bhsd(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        err = (out.float() - attention_ref(q, k, v, causal=False).float()).abs().max().item()
+        ok = body == "wgmma" and body_launches()["wgmma"] == before + 1 and \
+            err <= ATOL["bfloat16"]
+        say(f"  flash bf16 cross attention (B={b}, H={h}, Sq={sq}, Sk={sk}, D={d}, non-causal, "
+            f"{body} body): max_abs_err {err:.3g} (tol {ATOL['bfloat16']}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"flash cross attention at Sq={sq}, Sk={sk}, D={d}: not on the wgmma body, no "
+                 f"launch, or max_abs_err {err:.3g} against attention_ref")
+    plain_ms = device_ms(lambda: attention_ref(q, k, v, causal=False))
+    label = f"Whisper-medium cross attention (B={b}, H={h}, Sq={sq}, Sk={sk}, D={d})"
+    say(f"  flash plain version at the {label} shape: {plain_ms:.4f} ms")
+    row = flash_times(torch, q, k, v, f"{label}, contiguous", causal=False)
+    return {**row, "plain_ms": plain_ms}
 
 
 def mla_flash_times(torch):
@@ -1124,7 +1223,8 @@ def phase_dcov_check(torch):
 
 def full_config(arch):
     """The full-width configuration of ``arch`` this script runs: every
-    model at full depth but DeepSeek-V2, cut to DEPTH_CUT layers."""
+    model at full depth but DeepSeek-V2 and Qwen2-VL-72B, cut to
+    DEPTH_CUT layers."""
     from repro_torch.configs.registry import get_config
 
     cfg = get_config(arch)
@@ -1136,10 +1236,40 @@ def full_config(arch):
 def launches_per_prefill(arch):
     """(flash, SSD) launches one prefill of ``arch`` (``full_config``) makes:
     one per attention layer, prologue included, and one per Mamba2 layer
-    (a hybrid layer has both)."""
+    (a hybrid layer has both); an encoder-decoder model's encoder layers
+    one each, its decoder layers two (self and cross attention)."""
     cfg = full_config(arch)
-    return (0 if cfg.arch_type == "ssm" else cfg.n_layers,
-            cfg.n_layers if cfg.arch_type in ("ssm", "hybrid") else 0)
+    flash = 0 if cfg.arch_type == "ssm" else cfg.n_layers
+    if cfg.is_encoder_decoder:
+        flash = 2 * cfg.n_layers + cfg.n_encoder_layers
+    return flash, cfg.n_layers if cfg.arch_type in ("ssm", "hybrid") else 0
+
+
+def prompt_len(arch):
+    """The prompt of ``arch``'s full-width prefill checks (PROMPT_LEN)."""
+    return PROMPT_LEN.get(arch, 512)
+
+
+def model_batch(torch, cfg, seed, b, s, device="cuda"):
+    """A prefill batch of ``cfg``'s model: (b, s) tokens from a numpy
+    seed and the model's stub front-end inputs (``multimodal_extras`` at
+    EXTRAS_STD, the same seed): Whisper's encoder features, Qwen2-VL's
+    vision embeds, nothing for the others."""
+    import numpy as np
+
+    from repro_torch.launch.serve import multimodal_extras
+
+    tok = np.random.default_rng(seed).integers(0, cfg.vocab, (b, s), dtype=np.int32)
+    batch = {"tokens": torch.from_numpy(tok)}
+    for name, a in multimodal_extras(cfg, b, seed, EXTRAS_STD).items():
+        batch[name] = torch.from_numpy(a)
+    return {name: t.to(device) for name, t in batch.items()}
+
+
+def extras_of(batch):
+    """The front-end inputs of a ``model_batch``, for an engine's
+    ``prefill`` / ``generate``."""
+    return {k: v for k, v in batch.items() if k != "tokens"} or None
 
 
 def flash_body(torch, arch):
@@ -1195,8 +1325,6 @@ def reduced_config(arch):
 
 
 def phase_slice_check(torch, arch, reduced_len):
-    import numpy as np
-
     from repro_torch.configs.runtime import RunConfig
     from repro_torch.kernels import runtime
     from repro_torch.models.transformer import ApplyCtx, init_model_params, prefill
@@ -1206,11 +1334,11 @@ def phase_slice_check(torch, arch, reduced_len):
     cfg = reduced_config(arch)
     ctx = ApplyCtx(cfg, RunConfig(compute_dtype="float32", use_kernels=True))
     params = init_model_params(cfg, ctx.rcfg, torch.Generator().manual_seed(0), "cpu")
-    tokens = np.random.default_rng(0).integers(0, cfg.vocab, (2, reduced_len), dtype=np.int32)
+    batch = model_batch(torch, cfg, 0, 2, reduced_len, "cpu")
     with torch.inference_mode():
-        _, cpu = prefill(ctx, params, {"tokens": torch.from_numpy(tokens)})
+        _, cpu = prefill(ctx, params, batch)
         card_params = _to(params, "cuda")
-        _, card = prefill(ctx, card_params, {"tokens": torch.from_numpy(tokens).cuda()})
+        _, card = prefill(ctx, card_params, _to(batch, "cuda"))
     err = (card.cpu() - cpu).abs().max().item()
     say(f"  reduced {arch} ({cfg.n_layers} layers) fp32 prefill (2x{reduced_len}), card vs CPU: "
         f"max_abs_err {err:.3g} (tol {SLICE_FP32_TOL})")
@@ -1240,14 +1368,15 @@ def phase_slice_check(torch, arch, reduced_len):
     check_bodies(arch, len(seeds), f"the full-width {arch} prefills")
     if logits.shape != (4, 1, cfg.vocab) or not torch.isfinite(logits).all():
         fail(f"full-width {arch} prefill logits: shape {tuple(logits.shape)} or non-finite values")
+    s = prompt_len(arch)
     say(f"  full-width {arch} ({cfg.n_layers} layers{', depth cut' if arch in DEPTH_CUT else ''}) "
-        f"bf16 prefills (4x512, prompt seeds {list(seeds)}): {len(worst)} flash launches on the "
-        f"{flash_body(torch, arch)} body, each against attention_ref on its own inputs: worst "
-        f"error / tolerance {max(worst):.3g}")
-    if len(worst) != cfg.n_layers * len(seeds) or not max(worst) <= 1.0:
+        f"bf16 prefills (4x{s}, prompt seeds {list(seeds)}{extras_note(cfg)}): {len(worst)} flash "
+        f"launches on the {flash_body(torch, arch)} body, each against attention_ref on its own "
+        f"inputs: worst error / tolerance {max(worst):.3g}")
+    if len(worst) != launches_per_prefill(arch)[0] * len(seeds) or not max(worst) <= 1.0:
         fail(f"a flash launch inside the full-width {arch} prefill disagrees with attention_ref")
     for r in reads:
-        say(f"  full-width {arch} bf16 prefill (4x512, prompt seed {r['seed']}): max_abs_err "
+        say(f"  full-width {arch} bf16 prefill (4x{s}, prompt seed {r['seed']}): max_abs_err "
             f"{r['kernel']:.4g} vs max|logit| {r['scale']:.4g} (rel tol {tol}), argmax agreement "
             f"{r['agree']:.2f}; controls, the plain route summed in key tiles (blocked_bhsd): "
             + ", ".join(f"{t}: {e:.4g} ({g:.2f})" for t, (e, g) in r["controls"].items()))
@@ -1269,16 +1398,15 @@ def phase_slice_check(torch, arch, reduced_len):
     if arch in F32_LOGITS:  # float32 compute over the same bf16 weights, widened at use
         ctx = ApplyCtx(cfg, RunConfig(param_dtype="bfloat16", compute_dtype="float32",
                                       use_kernels=True))
-        tok = torch.from_numpy(np.random.default_rng(seeds[0]).integers(
-            0, cfg.vocab, (4, 512), dtype=np.int32)).cuda()
+        batch = model_batch(torch, cfg, seeds[0], 4, s)
         with torch.inference_mode():
-            _, via_kernel = prefill(ctx, params, {"tokens": tok})
+            _, via_kernel = prefill(ctx, params, batch)
             with plain_route(arch):
-                _, via_ref = prefill(ctx, params, {"tokens": tok})
+                _, via_ref = prefill(ctx, params, batch)
         if not torch.isfinite(via_kernel).all():
             fail(f"full-width {arch} fp32 prefill logits are not finite")
         err, scale, agree = logits_gap(torch, via_kernel, via_ref)
-        say(f"  full-width {arch} fp32 prefill (4x512, bf16 weights): max_abs_err {err:.4g} vs "
+        say(f"  full-width {arch} fp32 prefill (4x{s}, bf16 weights): max_abs_err {err:.4g} vs "
             f"max|logit| {scale:.4g} (rel tol {PREFILL_REL_TOL}), argmax agreement {agree:.2f}")
         if not err <= PREFILL_REL_TOL * scale:
             fail(f"full-width {arch} fp32 prefill through the kernel disagrees with its plain "
@@ -1288,9 +1416,20 @@ def phase_slice_check(torch, arch, reduced_len):
     torch.cuda.empty_cache()
 
 
+def extras_note(cfg):
+    """What a model's prefill takes beside its tokens, for the log."""
+    if cfg.is_encoder_decoder:
+        return f", enc_feats of {cfg.encoder_seq_len} frames through {cfg.n_encoder_layers} " \
+               "encoder layers"
+    if cfg.n_vision_tokens:
+        return f", the first {cfg.n_vision_tokens} positions vision_embeds"
+    return ""
+
+
 def bf16_logit_readings(torch, ctx, params, seeds, worst):
-    """One 4 x 512 prefill of ``ctx``'s model (full width, on the card) per
-    prompt seed: through the kernel, each flash launch held to
+    """One 4 x ``prompt_len`` prefill of ``ctx``'s model (full width, on
+    the card; with its stub front-end inputs) per prompt seed: through the
+    kernel, each flash launch held to
     ``attention_ref`` on its own inputs (its error / tolerance to
     ``worst``); through its plain version (``plain_route``); and through
     the plain route summed in key tiles of each of CONTROL_TILES
@@ -1301,26 +1440,23 @@ def bf16_logit_readings(torch, ctx, params, seeds, worst):
     agreement); and the first seed's logits through the kernel."""
     import functools
 
-    import numpy as np
-
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models.transformer import prefill
 
     reads, first = [], None
     for seed in seeds:
-        tok = torch.from_numpy(np.random.default_rng(seed).integers(
-            0, ctx.cfg.vocab, (4, 512), dtype=np.int32)).cuda()
+        batch = model_batch(torch, ctx.cfg, seed, 4, prompt_len(ctx.cfg.name))
         with torch.inference_mode():
             with mock.patch.object(fa_ops, "flash_attention_bhsd",
                                    flash_held_to_plain(torch, worst, [])):
-                _, via_kernel = prefill(ctx, params, {"tokens": tok})
+                _, via_kernel = prefill(ctx, params, batch)
             with plain_route(ctx.cfg.name):
-                _, via_ref = prefill(ctx, params, {"tokens": tok})
+                _, via_ref = prefill(ctx, params, batch)
             controls = {}
             for tile in CONTROL_TILES:
                 with mock.patch.object(fa_ops, "flash_attention_bhsd",
                                        functools.partial(blocked_bhsd, tile=tile)):
-                    _, via_ctl = prefill(ctx, params, {"tokens": tok})
+                    _, via_ctl = prefill(ctx, params, batch)
                 err, _, agree = logits_gap(torch, via_ctl, via_ref)
                 controls[tile] = (err, agree)
         err, scale, agree = logits_gap(torch, via_kernel, via_ref)
@@ -1343,11 +1479,12 @@ def blocked_bhsd(q, k, v, *, causal=True, window=None, tile=128):
     from repro_torch.models import attention
 
     b, hq, s, d = q.shape
-    hkv = k.shape[1]
+    hkv, sk = k.shape[1], k.shape[2]
     qg = q.transpose(1, 2).reshape(b, s, hkv, hq // hkv, d)
-    pos = torch.arange(s, dtype=torch.int32, device=q.device).expand(b, s)
-    out = attention._blocked(qg, k.transpose(1, 2), v.transpose(1, 2), pos, pos, causal, window,
-                             1.0 / math.sqrt(d), tile, tile)
+    q_pos = torch.arange(s, dtype=torch.int32, device=q.device).expand(b, s)
+    kv_pos = torch.arange(sk, dtype=torch.int32, device=q.device).expand(b, sk)
+    out = attention._blocked(qg, k.transpose(1, 2), v.transpose(1, 2), q_pos, kv_pos, causal,
+                             window, 1.0 / math.sqrt(d), tile, tile)
     return out.reshape(b, s, hq, v.shape[-1]).transpose(1, 2)
 
 
@@ -1672,15 +1809,18 @@ def phase_serve(torch):
     from repro_torch.serving import measure_concurrency_curve
 
     totals = dict.fromkeys(("flash_attention", "ssd_scan"), 0)
-    for arch in (ARCH, SSM_ARCH, HYBRID_ARCH, MOE_ARCH):
+    for arch in (ARCH, SSM_ARCH, HYBRID_ARCH, MOE_ARCH, VLM_ARCH):
         counts, prefills = serve_runs(torch, arch)
         check_bodies(arch, prefills, f"the {arch} serve() runs")
         for name in totals:
             totals[name] += counts[name]
+    counts = generate_run(torch, AUDIO_ARCH)
+    for name in totals:
+        totals[name] += counts[name]
     missing = [k for k, n in totals.items() if n == 0]
     if missing:
         fail(f"kernels never launched on the serving paths: {missing}")
-    for arch in (ARCH, SSM_ARCH, HYBRID_ARCH, MOE_ARCH, MLA_ARCH):
+    for arch in (ARCH, SSM_ARCH, HYBRID_ARCH, MOE_ARCH, MLA_ARCH, VLM_ARCH, AUDIO_ARCH):
         counts = graph_bitwise_check(torch, arch)
         for name in totals:
             totals[name] += counts[name]
@@ -1715,6 +1855,44 @@ def phase_serve(torch):
     return totals
 
 
+def generate_run(torch, arch):
+    """The main path of an encoder-decoder model, which the runtime does
+    not serve (it takes no encoder features): ``ServingEngine.generate``
+    at full width, one 4 x PROMPT_LEN prompt with its encoder features,
+    SERVE's new tokens, decode through the engine's CUDA graph; launch
+    and capture counts reset just before and read just after. Returns
+    the counts."""
+    from repro_torch.kernels import runtime
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serving.engine import capture_counts, reset_capture_counts
+
+    free_card(torch, f"the {arch} generate() run")
+    s, n = prompt_len(arch), SERVE["new_tokens"]
+    engine = build_engine(arch, SERVE["batch"], s + n + 1, layers=DEPTH_CUT.get(arch),
+                          device="cuda")
+    batch = model_batch(torch, engine.ctx.cfg, 5, SERVE["batch"], s)
+    torch.cuda.synchronize()
+    runtime.reset_launch_counts()
+    reset_capture_counts()
+    t0 = time.perf_counter()
+    out = engine.generate(batch["tokens"], n, extras_of(batch))
+    wall = time.perf_counter() - t0
+    counts = runtime.launch_counts()
+    captures = sum(capture_counts().values())
+    say(f"  {arch} generate (B={SERVE['batch']}, prompt {s}{extras_note(engine.ctx.cfg)}, {n} new "
+        f"tokens): {wall:.3f} s, {out.size / wall:.2f} tok/s (the first call: the pool entry and "
+        f"its graph capture included); {captures} capture over {len(engine.pool)} pool entry; "
+        f"launches {counts}; {card_line()}")
+    if out.shape != (SERVE["batch"], n) or not ((out >= 0) & (out < engine.ctx.cfg.vocab)).all():
+        fail(f"{arch} generate returned {out.shape} tokens or ids out of the vocabulary")
+    if not captures == len(engine.pool) == 1:
+        fail(f"{arch} generate: {captures} graph captures over {len(engine.pool)} pool entries")
+    check_bodies(arch, 1, f"the {arch} generate() run")
+    del engine
+    torch.cuda.empty_cache()
+    return counts
+
+
 def concurrency_values():
     """The concurrency knob's values in ``tpu_pod_space`` (1 ... 5)."""
     from repro_torch.core.space import tpu_pod_space
@@ -1732,14 +1910,17 @@ def eager_twin(engine):
 
 
 def graph_bitwise_check(torch, arch):
-    """``arch`` at full width (``full_config``): one prompt (B=4 x 512)
-    prefilled into a pool entry, then GRAPH_STEPS greedy decode steps
-    through the engine's CUDA graph and through the eager step over the
-    same weights (one parameter tree). The same kernels run in the same
-    order, so every step's logits must be equal bit for bit, and the
-    graphed engine must capture once. The two prefills go through the
-    engine's entry point: their launches, counted from 0 and checked by
-    body, are returned."""
+    """``arch`` at full width (``full_config``): one prompt (B=4 x
+    ``prompt_len``, with the model's stub front-end inputs) prefilled into
+    a pool entry, then GRAPH_STEPS greedy decode steps through the
+    engine's CUDA graph and through the eager step over the same weights
+    (one parameter tree). The same kernels run in the same order, so every
+    step's logits must be equal bit for bit, and the graphed engine must
+    capture once. A model with front-end inputs then runs
+    ``ServingEngine.generate`` with them on both engines, which must give
+    the greedy tokens of those steps. The prefills go through the engine's
+    entry point: their launches, counted from 0 and checked by body, are
+    returned."""
     import numpy as np
 
     from repro_torch.kernels import runtime
@@ -1748,31 +1929,44 @@ def graph_bitwise_check(torch, arch):
 
     reset_capture_counts()
     free_card(torch, f"the {arch} graph check")
-    graphed = build_engine(arch, 4, 512 + GRAPH_STEPS + 1, layers=DEPTH_CUT.get(arch),
+    s = prompt_len(arch)
+    graphed = build_engine(arch, 4, s + GRAPH_STEPS + 1, layers=DEPTH_CUT.get(arch),
                            device="cuda")
     eager = eager_twin(graphed)
     runtime.reset_launch_counts()
-    prompt = np.random.default_rng(4).integers(0, graphed.ctx.cfg.vocab, (4, 512),
-                                               dtype=np.int32)
-    steps = {}
+    batch = model_batch(torch, graphed.ctx.cfg, 4, 4, s)
+    extras = extras_of(batch)
+    steps, greedy = {}, {}
     for name, eng in (("eager", eager), ("graphed", graphed)):
         k = eng.acquire()
-        cache, logits = eng.prefill(prompt, entry=k)
-        out = []
+        cache, logits = eng.prefill(batch["tokens"], extras, entry=k)
+        out, toks = [], []
         for _ in range(GRAPH_STEPS):
             tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            toks.append(tok)
             cache, logits = eng.decode(cache, tok)
             out.append(logits.float())
         eng.release(k)
         steps[name] = torch.stack(out)
+        greedy[name] = torch.cat(toks, dim=1).cpu().numpy()
+    prefills = 2
+    if extras:
+        for name, eng in (("eager", eager), ("graphed", graphed)):
+            gen = eng.generate(batch["tokens"], GRAPH_STEPS, extras)
+            prefills += 1
+            if not np.array_equal(gen, greedy[name]):
+                fail(f"{arch}: ServingEngine.generate ({name}) with {sorted(extras)} gives other "
+                     "tokens than the same greedy steps taken one by one")
+        say(f"  {arch} ServingEngine.generate with {sorted(extras)}, graphed and eager: the "
+            f"{GRAPH_STEPS} greedy tokens of the step-by-step decode")
     counts = runtime.launch_counts()
-    check_bodies(arch, 2, f"the {arch} graph check's prefills")
+    check_bodies(arch, prefills, f"the {arch} graph check's prefills")
     a, b = steps["graphed"], steps["eager"]
     if not torch.isfinite(b).all():
         fail(f"{arch}: the eager decode steps' logits are not finite")
     same = torch.equal(a, b)
     captures = sum(capture_counts().values())
-    say(f"  {arch} decode, {GRAPH_STEPS} greedy steps after a 4x512 prefill: graphed vs eager "
+    say(f"  {arch} decode, {GRAPH_STEPS} greedy steps after a 4x{s} prefill: graphed vs eager "
         f"logits bitwise equal: {same} (max |diff| {(a - b).abs().max().item():.3g}), "
         f"{captures} capture over {len(graphed.pool)} pool entry")
     if not (same and captures == len(graphed.pool) == 1):
@@ -1887,30 +2081,34 @@ def phase_profile(torch, arch):
     from repro_torch.kernels import runtime
     from repro_torch.launch.serve import build_engine
 
+    from repro_torch.launch.serve import multimodal_extras
+
     free_card(torch, f"the {arch} profile")
-    engine = build_engine(arch, 4, 512 + 16, layers=DEPTH_CUT.get(arch), device="cuda")
-    prompt = np.random.default_rng(2).integers(0, 1000, (4, 512), dtype=np.int32)
+    s = prompt_len(arch)
+    engine = build_engine(arch, 4, s + 16, layers=DEPTH_CUT.get(arch), device="cuda")
+    prompt = np.random.default_rng(2).integers(0, 1000, (4, s), dtype=np.int32)
+    extras = multimodal_extras(engine.ctx.cfg, 4, 2, EXTRAS_STD) or None
     state = {"prefills": 0}
 
     def prefill():
-        state["cache"], _ = engine.prefill(prompt)
+        state["cache"], _ = engine.prefill(prompt, extras)
         state["prefills"] += 1
 
     runtime.reset_launch_counts()
-    profile_window(torch, f"{arch} prefill 4x512", prefill, reps=3,
+    profile_window(torch, f"{arch} prefill 4x{s}{extras_note(engine.ctx.cfg)}", prefill, reps=3,
                    named=SSD_PHASES if launches_per_prefill(arch)[1] else ())
     check_bodies(arch, state["prefills"], f"the profiled {arch} prefills")
     tok = np.zeros((4, 1), np.int32)
     for name, eng in (("eager", eager_twin(engine)), ("graphed", engine)):
         k = eng.acquire()
-        cache, _ = eng.prefill(prompt, entry=k)
+        cache, _ = eng.prefill(prompt, extras, entry=k)
 
         def decode():
             with torch.inference_mode():  # re-decode the same slot: no cache growth
-                cache["length"].fill_(512)  # on the card, no host read
+                cache["length"].fill_(s)  # on the card, no host read
             eng.decode(cache, tok)
 
-        profile_window(torch, f"{arch} decode step {name} (B=4, cache 528)", decode, reps=5)
+        profile_window(torch, f"{arch} decode step {name} (B=4, cache {s + 16})", decode, reps=5)
         eng.release(k)
     if engine.ctx.cfg.moe is not None:
         moe_step_costs(torch, engine)
@@ -2566,6 +2764,8 @@ def main() -> None:
     phase_slice_check(torch, HYBRID_ARCH, 40)
     phase_slice_check(torch, MOE_ARCH, 96)
     phase_slice_check(torch, MLA_ARCH, 96)
+    phase_slice_check(torch, VLM_ARCH, 96)
+    phase_slice_check(torch, AUDIO_ARCH, 96)
     counts = {"dcov": phase_coral_slice(torch)}
     counts["dcov"] += phase_fleet(torch)
     say(f"  dcov launches on the main paths, the fleet's included: {counts['dcov']}")
@@ -2577,6 +2777,8 @@ def main() -> None:
     phase_profile(torch, HYBRID_ARCH)
     phase_profile(torch, MOE_ARCH)
     phase_profile_mla_bodies(torch)
+    phase_profile(torch, VLM_ARCH)
+    phase_profile(torch, AUDIO_ARCH)
     phase_coral_profile(torch)
     say("== phase 6: control loop")
     for name, n in phase_control_loop(torch).items():

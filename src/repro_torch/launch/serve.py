@@ -11,8 +11,15 @@ FFN for Moonlight-16B-A3B (``moonshot-v1-16b-a3b``: 28.4 B parameters,
 (D = 192, Dv = 128) for DeepSeek-V2 (``deepseek-v2-236b``), which at
 235.7 B parameters fits no single card: serve it with its depth cut,
 ``--layers 2`` (the dense layer 0 and one MoE layer of 160 experts, 5.4 B
-parameters). ``--reduced`` serves ``cfg.reduced()`` instead (the
-reference hard-codes it, because it runs on a CPU); the CPU tests pass
+parameters). Qwen2-VL-72B (``qwen2-vl-72b``: M-RoPE, 64 query heads over
+8 KV heads of 128) takes 145 GB in bf16: serve it with its depth cut,
+``--layers 8`` (9.5 B parameters), text-only as the reference's runtime
+serves it. Whisper-medium (``whisper-medium``) is an encoder-decoder
+model, and the runtime takes no encoder features (nor does the
+reference's): run it through ``ServingEngine.generate`` with
+``extras=multimodal_extras(cfg, batch)``; ``serve`` refuses it.
+``--reduced`` serves ``cfg.reduced()`` instead (the reference
+hard-codes it, because it runs on a CPU); the CPU tests pass
 ``reduced=True, device="cpu"``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
@@ -25,12 +32,14 @@ reference hard-codes it, because it runs on a CPU); the CPU tests pass
       --requests 16 --prompt-len 512 --new-tokens 32 --batch 4 --concurrency 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b --layers 2 \
       --requests 16 --prompt-len 512 --new-tokens 32 --batch 4 --concurrency 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-72b --layers 8 \
+      --requests 16 --prompt-len 512 --new-tokens 32 --batch 4 --concurrency 2
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -73,6 +82,23 @@ def build_engine(
     return ServingEngine(ApplyCtx(cfg, rcfg), params, batch, max_len, graphs=graphs)
 
 
+def multimodal_extras(cfg, batch: int, seed: int = 0, std: float = 0.02) -> Dict[str, np.ndarray]:
+    """The stub modality front ends, as the reference's
+    ``training/data.py::multimodal_extras`` draws them: patch embeddings
+    ``vision_embeds`` (B, n_vision_tokens, d_model) for a vision model,
+    frame embeddings ``enc_feats`` (B, encoder_seq_len, d_model) for an
+    encoder-decoder model, normal(0, ``std``) float32 from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.n_vision_tokens:
+        out["vision_embeds"] = rng.normal(
+            0, std, (batch, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.is_encoder_decoder:
+        out["enc_feats"] = rng.normal(
+            0, std, (batch, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32)
+    return out
+
+
 def serve(
     arch: str,
     requests: int = 8,
@@ -90,7 +116,12 @@ def serve(
     drain metrics (throughput, p50/p99 latency, request count), with the
     engine's pool entries and graph captures (``pool_entries``,
     ``graph_captures``: one capture per entry on the card, none on the
-    CPU)."""
+    CPU). An encoder-decoder model raises a ``ValueError``: the runtime
+    takes no encoder features (module note)."""
+    if get_config(arch).is_encoder_decoder:
+        raise ValueError(f"{arch} is an encoder-decoder model and the serving runtime takes no "
+                         "encoder features: run it through ServingEngine.generate(prompt, n, "
+                         "extras={'enc_feats': ...})")
     captures = sum(capture_counts().values())
     engine = build_engine(arch, batch, prompt_len + new_tokens + 1, seed, reduced=reduced,
                           layers=layers, device=device)
@@ -116,10 +147,12 @@ def serve(
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
-                    help="a ported config: a dense decoder (e.g. qwen2.5-3b), "
+                    help="a config of the registry: a dense decoder (e.g. qwen2.5-3b), "
                          "Mamba2 (mamba2-2.7b), the hybrid Hymba (hymba-1.5b), an MoE "
-                         "model (moonshot-v1-16b-a3b, qwen3-moe-235b-a22b) or MLA "
-                         "(deepseek-v2-236b, with --layers)")
+                         "model (moonshot-v1-16b-a3b, qwen3-moe-235b-a22b), MLA "
+                         "(deepseek-v2-236b, with --layers) or M-RoPE (qwen2-vl-72b, "
+                         "with --layers, text-only); whisper-medium, an encoder-decoder "
+                         "model, is refused (the runtime takes no encoder features)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)

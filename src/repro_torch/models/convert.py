@@ -4,8 +4,11 @@ The JAX model and this one share one parameter tree (nested dicts,
 per-layer tensors with a leading ``layers`` axis), so the conversion is a
 leaf-by-leaf copy, whatever the subtrees: the dense decoder's, the
 Mamba2 and hybrid layers', the MoE FFN's (``router``, ``we_*``,
-``ws_*``), MLA's (``wq_a`` ... ``wkv_b``) and the dense ``"prologue"``
-stack ahead of an MoE stack all come across as they are. ``jax.random``
+``ws_*``), MLA's (``wq_a`` ... ``wkv_b``), the dense ``"prologue"``
+stack ahead of an MoE stack, and Whisper's LayerNorm biases (``*_b``),
+GELU MLP (``wg``, ``bg``, ``wd``, ``bd``), per-layer ``cross`` attention
+with ``ln_cross``, and ``"encoder"`` subtree (its layers, ``final_norm``
+and ``final_norm_b``) all come across as they are. ``jax.random``
 and ``torch.Generator`` give different numbers from one seed, so the
 parity tests build both models on the same numbers through this function. It takes numpy arrays (the caller turns
 the JAX tree into numpy), so this module never imports JAX.

@@ -1,4 +1,4 @@
-"""Parameter specs + elementary layers (the dense decoder's subset of
+"""Parameter specs + elementary layers (the counterpart of
 ``repro/models/layers.py``).
 
 Every model declares a tree (nested dicts) of ``ParamSpec`` — shape,
@@ -13,12 +13,11 @@ would take 34.7 GB in float32 drawn whole. That changes the numbers of
 those leaves only: no leaf of the other served models (Qwen2.5-3B,
 Mamba2-2.7B, Hymba-1.5B; the 2-layer DeepSeek-V2) is that large, so
 their draws are what they were, and no CPU test depends on a draw.
-``layer_norm``, ``gelu_mlp``, M-RoPE and sinusoidal positions wait for
-the models that use them (ROADMAP queue 1 item 13(b)).
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
@@ -94,6 +93,17 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (x * w.float()).to(dt)
 
 
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
+    """LayerNorm with bias (Whisper), computed in float32, returned in
+    ``x.dtype``."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = torch.square(x - mu).mean(dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * w.float() + b.float()).to(dt)
+
+
 def swiglu(
     x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor
 ) -> torch.Tensor:
@@ -103,8 +113,28 @@ def swiglu(
     return (F.silu(g) * u) @ wd.to(x.dtype)
 
 
+def gelu_mlp(
+    x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor
+) -> torch.Tensor:
+    """Whisper's MLP in ``x.dtype``: GELU with biases, no gate. The
+    reference's ``jax.nn.gelu`` defaults to the tanh form; ``F.gelu``'s
+    default is the exact erf form, so the tanh form is asked for."""
+    h = x @ w1.to(x.dtype) + b1.to(x.dtype)
+    return F.gelu(h, approximate="tanh") @ w2.to(x.dtype) + b2.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Whisper-style sinusoidal absolute position table (n, d), built in
+    float64 with numpy as the reference builds it, then cast."""
+    pos = np.arange(n)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    inv = np.exp(-np.log(10_000.0) * dim / max(d // 2 - 1, 1))
+    ang = pos * inv
+    return torch.from_numpy(np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)).to(dtype)
+
+
 # ---------------------------------------------------------------------------
-# Rotary embeddings
+# Rotary embeddings (standard + M-RoPE)
 # ---------------------------------------------------------------------------
 
 
@@ -119,6 +149,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, x.device)  # (d/2,)
     ang = positions[..., None].float() * freqs  # (B,S,d/2)
+    return _rotate(x, ang)
+
+
+def apply_mrope(
+    x: torch.Tensor, positions: torch.Tensor, theta: float, sections: Tuple[int, int, int]
+) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL). x: (B, S, H, D); positions: (3, B, S)
+    int, the temporal, height and width position ids. The D/2 rotary
+    frequencies are split into ``sections`` (t, h, w), and each section
+    takes its angle from its own position row (the reference's
+    ``take_along_axis`` over contiguous sections is this slicing)."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"mrope sections {sections} do not cover the {d // 2} frequencies")
+    ang = positions[..., None].float() * rope_freqs(d, theta, x.device)  # (3,B,S,d/2)
+    bounds = [0, *itertools.accumulate(sections)]
+    ang = torch.cat([ang[i, ..., lo:hi] for i, (lo, hi) in enumerate(zip(bounds, bounds[1:]))],
+                    dim=-1)  # (B,S,d/2)
+    return _rotate(x, ang)
+
+
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """Rotate-half of x (B, S, H, D) by angles (B, S, D/2), in float32."""
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)

@@ -1,6 +1,7 @@
 """Model assembly for the dense decoder, the Mamba2 (SSM) stack, the
-hybrid attention + Mamba2 stack and the DeepSeek family's MoE and MLA
-branches (the counterpart of ``repro/models/transformer.py``).
+hybrid attention + Mamba2 stack, the DeepSeek family's MoE and MLA
+branches, the encoder-decoder (Whisper) and M-RoPE (Qwen2-VL) branches
+(the counterpart of ``repro/models/transformer.py``).
 
 Parameters keep the reference's tree: per-layer tensors carry a leading
 ``layers`` axis, so ``repro_torch.models.convert.params_from_jax`` maps
@@ -15,6 +16,24 @@ in the order ``_parts`` gives).
 Entry points:
   prefill(ctx, params, batch, capacity, out) -> (cache, last_logits)
   decode_step(ctx, params, cache, tokens)     -> (cache, logits)
+``batch`` holds ``tokens`` (B, S) and, as in the reference,
+``enc_feats`` (B, T_enc, d_model) for an encoder-decoder model (the stub
+frame embeddings the encoder reads) or ``vision_embeds`` (B, n, d_model)
+for a vision model (the stub patch embeddings that replace the first n
+token embeddings).
+
+Encoder-decoder (Whisper). ``encode`` runs the encoder stack
+(``params["encoder"]``: sinusoidal positions, bidirectional
+self-attention, the GELU MLP, LayerNorms with biases) once per prefill;
+each decoder layer adds a cross-attention block over its output, whose K
+and V prefill stores in the layer's ``cross_k`` / ``cross_v`` cache,
+(L, B, T_enc, Hkv, D), with no capacity padding; a decode step reads
+them (one query against T_enc keys). Positions are sinusoidal, added to
+the embeddings and computed on the device. M-RoPE (Qwen2-VL) rotates Q
+and K by three position rows (t, h, w): vision patches on a 16-wide grid
+at t = 0, text advancing t past the vision span
+(``build_mrope_positions``); a decode step at cache position t sits at
+t - n_vision_tokens + 1 on every row, as in the reference.
 
 Cache. As in the reference, every cached tensor is bfloat16 whatever the
 compute dtype. A dense model keeps K and V, (L, B, W, Hkv, D), the slot
@@ -42,16 +61,13 @@ the device and reads nothing back to the host, so the whole step can be
 captured once in a CUDA graph and replayed (``serving/engine.py``, whose
 serve step advances ``length`` in place).
 
-The dense decoder, the pure SSM stack, the hybrid stack, the MoE FFN
-(``models/moe.py``), MLA (``models/mla.py``) and the dense prologue are
-ported. The encoder-decoder (audio) and M-RoPE (vision) branches raise
-``NotImplementedError`` naming the ROADMAP item that ports them. Hymba's
-meta tokens and cross-layer KV sharing are not in the reference, so not
-here either.
+Every branch of the reference's model is ported. Hymba's meta tokens
+and cross-layer KV sharing are not in the reference, so not here either.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -62,8 +78,11 @@ from repro_torch.models import moe, ssm
 from repro_torch.models.attention import attention
 from repro_torch.models.layers import (
     ParamSpec,
+    apply_mrope,
     apply_rope,
+    gelu_mlp,
     init_params,
+    layer_norm,
     rms_norm,
     swiglu,
 )
@@ -81,27 +100,13 @@ class ApplyCtx:
     rcfg: RunConfig
 
 
-def require_ported(cfg: ModelConfig) -> None:
-    """Raise for architecture branches this port does not have yet."""
-    waits = {
-        "the encoder-decoder (audio) path": cfg.is_encoder_decoder
-        or cfg.arch_type == "audio",
-        "M-RoPE (vision) positions": cfg.rope_type == "mrope",
-    }
-    for what, missing in waits.items():
-        if missing:
-            raise NotImplementedError(
-                f"{cfg.name}: {what} waits for ROADMAP queue 1 item 13(b)"
-            )
-
-
 # ---------------------------------------------------------------------------
 # Parameter specs
 # ---------------------------------------------------------------------------
 
 
-def _attn_specs(cfg: ModelConfig, n: int) -> dict:
-    if cfg.mla is not None:
+def _attn_specs(cfg: ModelConfig, n: int, cross: bool = False) -> dict:
+    if cfg.mla is not None and not cross:
         return mla_param_specs(cfg, n)
     d, hd = cfg.d_model, cfg.resolved_head_dim
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
@@ -129,6 +134,13 @@ def _ffn_specs(cfg: ModelConfig, n: int, dense: bool) -> dict:
     d = cfg.d_model
     L = (n,)
     lx = ("layers",)
+    if cfg.arch_type == "audio":  # Whisper's MLP: GELU with biases, no gate
+        return {
+            "wg": ParamSpec(L + (d, cfg.d_ff), lx + ("embed", "ff")),
+            "wd": ParamSpec(L + (cfg.d_ff, d), lx + ("ff", "embed")),
+            "bg": ParamSpec(L + (cfg.d_ff,), lx + ("ff",), init="zeros"),
+            "bd": ParamSpec(L + (d,), lx + (None,), init="zeros"),
+        }
     return {
         "wg": ParamSpec(L + (d, cfg.d_ff), lx + ("embed", "ff")),
         "wu": ParamSpec(L + (d, cfg.d_ff), lx + ("embed", "ff")),
@@ -136,17 +148,29 @@ def _ffn_specs(cfg: ModelConfig, n: int, dense: bool) -> dict:
     }
 
 
+def _norm_specs(cfg: ModelConfig, n: int, name: str) -> dict:
+    """A norm's weight and, for Whisper's LayerNorm, its bias ``name_b``."""
+    lx = ("layers",)
+    s = {name: ParamSpec((n, cfg.d_model), lx + (None,), init="ones")}
+    if cfg.arch_type == "audio":
+        s[name + "_b"] = ParamSpec((n, cfg.d_model), lx + (None,), init="zeros")
+    return s
+
+
 def _layer_specs(cfg: ModelConfig, n: int, dense_ffn: bool = False) -> dict:
     lx = ("layers",)
-    ln1 = ParamSpec((n, cfg.d_model), lx + (None,), init="ones")
+    s = _norm_specs(cfg, n, "ln1")
     if cfg.arch_type == "ssm":  # the Mamba2 block is the whole mixer
-        return {"ln1": ln1, "ssm": ssm.ssm_param_specs(cfg, n)}
-    s = {"ln1": ln1, "attn": _attn_specs(cfg, n)}
+        return {**s, "ssm": ssm.ssm_param_specs(cfg, n)}
+    s["attn"] = _attn_specs(cfg, n)
     if cfg.arch_type == "hybrid":  # Mamba2 heads beside the attention heads
         s["ssm"] = ssm.ssm_param_specs(cfg, n)
         s["mix_gate"] = ParamSpec((n, 2), lx + (None,), init="ones")
-    s["ln2"] = ParamSpec((n, cfg.d_model), lx + (None,), init="ones")
+    s.update(_norm_specs(cfg, n, "ln2"))
     s["ffn"] = _ffn_specs(cfg, n, dense_ffn)
+    if cfg.is_encoder_decoder:  # a decoder layer's cross attention
+        s["cross"] = _attn_specs(cfg, n, cross=True)
+        s.update(_norm_specs(cfg, n, "ln_cross"))
     return s
 
 
@@ -157,7 +181,6 @@ def _n_prologue(cfg: ModelConfig) -> int:
 
 def param_specs(cfg: ModelConfig) -> dict:
     """The model's ``ParamSpec`` tree (the reference's, key for key)."""
-    require_ported(cfg)
     d = cfg.d_model
     n_pro = _n_prologue(cfg)
     specs = {
@@ -165,10 +188,19 @@ def param_specs(cfg: ModelConfig) -> dict:
         "final_norm": ParamSpec((d,), (None,), init="ones"),
         "layers": _layer_specs(cfg, cfg.n_layers - n_pro),
     }
+    if cfg.arch_type == "audio":
+        specs["final_norm_b"] = ParamSpec((d,), (None,), init="zeros")
     if not cfg.tie_embeddings:
         specs["head"] = ParamSpec((d, cfg.vocab), ("embed", "vocab"))
     if n_pro:
         specs["prologue"] = _layer_specs(cfg, n_pro, dense_ffn=True)
+    if cfg.is_encoder_decoder:  # the encoder's layers have no cross attention
+        enc = _layer_specs(cfg, cfg.n_encoder_layers, dense_ffn=True)
+        specs["encoder"] = {
+            "layers": {k: v for k, v in enc.items() if k != "cross" and not k.startswith("ln_cross")},
+            "final_norm": ParamSpec((d,), (None,), init="ones"),
+            "final_norm_b": ParamSpec((d,), (None,), init="zeros"),
+        }
     return specs
 
 
@@ -197,48 +229,77 @@ def _layer(stack: dict, i: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Norm dispatch (RMS, or Whisper's LayerNorm with bias)
+# ---------------------------------------------------------------------------
+
+
+def _norm(cfg: ModelConfig, lp: dict, name: str, x: torch.Tensor) -> torch.Tensor:
+    if cfg.arch_type == "audio":
+        return layer_norm(x, lp[name], lp[name + "_b"], cfg.norm_eps)
+    return rms_norm(x, lp[name], cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
 # Attention application
 # ---------------------------------------------------------------------------
 
 
-def _qkv(cfg: ModelConfig, ap: dict, x: torch.Tensor):
-    hd = cfg.resolved_head_dim
-    hq, hkv = cfg.n_heads, cfg.n_kv_heads
-    dt = x.dtype
-    q = x @ ap["wq"].to(dt)
-    k = x @ ap["wk"].to(dt)
-    v = x @ ap["wv"].to(dt)
-    if "bq" in ap:
-        q = q + ap["bq"].to(dt)
-        k = k + ap["bk"].to(dt)
-        v = v + ap["bv"].to(dt)
-    q = q.reshape(*x.shape[:2], hq, hd)
-    k = k.reshape(*x.shape[:2], hkv, hd)
-    v = v.reshape(*x.shape[:2], hkv, hd)
-    if "q_norm" in ap:
-        q = rms_norm(q, ap["q_norm"], cfg.norm_eps)
+def _heads(cfg: ModelConfig, ap: dict, x: torch.Tensor, name: str, n_heads: int):
+    """``x @ w<name>`` plus its bias, where the model has one, as (B, S,
+    n_heads, head_dim)."""
+    y = x @ ap["w" + name].to(x.dtype)
+    if "b" + name in ap:
+        y = y + ap["b" + name].to(x.dtype)
+    return y.reshape(*x.shape[:2], n_heads, cfg.resolved_head_dim)
+
+
+def _q(cfg: ModelConfig, ap: dict, x: torch.Tensor) -> torch.Tensor:
+    q = _heads(cfg, ap, x, "q", cfg.n_heads)
+    return rms_norm(q, ap["q_norm"], cfg.norm_eps) if "q_norm" in ap else q
+
+
+def _qkv(cfg: ModelConfig, ap: dict, x: torch.Tensor, kv_x: torch.Tensor):
+    """Q from ``x``; K and V from ``kv_x`` (``x`` itself, or the encoder's
+    output for cross attention)."""
+    k = _heads(cfg, ap, kv_x, "k", cfg.n_kv_heads)
+    if "k_norm" in ap:
         k = rms_norm(k, ap["k_norm"], cfg.norm_eps)
-    return q, k, v
+    return _q(cfg, ap, x), k, _heads(cfg, ap, kv_x, "v", cfg.n_kv_heads)
 
 
-def _rope_qk(cfg: ModelConfig, q, k, positions):
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+def _rope_qk(cfg: ModelConfig, q, k, positions, pos3):
+    """RoPE by ``positions`` (B, S), M-RoPE by ``pos3`` (3, B, S), or no
+    rotation (Whisper's positions are added to the embeddings)."""
+    if cfg.rope_type == "rope":
+        return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta)
+    if cfg.rope_type == "mrope":
+        return (apply_mrope(q, pos3, cfg.rope_theta, cfg.mrope_sections),
+                apply_mrope(k, pos3, cfg.rope_theta, cfg.mrope_sections))
     return q, k
 
 
 def attn_full(
-    ctx: ApplyCtx, ap: dict, x, positions, window
+    ctx: ApplyCtx, ap: dict, x, positions, pos3, window, causal: bool = True
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Causal self-attention over the whole sequence; returns (out, (k, v))."""
+    """Self-attention over the whole sequence; returns (out, (k, v))."""
     cfg = ctx.cfg
-    q, k, v = _qkv(cfg, ap, x)
-    q, k = _rope_qk(cfg, q, k, positions)
+    q, k, v = _qkv(cfg, ap, x, x)
+    q, k = _rope_qk(cfg, q, k, positions, pos3)
     out = attention(
-        q, k, v, positions, positions, causal=True, window=window, rcfg=ctx.rcfg
+        q, k, v, positions, positions, causal=causal, window=window, rcfg=ctx.rcfg
     )
     out = out.reshape(*x.shape[:2], -1)
     return out @ ap["wo"].to(x.dtype), (k, v)
+
+
+def cross_attn_full(ctx: ApplyCtx, ap: dict, x, enc_out, enc_pos):
+    """Cross attention of the decoder's ``x`` over the encoder's output:
+    non-causal, every query at position 0; returns (out, (k, v))."""
+    q, k, v = _qkv(ctx.cfg, ap, x, enc_out)
+    b, s = x.shape[:2]
+    q_pos = torch.zeros((b, s), dtype=torch.int32, device=x.device)
+    out = attention(q, k, v, q_pos, enc_pos, causal=False, rcfg=ctx.rcfg)
+    return out.reshape(b, s, -1) @ ap["wo"].to(x.dtype), (k, v)
 
 
 def _mix(lp: dict, attn_out: torch.Tensor, ssm_out: torch.Tensor, dtype) -> torch.Tensor:
@@ -260,14 +321,18 @@ def layer_full(
     window,
     h: torch.Tensor,
     positions,
+    pos3=None,
+    enc=None,
     lcache: Optional[Dict[str, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """One layer over the whole sequence; returns the new hidden state.
-    With ``lcache`` (this layer's cache tensors), writes its entries in
-    place: K/V (or MLA's latent and RoPE key) to slots [0, S), the SSM and
-    conv states, or both."""
+    ``enc`` is the encoder's (output, positions) for a decoder layer's
+    cross attention. With ``lcache`` (this layer's cache tensors), writes
+    its entries in place: K/V (or MLA's latent and RoPE key) to slots
+    [0, S), the SSM and conv states, or both, and the cross attention's
+    K/V whole."""
     cfg = ctx.cfg
-    hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
+    hn = _norm(cfg, lp, "ln1", h)
 
     def mamba2():
         out, state, proj = ssm.mamba2_prefill(cfg, lp["ssm"], hn, ctx.rcfg)
@@ -285,22 +350,31 @@ def layer_full(
             lcache["ckv"][:, :s] = latent
             lcache["krope"][:, :s] = krope
     else:
-        attn_out, (k, v) = attn_full(ctx, lp["attn"], hn, positions, window)
+        attn_out, (k, v) = attn_full(ctx, lp["attn"], hn, positions, pos3, window)
         if lcache is not None:
             lcache["k"][:, :s] = k
             lcache["v"][:, :s] = v
     if cfg.arch_type == "hybrid":
         attn_out = _mix(lp, attn_out, mamba2(), hn.dtype)
     h = h + attn_out
-    return h + _ffn(ctx, lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
+    if enc is not None:
+        c_out, (ck, cv) = cross_attn_full(ctx, lp["cross"], _norm(cfg, lp, "ln_cross", h), *enc)
+        h = h + c_out
+        if lcache is not None:
+            lcache["cross_k"].copy_(ck)
+            lcache["cross_v"].copy_(cv)
+    return h + _ffn(ctx, lp, _norm(cfg, lp, "ln2", h))
 
 
 def _ffn(ctx: ApplyCtx, lp: dict, hn2: torch.Tensor) -> torch.Tensor:
     """The layer's FFN: the MoE FFN (its aux loss dropped, as the
-    reference's prefill and decode drop it) or the dense SwiGLU."""
+    reference's prefill and decode drop it), Whisper's GELU MLP or the
+    dense SwiGLU."""
     fp = lp["ffn"]
     if "router" in fp:
         return moe.moe_ffn(ctx.cfg, ctx.rcfg, fp, hn2)[0]
+    if ctx.cfg.arch_type == "audio":
+        return gelu_mlp(hn2, fp["wg"], fp["bg"], fp["wd"], fp["bd"])
     return swiglu(hn2, fp["wg"], fp["wu"], fp["wd"])
 
 
@@ -310,6 +384,8 @@ def run_stack(
     windows: list,
     h: torch.Tensor,
     positions,
+    pos3=None,
+    enc=None,
     cache: Optional[Dict[str, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Apply every layer in order. With ``cache`` (stacked (L, ...) cache
@@ -318,25 +394,84 @@ def run_stack(
     stack each run through here (``_parts``)."""
     for i, win in enumerate(windows):
         lcache = None if cache is None else {name: c[i] for name, c in cache.items()}
-        h = layer_full(ctx, _layer(stack_params, i), win, h, positions, lcache)
+        h = layer_full(ctx, _layer(stack_params, i), win, h, positions, pos3, enc, lcache)
     return h
 
 
 # ---------------------------------------------------------------------------
-# Embedding
+# Embedding / positions
 # ---------------------------------------------------------------------------
 
 
-def embed(ctx: ApplyCtx, params, tokens: torch.Tensor) -> torch.Tensor:
-    """Token embeddings in the compute dtype."""
-    return params["embed"][tokens.long()].to(ctx.rcfg.cdtype)
+def sinusoidal_pos(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """(B, S) int -> (B, S, d) float32 sinusoidal embedding, computed on
+    the positions' device (not a table)."""
+    half = d // 2
+    dim = torch.arange(half, dtype=torch.float32, device=positions.device)
+    inv = torch.exp(-math.log(10_000.0) * dim / max(half - 1, 1))
+    ang = positions[..., None].float() * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def build_mrope_positions(b: int, s: int, n_vision: int, offset: int = 0,
+                          device=None) -> torch.Tensor:
+    """(3, B, S) int32 t/h/w position ids: vision patches on a 16-wide grid
+    at t = 0, text tokens advancing t past the vision span."""
+    idx = torch.arange(s, device=device)
+    is_vis = idx < n_vision
+    t = torch.where(is_vis, 0, idx - n_vision + 1)
+    hh = torch.where(is_vis, idx // 16, t)
+    ww = torch.where(is_vis, idx % 16, t)
+    pos = torch.stack([t, hh, ww]).to(torch.int32) + offset
+    return pos[:, None, :].expand(3, b, s)
+
+
+def embed(ctx: ApplyCtx, params, tokens: torch.Tensor, positions: torch.Tensor,
+          vision_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings in the compute dtype; a vision model's first
+    ``vision_embeds.shape[1]`` rows replaced by ``vision_embeds``, and
+    Whisper's sinusoidal positions added."""
+    cfg = ctx.cfg
+    h = params["embed"][tokens.long()].to(ctx.rcfg.cdtype)
+    if vision_embeds is not None and cfg.n_vision_tokens:
+        nv = vision_embeds.shape[1]
+        if nv > h.shape[1]:
+            raise ValueError(f"{nv} vision embeds do not fit a prompt of {h.shape[1]} tokens")
+        h = torch.cat([vision_embeds.to(h.dtype), h[:, nv:]], dim=1)
+    if cfg.rope_type == "none" and cfg.arch_type != "ssm":
+        h = h + sinusoidal_pos(positions, cfg.d_model).to(h.dtype)
+    return h
 
 
 def unembed(ctx: ApplyCtx, params, h: torch.Tensor) -> torch.Tensor:
     """Final norm + LM head: (B, S, d) -> (B, S, vocab) in ``h.dtype``."""
-    h = rms_norm(h, params["final_norm"], ctx.cfg.norm_eps)
-    w = params["embed"].T if ctx.cfg.tie_embeddings else params["head"]
+    cfg = ctx.cfg
+    if cfg.arch_type == "audio":
+        h = layer_norm(h, params["final_norm"], params["final_norm_b"], cfg.norm_eps)
+    else:
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    w = params["embed"].T if cfg.tie_embeddings else params["head"]
     return h @ w.to(h.dtype)
+
+
+def encode(ctx: ApplyCtx, params, enc_feats: torch.Tensor):
+    """Whisper's encoder over the stub frame embeddings (B, T_enc, d):
+    sinusoidal positions, then per layer bidirectional self-attention and
+    the GELU MLP, then the encoder's final LayerNorm. Returns (output,
+    positions (B, T_enc))."""
+    cfg = ctx.cfg
+    b, t, _ = enc_feats.shape
+    pos = torch.arange(t, dtype=torch.int32, device=enc_feats.device).expand(b, t)
+    h = enc_feats.to(ctx.rcfg.cdtype)
+    h = h + sinusoidal_pos(pos, cfg.d_model).to(h.dtype)
+    ep = params["encoder"]
+    for i in range(cfg.n_encoder_layers):
+        lp = _layer(ep["layers"], i)
+        out, _ = attn_full(ctx, lp["attn"], _norm(cfg, lp, "ln1", h), pos, None, None,
+                           causal=False)
+        h = h + out
+        h = h + _ffn(ctx, lp, _norm(cfg, lp, "ln2", h))
+    return layer_norm(h, ep["final_norm"], ep["final_norm_b"], cfg.norm_eps), pos
 
 
 # ---------------------------------------------------------------------------
@@ -356,12 +491,15 @@ def _parts(cfg: ModelConfig) -> list:
     return ([("prologue", "pro", layer_windows(cfg, n_pro))] if n_pro else []) + [main]
 
 
-def _empty_cache(cfg: ModelConfig, n: int, b: int, w: int, dev) -> Dict[str, torch.Tensor]:
+def _empty_cache(cfg: ModelConfig, n: int, b: int, w: int, dev,
+                 enc_len: int) -> Dict[str, torch.Tensor]:
     """The stacked bf16 cache tensors of ``n`` layers and a batch of ``b``
     rows: K/V (or MLA's latent and RoPE key) with ``w`` slots,
     zero-filled, and/or the SSM and conv states of a Mamba2 or hybrid
     model (every layer's prefill overwrites them, so they start
-    uninitialised)."""
+    uninitialised), and an encoder-decoder's cross-attention K/V over
+    ``enc_len`` encoder positions (zero-filled; prefill overwrites them
+    whole)."""
     cache = {}
     if cfg.mla is not None:
         m = cfg.mla
@@ -377,6 +515,10 @@ def _empty_cache(cfg: ModelConfig, n: int, b: int, w: int, dev) -> Dict[str, tor
         conv_dim = s.inner(cfg.d_model) + 2 * s.d_state
         cache["ssm"] = torch.empty((n, b, nh, s.headdim, s.d_state), dtype=KV_DTYPE, device=dev)
         cache["conv"] = torch.empty((n, b, s.d_conv - 1, conv_dim), dtype=KV_DTYPE, device=dev)
+    if cfg.is_encoder_decoder:
+        shape = (n, b, enc_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        cache["cross_k"] = torch.zeros(shape, dtype=KV_DTYPE, device=dev)
+        cache["cross_v"] = torch.zeros(shape, dtype=KV_DTYPE, device=dev)
     return cache
 
 
@@ -390,24 +532,38 @@ def prefill(ctx: ApplyCtx, params, batch, capacity: Optional[int] = None,
     a cache of ``empty_cache`` to fill in place instead of a new one (its
     slot tensors, K/V or MLA's latent and RoPE key, prologue's included,
     are zeroed first, as a new cache's are: masked slots then hold zeros
-    and not an earlier group's entries); it is returned.
+    and not an earlier group's entries); it is returned. An
+    encoder-decoder model needs ``batch["enc_feats"]``, of as many
+    frames as ``out``'s cross-attention cache holds, or a ``ValueError``
+    is raised before anything is written.
     """
     cfg = ctx.cfg
-    require_ported(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     dev = tokens.device
+    enc_len = None
+    if cfg.is_encoder_decoder:
+        if batch.get("enc_feats") is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder model: its prefill needs "
+                             "batch['enc_feats'] (B, T_enc, d_model)")
+        enc_len = batch["enc_feats"].shape[1]
+        if out is not None and out["main"]["cross_k"].shape[2] != enc_len:
+            raise ValueError(f"enc_feats of {enc_len} frames do not fit a cache whose cross "
+                             f"attention holds {out['main']['cross_k'].shape[2]}")
     positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
-    h = embed(ctx, params, tokens)
+    pos3 = (build_mrope_positions(b, s, cfg.n_vision_tokens, device=dev)
+            if cfg.rope_type == "mrope" else None)
+    enc = encode(ctx, params, batch["enc_feats"]) if cfg.is_encoder_decoder else None
+    h = embed(ctx, params, tokens, positions, batch.get("vision_embeds"))
     if out is None:
-        out = empty_cache(cfg, b, max(s, capacity or 0), dev)
+        out = empty_cache(cfg, b, max(s, capacity or 0), dev, enc_len)
     else:  # a cache preallocated by the caller, prefilled in place
         for _, part, _ in _parts(cfg):
             for name in RING_KEYS:
                 if name in out[part]:
                     out[part][name].zero_()
     for key, part, windows in _parts(cfg):
-        h = run_stack(ctx, params[key], windows, h, positions, out[part])
+        h = run_stack(ctx, params[key], windows, h, positions, pos3, enc, out[part])
     logits = unembed(ctx, params, h[:, -1:])
     out["length"].fill_(s)
     return out, logits
@@ -418,14 +574,19 @@ def prefill(ctx: ApplyCtx, params, batch, capacity: Optional[int] = None,
 # ---------------------------------------------------------------------------
 
 
-def empty_cache(cfg: ModelConfig, b: int, w: int, device=None) -> dict:
+def empty_cache(cfg: ModelConfig, b: int, w: int, device=None,
+                enc_len: Optional[int] = None) -> dict:
     """A cache of ``b`` rows and ``w`` K/V slots, for ``prefill(...,
     out=)``: the stacked tensors of the main stack (``"main"``) and of the
-    prologue (``"pro"``, where the model has one), and a zero ``length``."""
+    prologue (``"pro"``, where the model has one), and a zero ``length``.
+    An encoder-decoder model's layers also hold the cross-attention K/V
+    of ``enc_len`` encoder positions (``cfg.encoder_seq_len`` by
+    default), unpadded, as the reference's ``abstract_cache``."""
     n_pro = _n_prologue(cfg)
-    cache = {"main": _empty_cache(cfg, cfg.n_layers - n_pro, b, w, device)}
+    enc_len = enc_len or cfg.encoder_seq_len
+    cache = {"main": _empty_cache(cfg, cfg.n_layers - n_pro, b, w, device, enc_len)}
     if n_pro:
-        cache["pro"] = _empty_cache(cfg, n_pro, b, w, device)
+        cache["pro"] = _empty_cache(cfg, n_pro, b, w, device, enc_len)
     cache["length"] = torch.zeros((), dtype=torch.int32, device=device)
     return cache
 
@@ -450,16 +611,18 @@ def _ring(t: torch.Tensor, w: int, b: int):
 
 
 def layer_decode(
-    ctx: ApplyCtx, lp: dict, window, lcache: dict, h: torch.Tensor, pos, ring
+    ctx: ApplyCtx, lp: dict, window, lcache: dict, h: torch.Tensor, pos, ring, pos3=None
 ) -> torch.Tensor:
-    """One-token decode through one layer at positions ``pos``: writes this
-    step's K/V (or MLA's latent and RoPE key) into ring slot ``slot`` of
-    ``lcache``, where ``ring`` is (slot, kv_pos) from ``_ring`` (None for
-    a model without a ring), and/or a Mamba2 layer's new states over its
-    old ones (in place), and returns the new hidden state."""
+    """One-token decode through one layer at positions ``pos`` (M-RoPE:
+    ``pos3``): writes this step's K/V (or MLA's latent and RoPE key) into
+    ring slot ``slot`` of ``lcache``, where ``ring`` is (slot, kv_pos)
+    from ``_ring`` (None for a model without a ring), and/or a Mamba2
+    layer's new states over its old ones (in place); a decoder layer then
+    reads the cross-attention K/V its prefill cached. Returns the new
+    hidden state."""
     cfg = ctx.cfg
     b = h.shape[0]
-    hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
+    hn = _norm(cfg, lp, "ln1", h)
 
     def mamba2():
         out, st, cv = ssm.mamba2_decode(
@@ -480,8 +643,8 @@ def layer_decode(
         attn_out = mla_decode(cfg, lp["attn"], hn, pos, ckv.to(hn.dtype), krc.to(hn.dtype),
                               kv_pos)
     else:
-        q, k, v = _qkv(cfg, lp["attn"], hn)
-        q, k = _rope_qk(cfg, q, k, pos)
+        q, k, v = _qkv(cfg, lp["attn"], hn, hn)
+        q, k = _rope_qk(cfg, q, k, pos, pos3)
         kc, vc = lcache["k"], lcache["v"]
         kc.index_copy_(1, slot, k.to(kc.dtype))
         vc.index_copy_(1, slot, v.to(vc.dtype))
@@ -493,7 +656,15 @@ def layer_decode(
     if cfg.arch_type == "hybrid":
         attn_out = _mix(lp, attn_out, mamba2(), hn.dtype)
     h = h + attn_out
-    return h + _ffn(ctx, lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
+    if cfg.is_encoder_decoder:
+        q = _q(cfg, lp["cross"], _norm(cfg, lp, "ln_cross", h))
+        ck, cv = lcache["cross_k"].to(hn.dtype), lcache["cross_v"].to(hn.dtype)
+        el = ck.shape[1]
+        enc_pos = torch.arange(el, dtype=torch.int32, device=h.device).expand(b, el)
+        q_pos = torch.zeros((b, 1), dtype=torch.int32, device=h.device)
+        out = attention(q, ck, cv, q_pos, enc_pos, causal=False, rcfg=ctx.rcfg)
+        h = h + out.reshape(b, 1, -1) @ lp["cross"]["wo"].to(hn.dtype)
+    return h + _ffn(ctx, lp, _norm(cfg, lp, "ln2", h))
 
 
 def decode_step(ctx: ApplyCtx, params, cache, tokens: torch.Tensor):
@@ -510,14 +681,18 @@ def decode_step(ctx: ApplyCtx, params, cache, tokens: torch.Tensor):
     if not isinstance(t, torch.Tensor):
         t = torch.tensor(t, dtype=torch.int32, device=tokens.device)
     pos = t.reshape(1, 1).expand(b, 1)
-    h = embed(ctx, params, tokens)
+    pos3 = None
+    if cfg.rope_type == "mrope":  # text advances from 1 past the vision span
+        t3 = t - cfg.n_vision_tokens + 1 if cfg.n_vision_tokens else t
+        pos3 = t3.reshape(1, 1, 1).expand(3, b, 1)
+    h = embed(ctx, params, tokens, pos)
     main = cache["main"]
     slots = next((main[name] for name in ("k", "ckv") if name in main), None)
     ring = None if slots is None else _ring(t, slots.shape[2], b)  # one width for every layer
     for key, part, windows in _parts(cfg):  # the prologue's layers, then the main stack's
         for i, win in enumerate(windows):
             lc = {name: c[i] for name, c in cache[part].items()}
-            h = layer_decode(ctx, _layer(params[key], i), win, lc, h, pos, ring)
+            h = layer_decode(ctx, _layer(params[key], i), win, lc, h, pos, ring, pos3)
     new_cache = dict(cache)
     new_cache["length"] = t + 1
     return new_cache, unembed(ctx, params, h)

@@ -28,6 +28,15 @@ capture raises; nothing falls back.
 Every call only enqueues work on the card; the runtime keeps ``c``
 decode groups in flight on one device queue (the current stream).
 
+``prefill`` and ``generate`` take the reference's ``extras``: the
+encoder's frame embeddings ``enc_feats`` of an encoder-decoder model
+(Whisper), or a vision model's ``vision_embeds`` (Qwen2-VL), passed
+through to the model's prefill. A pool entry's cache holds Whisper's
+cross-attention K/V over ``cfg.encoder_seq_len`` encoder positions, so
+its graph captures the cross-attention read too; ``enc_feats`` of
+another length do not fit an entry, and its prefill raises. The runtime
+passes no extras, as the reference's does not.
+
 Weights are cast once, at load. The reference keeps float32 parameters
 and casts each one to the compute dtype where it is used
 (``ap["wq"].astype(dt)``); at full width that moves ~20 GB per decode
@@ -36,7 +45,8 @@ compute dtype up front, which gives bit-identical results (a cast is
 deterministic, and the model's per-use ``.to(dtype)`` is then a no-op).
 What the reference reads in float32 stays float32, since a round trip
 through bf16 would not be exact: the norm weights (``rms_norm`` widens
-them, Mamba2's ``norm_w`` too), Mamba2's ``dt_bias`` (added to the
+them, Mamba2's ``norm_w`` too; Whisper's ``layer_norm`` its weights and
+biases), Mamba2's ``dt_bias`` (added to the
 float32 dt) and ``A_log`` (cast to float32 before ``exp``), a hybrid
 layer's ``mix_gate`` (cast to float32 before ``sigmoid``), an MoE layer's
 ``router`` (the reference routes with float32 logits from float32 router
@@ -62,11 +72,13 @@ import torch
 from repro_torch.models.transformer import ApplyCtx, decode_step, empty_cache, prefill
 
 # parameters the reference reads in float32 at use: the norm weights
-# (rms_norm widens them; MLA's kv_norm too), Mamba2's dt_bias (added to the
-# float32 dt) and A_log (cast to float32 before exp), the hybrid mix_gate
-# (before sigmoid), the MoE router (float32 routing logits)
-_FLOAT32_KEYS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "kv_norm", "norm_w", "dt_bias",
-                 "A_log", "mix_gate", "router")
+# (rms_norm widens them; MLA's kv_norm too; layer_norm its weights and
+# biases), Mamba2's dt_bias (added to the float32 dt) and A_log (cast to
+# float32 before exp), the hybrid mix_gate (before sigmoid), the MoE router
+# (float32 routing logits)
+_NORMS = ("ln1", "ln2", "ln_cross", "final_norm")
+_FLOAT32_KEYS = (*_NORMS, *(n + "_b" for n in _NORMS), "q_norm", "k_norm", "kv_norm", "norm_w",
+                 "dt_bias", "A_log", "mix_gate", "router")
 
 
 def cast_for_compute(params: dict, dtype: torch.dtype) -> dict:
@@ -188,6 +200,18 @@ class ServingEngine:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
+    def features(self, a) -> torch.Tensor:
+        """Host or device float features (``enc_feats``, ``vision_embeds``)
+        -> a tensor on the engine's device, uploaded as ``tokens`` are
+        (pinned, ``non_blocking`` on the card); the model casts them to
+        the compute dtype."""
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device)
+        t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
     # -------------------------------------------------------------- pool
     def acquire(self) -> int:
         """A free pool entry's index, marked busy; the pool grows by one
@@ -251,12 +275,16 @@ class ServingEngine:
 
     # ------------------------------------------------------------- steps
     @torch.inference_mode()
-    def prefill(self, tokens, entry: Optional[int] = None):
+    def prefill(self, tokens, extras: Optional[Dict] = None, entry: Optional[int] = None):
         """Prompt (B, S) -> (cache, logits (B, 1, vocab)) on the device.
-        With ``entry`` (from ``acquire``) the prompt is prefilled into that
-        pool entry's cache, whose ``max_len`` slots must hold it; without,
-        into a new cache."""
+        ``extras`` (``enc_feats``, ``vision_embeds``: arrays or tensors)
+        go to the model's prefill beside the tokens. With ``entry`` (from
+        ``acquire``) the prompt is prefilled into that pool entry's cache,
+        whose ``max_len`` slots must hold it (and whose cross-attention
+        cache the ``enc_feats``); without, into a new cache."""
         batch = {"tokens": self.tokens(tokens)}
+        for name, a in (extras or {}).items():
+            batch[name] = self.features(a)
         if entry is None:
             return self._prefill(self.params, batch)
         s = batch["tokens"].shape[1]
@@ -299,11 +327,13 @@ class ServingEngine:
         self,
         prompt: np.ndarray,
         n_tokens: int,
+        extras: Optional[Dict] = None,
         temperature: float = 0.0,
         seed: int = 0,
     ) -> np.ndarray:
         """Greedy (``temperature <= 0``) or sampled generation of
-        ``n_tokens`` tokens per row; returns (B, n_tokens) int32. Sampling
+        ``n_tokens`` tokens per row after a prefill of ``prompt`` with
+        ``extras`` (see ``prefill``); returns (B, n_tokens) int32. Sampling
         draws from a ``torch.Generator`` seeded with ``seed``: the same
         distribution as the reference's ``jax.random.categorical``, not the
         same numbers."""
@@ -313,7 +343,7 @@ class ServingEngine:
                              f"({self.batch}, {self.max_len}), and graphs decode only those")
         k = self.acquire() if fits else None  # a pool entry: on the card, the graph
         try:
-            cache, logits = self.prefill(prompt, entry=k)
+            cache, logits = self.prefill(prompt, extras, entry=k)
             gen = torch.Generator(device=self.device).manual_seed(seed)
             out = []
             tok = self._sample(logits, temperature, gen)

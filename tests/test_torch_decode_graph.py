@@ -3,8 +3,10 @@ cache's ``length`` an int32 scalar tensor, run eagerly through the
 engine's pool, against the JAX package's teacher-forced logits
 (``tests/test_decode_multistep.py``'s property) for Qwen2.5-3B,
 Mamba2-2.7B, Hymba-1.5B, DeepSeek-V2-236B (MLA's latent cache, MoE, a
-dense prologue) and Moonlight-16B-A3B (MoE with shared experts, a dense
-prologue) at reduced width; the step reads no device
+dense prologue), Moonlight-16B-A3B (MoE with shared experts, a dense
+prologue), Whisper-medium (the encoder's features, the cross-attention
+cache) and Qwen2-VL-72B (M-RoPE, vision embeds over the first 8
+positions) at reduced width; the step reads no device
 value on the host; a pool entry reused by another group gives the
 logits of a new cache.
 
@@ -39,7 +41,8 @@ from repro_torch.models.transformer import ApplyCtx, decode_step, prefill
 from repro_torch.serving import ServingEngine, make_prefill_step, make_serve_step
 from repro_torch.serving.engine import capture_counts, reset_capture_counts
 
-ARCHS = ["qwen2.5-3b", "mamba2-2.7b", "hymba-1.5b", "deepseek-v2-236b", "moonshot-v1-16b-a3b"]
+ARCHS = ["qwen2.5-3b", "mamba2-2.7b", "hymba-1.5b", "deepseek-v2-236b", "moonshot-v1-16b-a3b",
+         "whisper-medium", "qwen2-vl-72b"]
 B, S, N_DEC = 2, 24, 4  # prefill S - N_DEC tokens, decode the last N_DEC
 
 
@@ -54,17 +57,36 @@ def _models(arch):
     return jctx, np_params, tctx, params_from_jax(np_params, "cpu")
 
 
+def _extras(cfg, seed=7):
+    """A model's stub front-end inputs (numpy, normal draws): Whisper's
+    encoder features, Qwen2-VL's vision embeds; none for the others."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.is_encoder_decoder:
+        out["enc_feats"] = rng.normal(size=(B, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32)
+    if cfg.n_vision_tokens:
+        out["vision_embeds"] = rng.normal(size=(B, cfg.n_vision_tokens, cfg.d_model)).astype(
+            np.float32)
+    return out
+
+
+def _batch(tokens, ex):
+    return {"tokens": tokens, **{k: torch.from_numpy(v) for k, v in ex.items()}}
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_serve_step_matches_teacher_forced_jax_logits(arch):
     jctx, np_params, tctx, params = _models(arch)
     tokens = np.random.default_rng(1).integers(0, tctx.cfg.vocab, (B, S), dtype=np.int32)
-    full, _ = jax.jit(lambda p, t: jax_forward(jctx, p, {"tokens": t}))(np_params, tokens)
+    ex = _extras(tctx.cfg)
+    full, _ = jax.jit(lambda p, t, e: jax_forward(jctx, p, {"tokens": t, **e}))(np_params, tokens,
+                                                                                 ex)
     full = np.asarray(full, np.float32)
     reset_capture_counts()
     eng = ServingEngine(tctx, params, B, S)
     assert not eng.graphs
     k = eng.acquire()
-    cache, _ = eng.prefill(tokens[:, : S - N_DEC], entry=k)
+    cache, _ = eng.prefill(tokens[:, : S - N_DEC], ex, entry=k)
     length = cache["length"]
     assert length.dtype == torch.int32 and length.dim() == 0 and int(length) == S - N_DEC
     for i in range(S - N_DEC, S):
@@ -85,16 +107,16 @@ def test_step_functions_equal_the_model_path_bitwise(arch):
     rng = np.random.default_rng(2)
     tokens = torch.from_numpy(rng.integers(0, tctx.cfg.vocab, (B, 10), dtype=np.int32))
     feeds = torch.from_numpy(rng.integers(0, tctx.cfg.vocab, (5, B, 1), dtype=np.int32))
+    batch = _batch(tokens, _extras(tctx.cfg))
     eng = ServingEngine(tctx, params, B, 16)
     with torch.inference_mode():
-        ref_cache, ref_logits = prefill(tctx, eng.params, {"tokens": tokens}, capacity=16)
+        ref_cache, ref_logits = prefill(tctx, eng.params, batch, capacity=16)
         ref = [ref_logits]
         for tok in feeds:
             ref_cache, lg = decode_step(tctx, eng.params, ref_cache, tok)
             ref.append(lg)
         k = eng.acquire()
-        cache, lg = make_prefill_step(tctx, capacity=16)(
-            eng.params, {"tokens": tokens}, out=eng.pool[k].cache)
+        cache, lg = make_prefill_step(tctx, capacity=16)(eng.params, batch, out=eng.pool[k].cache)
         got = [lg]
         step = make_serve_step(tctx)
         for tok in feeds:
@@ -122,7 +144,7 @@ def test_serve_step_reads_no_device_value_on_the_host(arch, monkeypatch):
     eng = ServingEngine(tctx, params, B, 16)
     k = eng.acquire()
     prompt = np.random.default_rng(3).integers(0, tctx.cfg.vocab, (B, 8), dtype=np.int32)
-    cache, _ = eng.prefill(prompt, entry=k)
+    cache, _ = eng.prefill(prompt, _extras(tctx.cfg), entry=k)
     tok = torch.from_numpy(prompt[:, :1].copy())
 
     def refuse(self, *a, **kw):
@@ -144,17 +166,20 @@ def test_serve_step_reads_no_device_value_on_the_host(arch, monkeypatch):
 def test_reused_pool_entry_equals_a_new_cache(arch):
     """A group prefilled into an entry a longer group used before gets
     the logits of a new cache: the K/V (or MLA latent and RoPE key) slots
-    of every stack, prologue included, are zeroed, the states and
-    ``length`` overwritten."""
+    of every stack, prologue included, are zeroed, the states, the
+    cross-attention cache (of other encoder features) and ``length``
+    overwritten."""
     _, _, tctx, params = _models(arch)
     rng = np.random.default_rng(4)
     eng = ServingEngine(tctx, params, B, 20)
     long_prompt = rng.integers(0, tctx.cfg.vocab, (B, 14), dtype=np.int32)
-    short = rng.integers(0, tctx.cfg.vocab, (B, 6), dtype=np.int32)
+    short = rng.integers(0, tctx.cfg.vocab, (B, max(6, tctx.cfg.n_vision_tokens + 2)),
+                         dtype=np.int32)  # a vision prompt holds its vision span
     feeds = rng.integers(0, tctx.cfg.vocab, (4, B, 1), dtype=np.int32)
+    ex_long, ex = _extras(tctx.cfg, seed=8), _extras(tctx.cfg, seed=9)
 
     def run(entry):
-        cache, lg = eng.prefill(short, entry=entry)
+        cache, lg = eng.prefill(short, ex, entry=entry)
         out = [lg]
         for tok in feeds:
             cache, lg = eng.decode(cache, tok)
@@ -163,7 +188,7 @@ def test_reused_pool_entry_equals_a_new_cache(arch):
 
     fresh = run(None)
     k = eng.acquire()
-    cache, _ = eng.prefill(long_prompt, entry=k)
+    cache, _ = eng.prefill(long_prompt, ex_long, entry=k)
     for tok in feeds:
         cache, _ = eng.decode(cache, tok)
     eng.release(k)

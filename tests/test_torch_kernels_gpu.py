@@ -33,8 +33,9 @@ the card: records against ``BENCH_matrix.json`` at rel 1e-12 (both rebuild
 the card: its windows launches bitwise at the fleet's shapes, its results
 block equal to ``BENCH_fleet.json``'s (``json.dumps`` with sorted keys).
 The serving engine's CUDA graph of the decode step (reduced Qwen2.5-3B,
-Mamba2-2.7B, a 4-layer Hymba-1.5B, DeepSeek-V2-236B and
-Moonlight-16B-A3B, bf16): its logits and caches
+Mamba2-2.7B, a 4-layer Hymba-1.5B, DeepSeek-V2-236B,
+Moonlight-16B-A3B, Whisper-medium with its encoder's features and
+Qwen2-VL-72B with its vision embeds, bf16): its logits and caches
 bitwise equal to the eager step's (the same kernels in the same order),
 one capture per pool entry, an entry-less cache refused by a graphed
 engine, and the runtime's tokens through graphs equal to its tokens
@@ -93,7 +94,12 @@ SWEEP = [
     (2, 8, 8, 200, 192, 128, False, None),  # bidirectional, ragged
     (1, 8, 8, 2048, 192, 128, True, None),  # 16 key tiles through a ring of two stages
     (2, 16, 2, 256, 192, 128, True, None),  # GQA at the MLA widths
+    (4, 16, 16, 1500, 64, 64, False, None),  # Whisper's encoder: MHA, a 92-row tail
+    (1, 64, 8, 512, 128, 128, True, None),  # Qwen2-VL-72B: GQA group 8
 ]
+# Whisper's cross attention: non-causal, the decoder's Sq queries over the
+# encoder's Sk = 1500 frames (Sq < Sk; one query row is a decode step's)
+CROSS = [(sq, d) for sq in (1, 64, 128, 200) for d in (64, 128)]
 # (D, Dv) pairs the tensor-core bodies take in bf16 (flash_attention.py)
 WGMMA_DIMS = {(64, 64), (128, 128), (192, 128)}
 
@@ -133,6 +139,25 @@ def test_flash_kernel_matches_ref(cuda, b, hq, hkv, s, d, dv, causal, window, dt
     ref = attention_ref(q, k, v, causal=causal, window=window)
     atol = 2e-5 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,d", CROSS)
+def test_flash_cross_attention_queries_fewer_than_keys(cuda, sq, d):
+    """Non-causal with Sq < Sk (Whisper's cross attention, Sk = 1500 with
+    a 92-row tail): the grid and Q's tensor map follow Sq, the key tiles
+    Sk, O's stores stop at Sq's tail. On the wgmma body, within 3e-2."""
+    rng = np.random.default_rng(sq + d)
+    b, h, sk = 2, 16, 1500
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda, torch.bfloat16)
+               for shape in ((b, h, sq, d), (b, h, sk, d), (b, h, sk, d)))
+    assert body_for(q, k, v) == "wgmma"
+    before = body_launches()["wgmma"]
+    out = flash_attention_bhsd(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert body_launches()["wgmma"] == before + 1 and out.shape == (b, h, sq, d)
+    torch.testing.assert_close(out.float(), attention_ref(q, k, v, causal=False).float(),
+                               atol=3e-2, rtol=0)
 
 
 @pytest.mark.gpu
@@ -615,6 +640,7 @@ def test_fleet_on_the_card_reproduces_the_record(cuda):
 
 GRAPH_ARCHS = ["qwen2.5-3b", "mamba2-2.7b", "hymba-1.5b", "deepseek-v2-236b",
                "moonshot-v1-16b-a3b"]
+EXTRAS_ARCHS = ["whisper-medium", "qwen2-vl-72b"]  # through the engine, not the runtime
 
 
 def _graph_engines(arch, batch=2, max_len=48):
@@ -638,8 +664,11 @@ def _graph_engines(arch, batch=2, max_len=48):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+@pytest.mark.parametrize("arch", GRAPH_ARCHS + EXTRAS_ARCHS)
 def test_graphed_decode_is_bitwise_the_eager_step(cuda, arch):
+    """The graph captures the whole step: Whisper's cross-attention read of
+    the entry's cached encoder K/V and Qwen2-VL's M-RoPE positions too."""
+    from repro_torch.launch.serve import multimodal_extras
     from repro_torch.serving.engine import capture_counts, reset_capture_counts
 
     reset_capture_counts()
@@ -648,10 +677,11 @@ def test_graphed_decode_is_bitwise_the_eager_step(cuda, arch):
     vocab = eager.ctx.cfg.vocab
     prompt = rng.integers(0, vocab, (2, 20), dtype=np.int32)
     feeds = rng.integers(0, vocab, (12, 2, 1), dtype=np.int32)
+    extras = multimodal_extras(eager.ctx.cfg, 2, seed=3, std=1.0)
     out = {}
     for name, eng in (("eager", eager), ("graphed", graphed)):
         k = eng.acquire()
-        cache, logits = eng.prefill(prompt, entry=k)
+        cache, logits = eng.prefill(prompt, extras, entry=k)
         steps = [logits.clone()]
         for tok in feeds:
             cache, logits = eng.decode(cache, tok)

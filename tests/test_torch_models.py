@@ -16,7 +16,7 @@ from repro_torch.configs.registry import REGISTRY
 from repro_torch.configs.runtime import RunConfig
 from repro_torch.models import attention as t_attention
 from repro_torch.models import layers as t_layers
-from repro_torch.models.transformer import ApplyCtx, param_specs, prefill
+from repro_torch.models.transformer import param_specs
 
 RNG_SEED = 11
 
@@ -110,12 +110,3 @@ def test_attention_paths_match_jax(sq, skv, window, threshold):
                                 causal=True, window=window, rcfg=tr)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=2e-5)
 
-
-@pytest.mark.parametrize("arch", ["whisper-medium", "qwen2-vl-72b"])
-def test_unported_branches_raise(arch):
-    cfg = REGISTRY[arch].reduced()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 13\(b\)"):
-        param_specs(cfg)
-    ctx = ApplyCtx(cfg, RunConfig())
-    with pytest.raises(NotImplementedError):
-        prefill(ctx, {}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
