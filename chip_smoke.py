@@ -137,7 +137,25 @@ Phases, each of which exits non-zero on failure:
    calls, each held bit for bit to the plain version on its own inputs,
    the results block equal to the record's (on a mismatch, the keys and
    the first twin and step where the card's wave leaves the CPU's), and
-   the engine block printed beside the card's name and power limit.
+   the engine block printed beside the card's name and power limit; (k)
+   the lanes on the card: with ``REPRO_CONTRACTS=1`` and
+   ``REPRO_CHECKIFY=1`` set in the process, the static grid, the drift
+   cells, the offload and the cotenant cells (one batched call each) and
+   the fleet's cold and warm calls at 1024 twins again, each record equal
+   to the lane-off one of (a), (d), (g), (h) and (j) exactly, with the same
+   dcov launches, each launch held bit for bit to the plain version; a
+   fault cell and a static call over a NaN landscape (2 seeds, 9 steps)
+   must raise ``SanitizeError``; then each batched call's wall time and
+   kernels per step with the lanes off and on, in turns (off, on, on,
+   off); the flags are unset afterwards; (l) the build-count guard: a
+   second static call over the grid with other seeds builds nothing
+   (``count_builds``: no staging, no nvcc, no capture); (m) the records:
+   the card's matrix record, (a) with the families of (d), (e), (g) and
+   (h) merged in, passes ``validate_matrix_record``, its
+   ``markdown_report`` equals the committed ``BENCH_matrix.md`` byte for
+   byte and its ``score_floors`` those of ``BENCH_matrix.json``; the fleet
+   record of (j), wrapped as the reference's fleet bench wraps it, passes
+   ``validate_fleet_record``.
 4. Serve (the serving paths): ``serve()`` at full width, 16 requests,
    prompt 512, 32 new tokens, batch 4, at concurrency 1, then 2, with
    launch counts reset just before and read just after each model's runs;
@@ -147,7 +165,8 @@ Phases, each of which exits non-zero on failure:
    Qwen2-VL-72B at 8 layers, text-only: 8 flash; all ``wgmma``), and
    each decode must have gone
    through the engine's CUDA graphs, one capture per pool entry (c entries
-   at concurrency c), not one per step. Whisper-medium, which the runtime
+   at concurrency c), not one per step, counted by the build-count guard
+   (``count_builds``'s ``capture:<model>``). Whisper-medium, which the runtime
    does not serve (it takes no encoder features, as the reference's does
    not), runs ``ServingEngine.generate`` (4 x 128, 32 new tokens, its
    ``enc_feats``) with its counts reset before and read after: 72 flash
@@ -213,6 +232,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -397,6 +417,11 @@ RECORD_REL = 1e-12  # floats of a cell record against the committed one
 FLEET_RECORD = ROOT / "BENCH_fleet.json"  # the JAX package's committed fleet record
 FLEET_RUN = dict(n_twins=1024, seed=0, iters=30, window=12)  # BENCH_fleet.json's settings
 FLEET_CALLS = (("cold", 1024), ("steady", 1024), ("warm", 256))  # run_fleet's engine calls
+LANES = ("REPRO_CONTRACTS", "REPRO_CHECKIFY")  # the engine's contract and NaN lanes
+LANE_TURNS = (False, True, True, False)  # lanes off and on, in turns
+NAN_CALL = dict(seeds=(0, 1), iters=9, window=6)  # the static call over a NaN landscape
+FLEET_REGENERATE = ("PYTHONPATH=src python -c 'from repro_torch.experiments.fleet import "
+                    "run_fleet; print(run_fleet(1024, seed=0, iters=30, window=12))'")
 
 
 def fail(msg: str) -> None:
@@ -1767,24 +1792,29 @@ def _to(tree, device):
             for k, v in tree.items()}
 
 
+def captures_of(built):
+    """The CUDA graph captures the build-count guard counted, all models."""
+    return sum(1 for name in built.names if name.startswith("capture:"))
+
+
 def serve_runs(torch, arch):
     """The main path of one model: ``serve()`` at full width at each
     concurrency of SERVE_ORDER, launch counts reset just before and read
     just after. Returns the counts."""
+    from repro_torch.core.sanitize import count_builds
     from repro_torch.kernels import runtime
     from repro_torch.launch.serve import serve
-    from repro_torch.serving.engine import capture_counts, reset_capture_counts
 
     torch.cuda.reset_peak_memory_stats()
     runtime.reset_launch_counts()
-    reset_capture_counts()
     metrics = []
-    for c in SERVE_ORDER:
-        free_card(torch, f"the {arch} serve() run at c={c}")
-        metrics.append(serve(arch, **SERVE, concurrency=c, layers=DEPTH_CUT.get(arch),
-                             device="cuda"))
+    with count_builds() as built:
+        for c in SERVE_ORDER:
+            free_card(torch, f"the {arch} serve() run at c={c}")
+            metrics.append(serve(arch, **SERVE, concurrency=c, layers=DEPTH_CUT.get(arch),
+                                 device="cuda"))
     counts = runtime.launch_counts()
-    captures = sum(capture_counts().values())
+    captures = captures_of(built)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for c, m in zip(SERVE_ORDER, metrics):
         say(f"  {arch} serve c={c}: {m['requests']} requests, {m['throughput_tok_s']:.2f} tok/s, "
@@ -1862,9 +1892,9 @@ def generate_run(torch, arch):
     SERVE's new tokens, decode through the engine's CUDA graph; launch
     and capture counts reset just before and read just after. Returns
     the counts."""
+    from repro_torch.core.sanitize import count_builds
     from repro_torch.kernels import runtime
     from repro_torch.launch.serve import build_engine
-    from repro_torch.serving.engine import capture_counts, reset_capture_counts
 
     free_card(torch, f"the {arch} generate() run")
     s, n = prompt_len(arch), SERVE["new_tokens"]
@@ -1873,12 +1903,12 @@ def generate_run(torch, arch):
     batch = model_batch(torch, engine.ctx.cfg, 5, SERVE["batch"], s)
     torch.cuda.synchronize()
     runtime.reset_launch_counts()
-    reset_capture_counts()
     t0 = time.perf_counter()
-    out = engine.generate(batch["tokens"], n, extras_of(batch))
+    with count_builds() as built:
+        out = engine.generate(batch["tokens"], n, extras_of(batch))
     wall = time.perf_counter() - t0
     counts = runtime.launch_counts()
-    captures = sum(capture_counts().values())
+    captures = captures_of(built)
     say(f"  {arch} generate (B={SERVE['batch']}, prompt {s}{extras_note(engine.ctx.cfg)}, {n} new "
         f"tokens): {wall:.3f} s, {out.size / wall:.2f} tok/s (the first call: the pool entry and "
         f"its graph capture included); {captures} capture over {len(engine.pool)} pool entry; "
@@ -1923,49 +1953,49 @@ def graph_bitwise_check(torch, arch):
     returned."""
     import numpy as np
 
+    from repro_torch.core.sanitize import count_builds
     from repro_torch.kernels import runtime
     from repro_torch.launch.serve import build_engine
-    from repro_torch.serving.engine import capture_counts, reset_capture_counts
 
-    reset_capture_counts()
     free_card(torch, f"the {arch} graph check")
-    s = prompt_len(arch)
-    graphed = build_engine(arch, 4, s + GRAPH_STEPS + 1, layers=DEPTH_CUT.get(arch),
-                           device="cuda")
-    eager = eager_twin(graphed)
-    runtime.reset_launch_counts()
-    batch = model_batch(torch, graphed.ctx.cfg, 4, 4, s)
-    extras = extras_of(batch)
-    steps, greedy = {}, {}
-    for name, eng in (("eager", eager), ("graphed", graphed)):
-        k = eng.acquire()
-        cache, logits = eng.prefill(batch["tokens"], extras, entry=k)
-        out, toks = [], []
-        for _ in range(GRAPH_STEPS):
-            tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
-            toks.append(tok)
-            cache, logits = eng.decode(cache, tok)
-            out.append(logits.float())
-        eng.release(k)
-        steps[name] = torch.stack(out)
-        greedy[name] = torch.cat(toks, dim=1).cpu().numpy()
-    prefills = 2
-    if extras:
+    with count_builds() as built:
+        s = prompt_len(arch)
+        graphed = build_engine(arch, 4, s + GRAPH_STEPS + 1, layers=DEPTH_CUT.get(arch),
+                               device="cuda")
+        eager = eager_twin(graphed)
+        runtime.reset_launch_counts()
+        batch = model_batch(torch, graphed.ctx.cfg, 4, 4, s)
+        extras = extras_of(batch)
+        steps, greedy = {}, {}
         for name, eng in (("eager", eager), ("graphed", graphed)):
-            gen = eng.generate(batch["tokens"], GRAPH_STEPS, extras)
-            prefills += 1
-            if not np.array_equal(gen, greedy[name]):
-                fail(f"{arch}: ServingEngine.generate ({name}) with {sorted(extras)} gives other "
-                     "tokens than the same greedy steps taken one by one")
-        say(f"  {arch} ServingEngine.generate with {sorted(extras)}, graphed and eager: the "
-            f"{GRAPH_STEPS} greedy tokens of the step-by-step decode")
+            k = eng.acquire()
+            cache, logits = eng.prefill(batch["tokens"], extras, entry=k)
+            out, toks = [], []
+            for _ in range(GRAPH_STEPS):
+                tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+                toks.append(tok)
+                cache, logits = eng.decode(cache, tok)
+                out.append(logits.float())
+            eng.release(k)
+            steps[name] = torch.stack(out)
+            greedy[name] = torch.cat(toks, dim=1).cpu().numpy()
+        prefills = 2
+        if extras:
+            for name, eng in (("eager", eager), ("graphed", graphed)):
+                gen = eng.generate(batch["tokens"], GRAPH_STEPS, extras)
+                prefills += 1
+                if not np.array_equal(gen, greedy[name]):
+                    fail(f"{arch}: ServingEngine.generate ({name}) with {sorted(extras)} "
+                         "gives other tokens than the same greedy steps taken one by one")
+            say(f"  {arch} ServingEngine.generate with {sorted(extras)}, graphed and eager: the "
+                f"{GRAPH_STEPS} greedy tokens of the step-by-step decode")
     counts = runtime.launch_counts()
     check_bodies(arch, prefills, f"the {arch} graph check's prefills")
     a, b = steps["graphed"], steps["eager"]
     if not torch.isfinite(b).all():
         fail(f"{arch}: the eager decode steps' logits are not finite")
     same = torch.equal(a, b)
-    captures = sum(capture_counts().values())
+    captures = captures_of(built)
     say(f"  {arch} decode, {GRAPH_STEPS} greedy steps after a 4x{s} prefill: graphed vs eager "
         f"logits bitwise equal: {same} (max |diff| {(a - b).abs().max().item():.3g}), "
         f"{captures} capture over {len(graphed.pool)} pool entry")
@@ -2299,7 +2329,8 @@ def phase_coral_slice(torch):
     before and read just after each part; (d), (e), (g) and (h) hold every
     windows-kernel launch to its plain version on its own inputs. Returns
     the dcov launches of the five batched main paths, (a), (d), (e), (g)
-    and (h)."""
+    and (h), and their records: (a)'s under ``cells``, the others' under
+    their family's name."""
     import numpy as np
 
     from repro_torch.core.coral import CORAL
@@ -2437,7 +2468,8 @@ def phase_coral_slice(torch):
     total = main["static"] + sum(main[f][0] for f in main if f != "static")
     say(f"  dcov launches on the main paths: {total} (" + ", ".join(
         f"{f} {main[f] if f == 'static' else main[f][0]}" for f in main) + ")")
-    return total
+    records = {"cells": batched, **{f: main[f][1] for f in main if f != "static"}}
+    return total, records
 
 
 def batched_family(torch, part, family, steps, variants, kw):
@@ -2480,7 +2512,8 @@ def phase_fleet(torch):
     the plain version on its own inputs, and the results block equal to the
     record's. On a mismatch: the keys that differ, then the first twin and
     step where the card's cold or warm wave leaves the same requests run on
-    the CPU. Returns the dcov launches."""
+    the CPU. Returns the dcov launches, the record and the engine calls
+    (batch, launches, requests, results), in FLEET_CALLS' order."""
     import numpy as np
 
     from repro_torch.experiments import fleet
@@ -2521,7 +2554,7 @@ def phase_fleet(torch):
         f"{got['feasible_rate']}, mean_m2f_cold {got['mean_m2f_cold']}, mean_score "
         f"{got['mean_score']}, warm_gain {got['warm_gain']} over {got['warm_matched']} pairs)")
     if same:
-        return counts["dcov"]
+        return counts["dcov"], rec, calls
     keys = [k for k in sorted(set(got) | set(want))
             if json.dumps(got.get(k), sort_keys=True) != json.dumps(want.get(k), sort_keys=True)]
     say(f"    keys that differ: {keys}")
@@ -2541,6 +2574,303 @@ def phase_fleet(torch):
     fail(f"the port's fleet does not reproduce {FLEET_RECORD.name}")
 
 
+def set_lanes(on):
+    """Turn the engine's contract and NaN lanes on or off in this process
+    (both read at call time)."""
+    for name in LANES:
+        if on:
+            os.environ[name] = "1"
+        else:
+            os.environ.pop(name, None)
+
+
+def same_waves(got, want):
+    """Two fleet engine calls' per-twin results equal exactly."""
+    import numpy as np
+
+    return len(got) == len(want) and all(
+        a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+        for a, b in zip(got, want))
+
+
+def phase_lanes(torch, records, fleet_calls):
+    """(k) The lanes on the card: with both flags set, the static grid, the
+    drift cells, the offload and the cotenant cells through ``run_matrix``
+    (one batched call each) and the fleet's cold and warm engine calls of
+    (j) on (j)'s requests, each record equal to its lane-off one exactly,
+    with as many dcov launches (one per step), each launch held bit for bit
+    to its plain version; a fault cell and a static call over a NaN
+    landscape must raise ``SanitizeError``; then ``lane_costs``. The flags
+    are unset on the way out. Returns the lane-on calls' dcov launches."""
+    import numpy as np
+
+    from repro_torch.core.episode import run_coral_batch
+    from repro_torch.core.evaluate import RegimeTargets
+    from repro_torch.core.sanitize import SanitizeError
+    from repro_torch.core.space import jetson_like_space
+    from repro_torch.device import jetson_like_simulator
+    from repro_torch.experiments import fleet, matrix, scenarios
+    from repro_torch.kernels import runtime
+
+    launches = 0
+    set_lanes(True)
+    try:
+        for part, family, steps, kw in (
+            ("a", "cells", 10, dict(cells=static_grid())),
+            ("d", "drift_cells", scenarios.DRIFT_INTERVALS,
+             dict(cells=list(scenarios.MATRIX_DRIFT_CELLS))),
+            ("g", "offload_cells", matrix.OFFLOAD_ITERS,
+             dict(cells=[], offload_cells=scenarios.MATRIX_OFFLOAD_CELLS)),
+            ("h", "cotenant_cells", matrix.COTENANT_ITERS,
+             dict(cells=[], cotenant_cells=scenarios.MATRIX_COTENANT_CELLS)),
+        ):
+            torch.cuda.synchronize()
+            runtime.reset_launch_counts()
+            t0 = time.perf_counter()
+            rec, kept, _ = held_per_launch(
+                torch, lambda kw=kw: matrix.run_matrix(**kw, device="cuda"),
+                f"(k) lanes on, {family}")
+            wall = time.perf_counter() - t0
+            n = runtime.launch_counts()["dcov"]
+            off = records[family]
+            keys = RECORD_FAMILIES[family]
+            apart = matrix.diff_records(rec[family], off[family], rel=0.0) + [
+                "summary" + d for d in matrix.diff_records(
+                    {k: rec["summary"][k] for k in keys},
+                    {k: off["summary"][k] for k in keys}, rel=0.0)]
+            say(f"  (k) lanes on, ({part})'s {len(rec[family])} {family} in one batched call: "
+                f"{wall:.3f} s, {n} dcov launches (lanes off: {steps}); record equal to "
+                f"({part})'s: {not apart}")
+            for x in apart[:20]:
+                say(f"    differs: {x}")
+            if n != steps or kept != steps:
+                fail(f"(k) the lane-on {family} call launched dcov {n} times, not {steps}")
+            if apart:
+                fail(f"(k) the lanes change the {family} record")
+            launches += n
+        for (name, _), (b, n_off, reqs, out_off) in zip(FLEET_CALLS, fleet_calls):
+            if name == "steady":
+                continue
+            torch.cuda.synchronize()
+            runtime.reset_launch_counts()
+            t0 = time.perf_counter()
+            out, kept, _ = held_per_launch(
+                torch, lambda reqs=reqs: fleet.run_fleet_requests(
+                    reqs, FLEET_RUN["iters"], FLEET_RUN["window"], device="cuda"),
+                f"(k) lanes on, fleet {name} call")
+            wall = time.perf_counter() - t0
+            n = runtime.launch_counts()["dcov"]
+            same = same_waves(out, out_off)
+            say(f"  (k) lanes on, the fleet's {name} call (B={b}): {wall:.3f} s, {n} dcov "
+                f"launches (lanes off: {n_off}); every twin's results equal (j)'s: {same}")
+            if n != n_off or kept != n_off:
+                fail(f"(k) the lane-on fleet {name} call launched dcov {n} times, not {n_off}")
+            if not same:
+                fail(f"(k) the lanes change the fleet's {name} wave")
+            launches += n
+
+        space = jetson_like_space()
+        land_tau, land_p = jetson_like_simulator(space).exact_all()
+        targets = RegimeTargets(mode="dual", tau_target=float(np.percentile(land_tau, 70)),
+                                p_budget=float(np.percentile(land_p, 60)))
+        for label, call in (
+            (f"a fault cell ({scenarios.MATRIX_FAULT_CELLS[0].regime}, 3 seeds x "
+             "{hardened, ablation})",
+             lambda: matrix.run_matrix([], fault_cells=scenarios.MATRIX_FAULT_CELLS[:1],
+                                       device="cuda")),
+            (f"a static call over a NaN landscape ({NAN_CALL})",
+             lambda: run_coral_batch(space, np.full_like(land_tau, np.nan), land_p, targets,
+                                     **NAN_CALL, device="cuda")),
+        ):
+            try:
+                call()
+            except SanitizeError as e:
+                say(f"  (k) lanes on, {label}: SanitizeError, as the reference raises: {e}")
+            else:
+                fail(f"(k) {label} ran clean under REPRO_CHECKIFY=1")
+        lane_costs(torch)
+    finally:
+        set_lanes(False)
+    say(f"  (k) dcov launches of the lane-on calls: {launches}")
+    return launches
+
+
+def kernels_per_call(torch, fn):
+    """The device kernels one call of ``fn`` launches, from a
+    ``torch.profiler`` window that traces the card alone (no host events to
+    reduce), behind PROFILE_LEAD spin kernels as in ``profiled_kernels``
+    (the profiler may drop a window's first records); the spins are not
+    counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_LEAD):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAUSE_S)
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key)
+
+
+def lane_costs(torch):
+    """Each batched engine call (``engine_calls``) with the lanes off and
+    on: the kernels of one call each way (``kernels_per_call``, which also
+    warms each way up), then the host clock around one call (which ends
+    reading its results) in turns, LANE_TURNS. A lane-on fault call raises
+    ``SanitizeError`` after its last step, as it must; its time is the
+    lanes' cost all the same."""
+    from repro_torch.core.sanitize import SanitizeError
+
+    say(f"  (k) the engine's calls with the lanes off and on, in turns ({card_line()}):")
+    for label, call, steps in engine_calls():
+        raises = "fault" in label
+
+        def run(on, call=call, raises=raises):
+            set_lanes(on)
+            try:
+                call()
+            except SanitizeError:
+                if not (on and raises):
+                    raise
+                return
+            if on and raises:
+                fail(f"(k) the lane-on {label} ran clean")
+
+        per_step = {on: kernels_per_call(torch, lambda on=on: run(on)) / steps
+                    for on in (False, True)}
+        turns = []
+        for on in LANE_TURNS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(on)
+            turns.append(f"{'on' if on else 'off'} {(time.perf_counter() - t0) * 1e3:.3f}")
+        say(f"    {label}: wall ms in turns " + ", ".join(turns) + f"; kernels per step off "
+            f"{per_step[False]:.1f}, on {per_step[True]:.1f} "
+            f"(+{per_step[True] - per_step[False]:.1f})")
+    set_lanes(False)
+
+
+def phase_guard(torch):
+    """(l) The build-count guard: a second static call over the grid with
+    other seeds stages nothing, builds no kernel and captures nothing."""
+    from repro_torch.core.sanitize import count_builds
+    from repro_torch.experiments import matrix
+
+    t0 = time.perf_counter()
+    with count_builds() as built:
+        rec = matrix.run_matrix(static_grid(), seeds=(3, 4, 5), device="cuda")
+    say(f"  (l) run_matrix over the {len(rec['cells'])} static cells with seeds (3, 4, 5): "
+        f"{time.perf_counter() - t0:.3f} s, builds counted by count_builds: {built.total} "
+        f"{built.names}")
+    if built.total:
+        fail(f"(l) the same static spec with other seeds built {built.names}")
+
+
+def phase_records(records, fleet_rec):
+    """(m) The card's records in the reference's schema: the matrix record
+    of (a) with the families of (d), (e), (g) and (h) merged in (grid and
+    wall clock joined, summary recomputed) passes ``validate_matrix_record``,
+    renders the committed BENCH_matrix.md byte for byte and gives the
+    committed record's ``score_floors``; the fleet record of (j), wrapped
+    as the reference's fleet bench wraps it, passes
+    ``validate_fleet_record``."""
+    import copy
+
+    from repro_torch.experiments import (
+        markdown_report,
+        matrix,
+        score_floors,
+        validate_fleet_record,
+        validate_matrix_record,
+    )
+
+    parts = list(records.values())
+    rec = copy.deepcopy(records["cells"])
+    for family in RECORD_FAMILIES:
+        if family != "cells":
+            rec[family] = records[family][family]
+    rec["grid"] = {k: sorted(set().union(*(r["grid"][k] for r in parts))) for k in rec["grid"]}
+    rec["wall_clock_s"] = {k: round(sum(r["wall_clock_s"][k] for r in parts), 4)
+                           for k in rec["wall_clock_s"]}
+    rec["summary"] = matrix._summarize(rec["cells"], rec["drift_cells"], rec["offload_cells"],
+                                       rec["cotenant_cells"], rec["fault_cells"])
+    payload = {"schema_version": 1, "regenerate": FLEET_REGENERATE, "quick": False,
+               "results": fleet_rec["results"], "engine": fleet_rec["engine"]}
+    for what, validate, record in (("matrix", validate_matrix_record, rec),
+                                   ("fleet", validate_fleet_record, payload)):
+        try:
+            validate(record)
+        except ValueError as e:
+            fail(f"(m) the card's {what} record does not validate: {e}")
+    md, want = markdown_report(rec), (ROOT / "BENCH_matrix.md").read_text()
+    committed = json.loads(MATRIX_RECORD.read_text())
+    floors = score_floors(rec) == score_floors(committed)
+    say(f"  (m) the card's matrix record ({sum(len(rec[f]) for f in RECORD_FAMILIES)} cells, "
+        f"engine {rec['engine']!r}) validates; its markdown_report equals BENCH_matrix.md byte "
+        f"for byte: {md == want}; its score_floors equal the committed record's: {floors}; the "
+        f"fleet record validates")
+    if md != want:
+        lines = [(i, a, b) for i, (a, b) in enumerate(zip(md.splitlines(), want.splitlines()))
+                 if a != b]
+        for i, a, b in lines[:5]:
+            say(f"    line {i + 1}: card {a!r}, committed {b!r}")
+        fail("(m) the card's markdown report differs from BENCH_matrix.md")
+    if not floors:
+        fail("(m) the card's score floors differ from the committed record's")
+
+
+def engine_calls():
+    """The batched engine's six calls at the record's cells, each as
+    (label, call, steps): static over the grid, drift over the 6 drift
+    cells, fault over the 6 fault cells, offload and cotenant over their 4
+    cells each, and the fleet's cold call (1024 twins). The requests are
+    built once; a call moves its tables to the card, runs its T steps and
+    reads its results on the host."""
+    from repro_torch.core.episode import (
+        run_drift_requests,
+        run_fault_requests,
+        run_fleet_requests,
+        run_static_requests,
+    )
+    from repro_torch.experiments import fleet, matrix, scenarios
+
+    seeds = (0, 1, 2)
+    reqs = [r for c in static_grid() for r in matrix._static_requests(matrix._prep_cell(c), seeds)]
+    calls = [(f"CORAL batched static call, {len(reqs)} episodes x 10 steps",
+              lambda reqs=reqs: run_static_requests(reqs, device="cuda"), 10)]
+    steps = scenarios.DRIFT_INTERVALS
+    reqs = [r for c in scenarios.MATRIX_DRIFT_CELLS for a in (True, False)
+            for r in matrix._drift_requests(matrix._prep_drift_cell(c, steps), seeds, a)]
+    calls.append((f"CORAL batched drift call, {len(reqs)} episodes x {steps} steps",
+                   lambda reqs=reqs, steps=steps: run_drift_requests(
+                       reqs, intervals=steps, device="cuda"), steps))
+    steps = scenarios.FAULT_INTERVALS
+    reqs = [r for c in scenarios.MATRIX_FAULT_CELLS for h in (True, False)
+            for r in matrix._fault_requests(matrix._prep_fault_cell(c, steps, seeds), seeds, h)]
+    calls.append((f"CORAL batched fault call, {len(reqs)} episodes x {steps} steps",
+                   lambda reqs=reqs, steps=steps: run_fault_requests(
+                       reqs, iters=steps, device="cuda"), steps))
+    for family, cells, prep, steps in (
+        ("offload", scenarios.MATRIX_OFFLOAD_CELLS, matrix._prep_offload_cell,
+         matrix.OFFLOAD_ITERS),
+        ("cotenant", scenarios.MATRIX_COTENANT_CELLS, matrix._prep_cotenant_cell,
+         matrix.COTENANT_ITERS),
+    ):
+        reqs = [r for c in cells for r in matrix._static_requests(prep(c), seeds)]
+        calls.append((f"CORAL batched {family} call, {len(reqs)} episodes x {steps} steps",
+                       lambda reqs=reqs, steps=steps: run_static_requests(
+                           reqs, iters=steps, device="cuda"), steps))
+    steps, window = FLEET_RUN["iters"], FLEET_RUN["window"]
+    reqs = [fleet._request(t) for t in fleet.build_fleet(FLEET_RUN["n_twins"], FLEET_RUN["seed"])]
+    calls.append((f"CORAL fleet cold call, {len(reqs)} twins x {steps} steps",
+                   lambda reqs=reqs: run_fleet_requests(reqs, steps, window, device="cuda"),
+                   steps))
+    return calls
+
+
 def phase_coral_profile(torch):
     """One batched static call over the grid, one batched drift call over
     the 6 drift cells, one batched fault call over the 6 fault cells, and
@@ -2551,51 +2881,11 @@ def phase_coral_profile(torch):
     two kernels."""
     import numpy as np
 
-    from repro_torch.core.episode import (
-        run_drift_requests,
-        run_fault_requests,
-        run_fleet_requests,
-        run_static_requests,
-    )
-    from repro_torch.experiments import fleet, matrix, scenarios
     from repro_torch.kernels.dcov import dcov_gram
 
-    reqs = [r for c in static_grid() for r in matrix._static_requests(matrix._prep_cell(c), (0, 1, 2))]
-    launches = profile_window(
-        torch, f"CORAL batched static call, {len(reqs)} episodes x 10 steps",
-        lambda: run_static_requests(reqs, device="cuda"), reps=3)
-    say(f"    {launches / 10:.1f} kernels per engine step")
-    seeds, steps = (0, 1, 2), scenarios.DRIFT_INTERVALS
-    reqs = [r for c in scenarios.MATRIX_DRIFT_CELLS for a in (True, False)
-            for r in matrix._drift_requests(matrix._prep_drift_cell(c, steps), seeds, a)]
-    launches = profile_window(
-        torch, f"CORAL batched drift call, {len(reqs)} episodes x {steps} steps",
-        lambda: run_drift_requests(reqs, intervals=steps, device="cuda"), reps=3)
-    say(f"    {launches / steps:.1f} kernels per engine step")
-    steps = scenarios.FAULT_INTERVALS
-    reqs = [r for c in scenarios.MATRIX_FAULT_CELLS for h in (True, False)
-            for r in matrix._fault_requests(matrix._prep_fault_cell(c, steps, seeds), seeds, h)]
-    launches = profile_window(
-        torch, f"CORAL batched fault call, {len(reqs)} episodes x {steps} steps",
-        lambda: run_fault_requests(reqs, iters=steps, device="cuda"), reps=3)
-    say(f"    {launches / steps:.1f} kernels per engine step")
-    for family, cells, prep, steps in (
-        ("offload", scenarios.MATRIX_OFFLOAD_CELLS, matrix._prep_offload_cell,
-         matrix.OFFLOAD_ITERS),
-        ("cotenant", scenarios.MATRIX_COTENANT_CELLS, matrix._prep_cotenant_cell,
-         matrix.COTENANT_ITERS),
-    ):
-        reqs = [r for c in cells for r in matrix._static_requests(prep(c), seeds)]
-        launches = profile_window(
-            torch, f"CORAL batched {family} call, {len(reqs)} episodes x {steps} steps",
-            lambda: run_static_requests(reqs, iters=steps, device="cuda"), reps=3)
+    for label, call, steps in engine_calls():
+        launches = profile_window(torch, label, call, reps=3)
         say(f"    {launches / steps:.1f} kernels per engine step")
-    steps, window = FLEET_RUN["iters"], FLEET_RUN["window"]
-    reqs = [fleet._request(t) for t in fleet.build_fleet(FLEET_RUN["n_twins"], FLEET_RUN["seed"])]
-    launches = profile_window(
-        torch, f"CORAL fleet cold call, {len(reqs)} twins x {steps} steps",
-        lambda: run_fleet_requests(reqs, steps, window, device="cuda"), reps=3)
-    say(f"    {launches / steps:.1f} kernels per engine step")
     n_rows, c = DCOV_ORACLE
     rng = np.random.default_rng(0)
     x = torch.from_numpy((rng.normal(size=(n_rows, c)) * np.asarray(DCOV_SCALES[:c])
@@ -2766,9 +3056,13 @@ def main() -> None:
     phase_slice_check(torch, MLA_ARCH, 96)
     phase_slice_check(torch, VLM_ARCH, 96)
     phase_slice_check(torch, AUDIO_ARCH, 96)
-    counts = {"dcov": phase_coral_slice(torch)}
-    counts["dcov"] += phase_fleet(torch)
-    say(f"  dcov launches on the main paths, the fleet's included: {counts['dcov']}")
+    dcov, records = phase_coral_slice(torch)
+    fleet_dcov, fleet_rec, fleet_calls = phase_fleet(torch)
+    counts = {"dcov": dcov + fleet_dcov + phase_lanes(torch, records, fleet_calls)}
+    phase_guard(torch)
+    phase_records(records, fleet_rec)
+    say(f"  dcov launches on the main paths, the fleet's and the lane-on calls' included: "
+        f"{counts['dcov']}")
     say("== phase 4: serve")
     counts.update(phase_serve(torch))
     say("== phase 5: profile")

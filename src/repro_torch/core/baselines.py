@@ -101,6 +101,13 @@ def oracle(
     )
 
 
+def oracle_max_throughput(space: ConfigSpace, device) -> Outcome:
+    """Exhaustive-search oracle for the single-target regime: the
+    highest-τ config under the device's power budget (``oracle`` with
+    the τ target disabled)."""
+    return oracle(space, device, tau_target=0.0)
+
+
 def oracle_scalar(
     space: ConfigSpace, device, tau_target: float, p_budget: float = float("inf")
 ) -> Outcome:

@@ -30,12 +30,15 @@ each step was checked against the incremental sums in the JAX package
 itself: all 1024 cold row traces of the fleet at ``BENCH_fleet.json``'s
 settings, and its whole results block (warm cohort included), come out
 the same. So the port keeps one dCor route, one dcov launch per fleet
-step, and no (B, W, W, C) ring state.
+step, and no (B, W, W, C) ring state. Under ``REPRO_CONTRACTS=1`` each
+state constructor holds its result to ``core/contracts.py``'s
+``DCOR_STATE_CONTRACT``, as the reference's do.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.contracts import check_dcor_state, contracts_enabled
 from repro_torch.kernels.dcov import dcov_gram_windows
 from repro_torch.kernels.dcov.ref import dcor_from_sums
 
@@ -45,6 +48,7 @@ __all__ = [
     "dcor_all",
     "dcor_all_cols",
     "dcor_from_sums",
+    "dcor_numpy",
     "dcor_state_corr",
     "dcor_state_from_window",
     "dcor_state_init",
@@ -79,6 +83,15 @@ def dcor(x: torch.Tensor, y: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     A = _double_center(_pairwise_dist(x))
     B = _double_center(_pairwise_dist(y))
     return dcor_from_sums((A * B).mean(), (A * A).mean(), (B * B).mean(), eps)
+
+
+def dcor_numpy(x, y, device="cuda") -> float:
+    """Host-side convenience wrapper: :func:`dcor` of two numpy samples,
+    cast to float32 and moved to ``device``, as a Python float."""
+    def on(a):
+        return torch.as_tensor(a).to(device=device, dtype=torch.float32)
+
+    return float(dcor(on(x), on(y)))
 
 
 def centered_distance_stack(cols: torch.Tensor, n_valid) -> torch.Tensor:
@@ -162,12 +175,15 @@ def dcor_state_init(window: int, c: int, device="cuda") -> dict:
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=device)
 
-    return {
+    state = {
         "win": zeros(window, c),
         "dist": zeros(window, window, c),
         "rows": zeros(window, c),
         "cross": zeros(c, c),
     }
+    if contracts_enabled():
+        check_dcor_state(state)
+    return state
 
 
 def dcor_state_from_window(cols: torch.Tensor, n_valid) -> dict:
@@ -182,12 +198,15 @@ def dcor_state_from_window(cols: torch.Tensor, n_valid) -> dict:
     mask = (valid[..., :, None] & valid[..., None, :]).to(torch.float32)
     dist = (x[..., :, None, :] - x[..., None, :, :]).abs() * mask[..., None]
     flat = dist.reshape(*dist.shape[:-3], w * w, c)
-    return {
+    state = {
         "win": x * valid[..., None],
         "dist": dist,
         "rows": dist.sum(dim=-2),
         "cross": flat.transpose(-1, -2) @ flat,
     }
+    if contracts_enabled():
+        check_dcor_state(state)
+    return state
 
 
 def dcor_state_push(state: dict, row: torch.Tensor, slot, n_filled) -> dict:
@@ -224,7 +243,10 @@ def dcor_state_push(state: dict, row: torch.Tensor, slot, n_filled) -> dict:
     win = win.clone()
     win[ar, slot] = r
     out = {"win": win, "dist": dist, "rows": rows, "cross": cross}
-    return out if batched else {k: v[0] for k, v in out.items()}
+    out = out if batched else {k: v[0] for k, v in out.items()}
+    if contracts_enabled():
+        check_dcor_state(out)
+    return out
 
 
 def dcor_state_corr(state: dict, n_valid, d: int) -> torch.Tensor:

@@ -64,8 +64,12 @@ has no scalar twin, as in the reference: its row traces, prohibited
 masks, windows and anchors are held to the JAX engine's, and its record
 to ``BENCH_fleet.json`` (tests/test_torch_fleet.py).
 
-Not ported yet: the reference's ``REPRO_CONTRACTS``/``REPRO_CHECKIFY``
-lanes (ROADMAP queue 1 item 17).
+Two lanes, read at call time, check a call as the reference's do:
+``REPRO_CONTRACTS=1`` holds the carry (``_init_carry``) and the fleet's
+host batch to ``core/contracts.py``'s tables, and ``REPRO_CHECKIFY=1``
+watches the carry's float fields and each step's measured τ and p for a
+NaN on the device and raises ``core.sanitize.SanitizeError`` after the
+last step (``core/sanitize.py``). Neither changes what a call computes.
 """
 from __future__ import annotations
 
@@ -78,7 +82,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import search
+from repro_torch.core import contracts, sanitize, search
 from repro_torch.core.baselines import Outcome
 from repro_torch.core.dcov import dcor_all_cols
 from repro_torch.core.faults import RobustConfig, mad_reject_batch
@@ -318,6 +322,8 @@ def _init_carry(spec: EngineSpec, ep: Dict, pad_mask: torch.Tensor) -> Dict[str,
         # a rebooted device is on its firmware default row; the watchdog
         # counter starts calm
         c.update(applied_idx=ep["boot_idx"].clone(), dark=full(0, i32))
+    if contracts.contracts_enabled():
+        contracts.check_carry(spec, c, b)
     return c
 
 
@@ -570,7 +576,7 @@ def _static_step(spec: EngineSpec, k: Dict, ep: Dict, tables: Dict):
         tau, p = tables["tau"][tid, t, cand], tables["p"][tid, t, cand]
         c = _observe(k, c, cand, tau, p, thr, tau_target, p_budget, always)
         c["clock"] = c["clock"] + 1
-        return c, {"idx": cand}
+        return c, {"idx": cand, "tau": tau, "p": p}
 
     return step
 
@@ -592,7 +598,7 @@ def _fleet_step(spec: EngineSpec, k: Dict, ep: Dict, tables: Dict):
         p = torch.clamp_min(tables["p"][tid, cand] * (1.0 + z[:, 1]), 1e-9)
         c = _observe(k, c, cand, tau, p, thr, tau_target, p_budget, always)
         c["clock"] = c["clock"] + 1
-        return c, {"idx": cand}
+        return c, {"idx": cand, "tau": tau, "p": p}
 
     return step
 
@@ -650,7 +656,8 @@ def _fault_step(spec: EngineSpec, k: Dict, ep: Dict, tables: Dict):
         c = _observe(k, c, attr, tau, p, thr, tau_target, p_budget, taken)
         c["dark"] = torch.where(hardened & ~taken, c["dark"] + 1, 0)
         c["clock"] = c["clock"] + 1
-        return c, {"idx": cmd, "applied": applied, "taken": taken, "guard": guard}
+        return c, {"idx": cmd, "applied": applied, "taken": taken, "guard": guard,
+                   "tau": tau, "p": p}
 
     return step
 
@@ -737,7 +744,7 @@ def _drift_step(spec: EngineSpec, k: Dict, ep: Dict, tables: Dict):
         seed_obs = trig & ~_feasible(thr, tau, p, tau_target, p_budget)
         c = _observe(k, c, cand, tau, p, thr, tau_target, p_budget, exploring | seed_obs)
         c["clock"] = clock0 + 1
-        return c, {"idx": cand, "exploring": exploring}
+        return c, {"idx": cand, "exploring": exploring, "tau": tau, "p": p}
 
     return step
 
@@ -758,9 +765,14 @@ def _run(spec: EngineSpec, ep: Dict, tables: Dict, device) -> Dict[str, np.ndarr
     """The batched engine: T steps of the spec's step kind (static, drift,
     fault or fleet) over B episodes on ``device``. Every step's decisions
     stay on the device; the host reads the stacked (B, T) per-step
-    outputs, the final counters and the history's row and clock columns
-    once, after the last step (a fleet call: the final prohibited masks,
-    the last W window rows and the anchors instead of the history)."""
+    integer and bool outputs, the final counters and the history's row
+    and clock columns once, after the last step (a fleet call: the final
+    prohibited masks, the last W window rows and the anchors instead of
+    the history). A step's float outputs, its measured τ and p, feed the
+    NaN lane only (the records rebuild them in float64 on the host): under
+    ``REPRO_CHECKIFY=1`` they and the carry's float fields are watched
+    every step, and the call raises after its last step if one held a
+    NaN."""
     consts = _device_consts(spec, str(device))
     sid = ep["space_id"]
     k = {name: v[sid] for name, v in consts.items() if name != "key_tab"}
@@ -781,11 +793,17 @@ def _run(spec: EngineSpec, ep: Dict, tables: Dict, device) -> Dict[str, np.ndarr
         else _fleet_step if spec.fleet else _static_step
     )
     step = make(spec, k, ep, tables)
+    watch = sanitize.NanWatch() if sanitize.checkify_enabled() else None
     outs: Dict[str, list] = {}
     for t in range(spec.iters):
         c, out = step(c, t)
+        if watch is not None:
+            watch.observe(t, {**c, **out})
         for name, v in out.items():
-            outs.setdefault(name, []).append(v)
+            if not v.is_floating_point():
+                outs.setdefault(name, []).append(v)
+    if watch is not None:
+        watch.check()
     res = {name: torch.stack(v, dim=1) for name, v in outs.items()}
     res.update({name: c[name] for name in _FINAL_KEYS})
     if spec.drift:
@@ -1452,6 +1470,8 @@ def run_fleet_requests(
                 for v in _device_consts(spec, str(device)).values())
         )
         stats["episodes"] = b
+    if contracts.contracts_enabled():
+        contracts.check_fleet_batch(ep, b=b, n=n, w=w, d=d, t=iters)
     res = _run(spec, *_to_device(ep, land_tau32, land_p32, device), device)
     out: List[dict] = []
     for i, r in enumerate(reqs):

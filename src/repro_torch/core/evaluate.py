@@ -337,3 +337,10 @@ def run_fault_regime(
         tr.accepted.append(len(opt.state.history) > n_before)
         tr.fallback.append(guarded)
     return opt, tr
+
+
+# The scalar loops above are the executable specification the batched
+# engine (core/episode.py) is held to, as in the reference; these names
+# say so where a caller wants the scalar path explicitly.
+run_coral_scalar = run_coral
+run_drift_regime_scalar = run_drift_regime

@@ -28,9 +28,9 @@ and noise stream depend only on (seed, i), never on fleet size — the
 
 The port of ``repro.experiments.fleet``: its ``results`` block equals the
 reference's, and at 1024 twins ``BENCH_fleet.json``'s, key for key
-(tests/test_torch_fleet.py; on the card ``chip_smoke.py``). The
-reference's ``check_twin`` (``REPRO_CONTRACTS=1``) waits for the
-contracts lane (ROADMAP queue 1 item 17).
+(tests/test_torch_fleet.py; on the card ``chip_smoke.py``). Under
+``REPRO_CONTRACTS=1`` every twin's ground truth is held to
+``core/contracts.py``'s ``TWIN_CONTRACT`` as it is built.
 """
 from __future__ import annotations
 
@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_config
+from repro_torch.core.contracts import check_twin, contracts_enabled
 from repro_torch.core.episode import _f64_reward, run_fleet_requests
 from repro_torch.core.evaluate import RegimeTargets
 from repro_torch.core.space import ConfigSpace, space_grid
@@ -156,6 +157,10 @@ def build_twin(
         noise=w.noise,
         noise_seed=noise_seed,
     )
+    # the ground-truth arrays must match the twin's own grid
+    # (TWIN_CONTRACT: float64 on purpose here)
+    if contracts_enabled():
+        check_twin(twin)
     return twin
 
 

@@ -106,6 +106,13 @@ _BASELINE_SEEDS = {
 SCORE_FLOOR_MARGIN = 0.05
 
 ENGINES = ("batched", "scalar")
+# the command that regenerates a record through the port (README.md),
+# the record's ``regenerate`` key unless the caller names another
+REGENERATE = (
+    "PYTHONPATH=src python -c 'from repro_torch.experiments import matrix, scenarios as s; "
+    "print(matrix.run_matrix(s.enumerate_cells(workloads=s.FULL_MATRIX_WORKLOADS))"
+    "[\"summary\"])'"
+)
 
 # The reference record's layout version (``BENCH_matrix.json``
 # ``schema_version``): every family, the summary and the ``grid`` block.
@@ -342,6 +349,9 @@ def run_static_cell(
     prep = _prep_cell(cell)
     runs = _static_runs({cell: prep}, seeds, iters, window, engine, device)
     return _cell_record(cell, prep, runs[cell], iters, seeds, engine)
+
+
+run_cell = run_static_cell
 
 
 def _static_runs(
@@ -1182,6 +1192,8 @@ def run_matrix(
     cells: Optional[Sequence[Cell]] = None,
     iters: int = 10,
     seeds: Sequence[int] = (0, 1, 2),
+    regenerate: str = REGENERATE,
+    quick: bool = False,
     engine: str = "batched",
     window: int = 10,
     offload_cells: Optional[Sequence[Cell]] = None,
@@ -1189,12 +1201,15 @@ def run_matrix(
     fault_cells: Optional[Sequence[Cell]] = None,
     device="cuda",
 ) -> dict:
-    """Run every cell and assemble the record, as ``BENCH_matrix.json``'s:
-    ``cells`` (the static entries), ``drift_cells``, ``offload_cells``,
+    """Run every cell and assemble the record, as ``BENCH_matrix.json``'s
+    (``experiments/schema.py::MATRIX_SCHEMA``): the command that
+    regenerates it and whether it ran the QUICK grid (``regenerate``,
+    ``quick``: the caller's word, as in the reference), ``cells`` (the
+    static entries), ``drift_cells``, ``offload_cells``,
     ``cotenant_cells``, ``fault_cells``, their ``summary``, the ``grid``
     they span, and ``wall_clock_s``, the host-clock split of the run's
     phases (``{static,offload,cotenant,fault,drift}_{prep,episodes,
-    score}_s``, as the reference names them).
+    score}_s``, as the reference names them, in seconds to 4 places).
 
     Cells whose regime names a drift schedule run the non-stationary loop
     (``run_drift_cell``: adaptive vs static ablation) and land in
@@ -1311,10 +1326,12 @@ def run_matrix(
     )
     return {
         "schema_version": SCHEMA_VERSION,
+        "regenerate": regenerate,
+        "quick": quick,
         "engine": engine,
         "iters": iters,
         "seeds": list(seeds),
-        "wall_clock_s": wall,
+        "wall_clock_s": {k: round(v, 4) for k, v in wall.items()},
         "grid": {
             "devices": sorted({c.device for c in all_cells}),
             "models": sorted({c.model for c in all_cells}),
@@ -1422,6 +1439,33 @@ def _summarize(
                 for r in fault_records)
         ),
     }
+
+
+def score_floors(record: dict) -> Dict[Tuple[str, str, str, str], float]:
+    """(device, model, workload, regime) → recorded floor, for a
+    bench-regression gate. Dynamic cells contribute their drift-adaptive
+    floor, offload and cotenant cells their CORAL floor and fault cells
+    their hardened floor — cell keys are unique across the arrays because
+    a regime name belongs to exactly one family."""
+    floors = {
+        (c["device"], c["model"], c["workload"], c["regime"]): c["coral"][
+            "score_floor"
+        ]
+        for c in record["cells"]
+    }
+    for c in record.get("drift_cells", ()):
+        key = (c["device"], c["model"], c["workload"], c["regime"])
+        floors[key] = c["adaptive"]["score_floor"]
+    for c in record.get("offload_cells", ()):
+        key = (c["device"], c["model"], c["workload"], c["regime"])
+        floors[key] = c["coral"]["score_floor"]
+    for c in record.get("cotenant_cells", ()):
+        key = (c["device"], c["model"], c["workload"], c["regime"])
+        floors[key] = c["coral"]["score_floor"]
+    for c in record.get("fault_cells", ()):
+        key = (c["device"], c["model"], c["workload"], c["regime"])
+        floors[key] = c["hardened"]["score_floor"]
+    return floors
 
 
 def _feasible_baselines(records: List[dict], family: str, ablation: str) -> int:

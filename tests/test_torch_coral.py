@@ -172,6 +172,8 @@ def test_baselines_equal_the_reference(cell):
     assert same(baselines.oracle(space, sim0, t, p), ref_baselines.oracle(space, ref_sim0, t, p))
     assert same(baselines.oracle_scalar(space, sim0, t, p),
                 ref_baselines.oracle_scalar(space, ref_sim0, t, p))
+    assert same(baselines.oracle_max_throughput(space, sim0),
+                ref_baselines.oracle_max_throughput(space, ref_sim0))
 
     def twins(seed):
         return (sc.cell_simulator(cell, seed=seed),
@@ -294,3 +296,21 @@ def test_checkpoint_round_trips_and_resumes():
     seq_b += _drive(opt_c, twin_b, 20)
     assert seq_b == seq_a
     assert same(opt_c.result(), opt_a.result())
+
+
+def _exports(package):
+    """The names a package's ``__init__`` binds, submodules left out."""
+    import types
+
+    return {name for name, v in vars(package).items()
+            if not name.startswith("_") and not isinstance(v, types.ModuleType)}
+
+
+def test_core_exports_what_the_reference_exports():
+    import repro.core
+    import repro_torch.core
+    from repro_torch.core import evaluate
+
+    assert _exports(repro.core) <= _exports(repro_torch.core)
+    assert evaluate.run_coral_scalar is evaluate.run_coral
+    assert evaluate.run_drift_regime_scalar is evaluate.run_drift_regime

@@ -106,6 +106,17 @@ def test_dcor_and_dcov2_match_reference(seed):
         float(ref_dcov.dcov2(jnp.asarray(x), jnp.asarray(y))), rtol=1e-5)
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_dcor_numpy_matches_reference(seed):
+    """The host-side wrapper: float64 numpy in, float32 dCor, a Python float out."""
+    rng = np.random.default_rng(seed)
+    x, y = rng.normal(size=(2, 40))
+    y = x**2 + 0.1 * y
+    got = dcov.dcor_numpy(x, y, device="cpu")
+    assert type(got) is float
+    np.testing.assert_allclose(got, ref_dcov.dcor_numpy(x, y), atol=1e-6, rtol=0)
+
+
 def test_centered_distance_stack_matches_reference():
     x = window(1, n=7)
     want = np.asarray(ref_dcov.centered_distance_stack(jnp.asarray(x), jnp.int32(7)))

@@ -32,6 +32,9 @@ the card: records against ``BENCH_matrix.json`` at rel 1e-12 (both rebuild
 τ and p in float64 from the same landscapes and noise). The fleet runs on
 the card: its windows launches bitwise at the fleet's shapes, its results
 block equal to ``BENCH_fleet.json``'s (``json.dumps`` with sorted keys).
+With the contract and NaN lanes on (``REPRO_CONTRACTS=1
+REPRO_CHECKIFY=1``) a static call over the grid and the 64-twin fleet
+give the lane-off record exactly, with the same dcov launches.
 The serving engine's CUDA graph of the decode step (reduced Qwen2.5-3B,
 Mamba2-2.7B, a 4-layer Hymba-1.5B, DeepSeek-V2-236B,
 Moonlight-16B-A3B, Whisper-medium with its encoder's features and
@@ -636,6 +639,52 @@ def test_fleet_on_the_card_reproduces_the_record(cuda):
     assert json.dumps(rec["results"], sort_keys=True) == json.dumps(
         record["results"], sort_keys=True)
     assert rec["engine"]["backend"] == "cuda" and rec["engine"]["peak_device_bytes"] > 0
+
+
+def _lanes_on_and_off(monkeypatch, fn):
+    """``fn``'s result and its dcov launches with the contract and NaN
+    lanes off, then on."""
+    out = []
+    for on in (False, True):
+        for name in ("REPRO_CONTRACTS", "REPRO_CHECKIFY"):
+            if on:
+                monkeypatch.setenv(name, "1")
+            else:
+                monkeypatch.delenv(name, raising=False)
+        before = runtime.launch_counts()["dcov"]
+        res = fn()
+        out.append((res, runtime.launch_counts()["dcov"] - before))
+    return out
+
+
+@pytest.mark.gpu
+def test_lanes_leave_a_static_call_unchanged(cuda, monkeypatch):
+    """A static call over the grid (54 cells x 3 seeds) with the lanes on
+    gives the lane-off record exactly, with the same dcov launches (one
+    per step)."""
+    from repro_torch.experiments import matrix, scenarios
+
+    cells = scenarios.enumerate_cells(workloads=scenarios.FULL_MATRIX_WORKLOADS)
+    (off, n_off), (on, n_on) = _lanes_on_and_off(
+        monkeypatch, lambda: matrix.run_matrix(cells, device="cuda"))
+    assert n_on == n_off == 10
+    assert matrix.diff_records(on["cells"], off["cells"], rel=0.0) == []
+    assert on["summary"] == off["summary"]
+
+
+@pytest.mark.gpu
+def test_lanes_leave_a_fleet_call_unchanged(cuda, monkeypatch):
+    """The 64-twin fleet with the lanes on gives the lane-off results block
+    exactly, with the same dcov launches (30 in each of its calls)."""
+    import json
+
+    from repro_torch.experiments.fleet import run_fleet
+
+    (off, n_off), (on, n_on) = _lanes_on_and_off(
+        monkeypatch, lambda: run_fleet(64, seed=0, iters=30, window=12, device="cuda"))
+    assert n_on == n_off == 2 * 30
+    assert json.dumps(on["results"], sort_keys=True) == json.dumps(off["results"],
+                                                                   sort_keys=True)
 
 
 GRAPH_ARCHS = ["qwen2.5-3b", "mamba2-2.7b", "hymba-1.5b", "deepseek-v2-236b",

@@ -19,7 +19,10 @@ call ends with the host
 reading its results, so the host clock around it is its wall time. Each
 call is warmed up once, then timed ``REPS`` times; the median and the
 spread (min, max) are printed in ms, beside the card's name and power
-limit. Compare trees only within one run.
+limit, and the kernels one call launches per engine step (one more call
+under ``torch.profiler``). Compare trees only within one run.
+(``chip_smoke.py`` phase 3 (k) times the same calls with the engine's
+contract and NaN lanes on and off, in turns.)
 """
 from __future__ import annotations
 
@@ -39,6 +42,9 @@ def smi() -> str:
                           capture_output=True, text=True, check=True).stdout.strip()
 
 
+LEAD = 32  # spin kernels ahead of a profiled call
+
+
 def timed(torch, fn) -> str:
     fn()
     torch.cuda.synchronize()
@@ -48,6 +54,31 @@ def timed(torch, fn) -> str:
         fn()
         ms.append((time.perf_counter() - t0) * 1e3)
     return f"median {statistics.median(ms):.3f} ms (min {min(ms):.3f}, max {max(ms):.3f}, {REPS} calls)"
+
+
+def kernels(torch, fn) -> int:
+    """The device kernels one call of ``fn`` launches: a ``torch.profiler``
+    window that traces the card alone, behind LEAD spin kernels (the
+    profiler may drop a window's first records; the spins are not
+    counted), as ``chip_smoke.py`` counts them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(LEAD):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key)
+
+
+def report(torch, tree, label, fn, steps) -> str:
+    """``label``'s time and kernels per step."""
+    return (f"{tree}: {label}: " + timed(torch, fn)
+            + f", {kernels(torch, fn) / steps:.1f} kernels per step")
 
 
 def time_tree(tree: Path) -> None:
@@ -61,22 +92,23 @@ def time_tree(tree: Path) -> None:
         raise SystemExit("no CUDA device: the engine's times are the card's")
     grid = scenarios.enumerate_cells(workloads=scenarios.FULL_MATRIX_WORKLOADS)
     reqs = [r for c in grid for r in matrix._static_requests(matrix._prep_cell(c), SEEDS)]
-    print(f"{tree}: static call, {len(reqs)} episodes x 10 steps: "
-          + timed(torch, lambda: episode.run_static_requests(reqs, device="cuda")), flush=True)
+    print(report(torch, tree, f"static call, {len(reqs)} episodes x 10 steps",
+                 lambda: episode.run_static_requests(reqs, device="cuda"), 10), flush=True)
     if not hasattr(episode, "run_drift_requests"):
         print(f"{tree}: no drift or fault step kinds", flush=True)
         return
     steps = scenarios.DRIFT_INTERVALS
     reqs = [r for c in scenarios.MATRIX_DRIFT_CELLS for a in (True, False)
             for r in matrix._drift_requests(matrix._prep_drift_cell(c, steps), SEEDS, a)]
-    print(f"{tree}: drift call, {len(reqs)} episodes x {steps} steps: " + timed(
-        torch, lambda: episode.run_drift_requests(reqs, intervals=steps, device="cuda")),
-        flush=True)
+    print(report(torch, tree, f"drift call, {len(reqs)} episodes x {steps} steps",
+                 lambda: episode.run_drift_requests(reqs, intervals=steps, device="cuda"),
+                 steps), flush=True)
     steps = scenarios.FAULT_INTERVALS
     reqs = [r for c in scenarios.MATRIX_FAULT_CELLS for h in (True, False)
             for r in matrix._fault_requests(matrix._prep_fault_cell(c, steps, SEEDS), SEEDS, h)]
-    print(f"{tree}: fault call, {len(reqs)} episodes x {steps} steps: " + timed(
-        torch, lambda: episode.run_fault_requests(reqs, iters=steps, device="cuda")), flush=True)
+    print(report(torch, tree, f"fault call, {len(reqs)} episodes x {steps} steps",
+                 lambda: episode.run_fault_requests(reqs, iters=steps, device="cuda"),
+                 steps), flush=True)
     if not hasattr(matrix, "run_offload_cell"):
         print(f"{tree}: no offload or cotenant cells", flush=True)
         return
@@ -87,17 +119,18 @@ def time_tree(tree: Path) -> None:
          matrix.COTENANT_ITERS),
     ):
         reqs = [r for c in cells for r in matrix._static_requests(prep(c), SEEDS)]
-        print(f"{tree}: {family} call, {len(reqs)} episodes x {steps} steps: " + timed(
-            torch, lambda: episode.run_static_requests(reqs, iters=steps, device="cuda")),
-            flush=True)
+        print(report(torch, tree, f"{family} call, {len(reqs)} episodes x {steps} steps",
+                     lambda: episode.run_static_requests(reqs, iters=steps, device="cuda"),
+                     steps), flush=True)
     if not hasattr(episode, "run_fleet_requests"):
         print(f"{tree}: no fleet", flush=True)
         return
     from repro_torch.experiments import fleet
 
     reqs = [fleet._request(t) for t in fleet.build_fleet(1024, seed=0)]
-    print(f"{tree}: fleet cold call, {len(reqs)} twins x 30 steps: " + timed(
-        torch, lambda: episode.run_fleet_requests(reqs, 30, 12, device="cuda")), flush=True)
+    print(report(torch, tree, f"fleet cold call, {len(reqs)} twins x 30 steps",
+                 lambda: episode.run_fleet_requests(reqs, 30, 12, device="cuda"), 30),
+          flush=True)
 
 
 def main() -> None:
