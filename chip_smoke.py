@@ -4,14 +4,16 @@ GPU, from the root of a checkout:
 
     python3 chip_smoke.py
 
-Seven main paths, each at full size through its kernels (the fifth is
+Eight main paths, each at full size through its kernels (the fifth is
 the serving control loop, CORAL tuning live Qwen2.5-3B traffic, phase 6;
 the sixth, Moonlight-16B-A3B served at full width and depth and
 DeepSeek-V2's MLA at full width, its depth cut to 2 layers, phases 3 and
 4; the seventh, Whisper-medium's encoder-decoder path at full width and
 depth through ``ServingEngine.generate`` with its encoder features, and
 Qwen2-VL-72B's M-RoPE at full width, its depth cut to 8 layers, served
-text-only by ``serve()``, phases 2–5):
+text-only by ``serve()``, phases 2–5; the eighth, training through
+``launch/train.py``, full-width Qwen2.5-3B trained on the plain paths
+and its eval step, and Mamba2-2.7B's, through the kernels, phase 7):
 Qwen2.5-3B served at full width (prefill attention through
 ``flash_attention``), Mamba2-2.7B
 served at full width (the SSD chunked scan through ``ssd_scan``), the
@@ -221,9 +223,29 @@ Phases, each of which exits non-zero on failure:
    may complete none), a released request is not served in full, or
    flash attention or dcov never launched in the phase. Power there is the reference's
    analytical model on its TPU v5e constants, not the H100's.
-7. A ``{"kernels": [...]}`` line (launches: the main paths', the graph
-   checks' prefills and the control loop's), then ``{"ok": true,
-   "device": ...}`` as the last line.
+7. Training (``phase_training``; no kernel runs under grad, as in the
+   JAX package, whose launcher trains with ``use_pallas=False``): (a)
+   every registry model, reduced, 30 steps of 8 x 32 at lr 2e-3 through
+   ``launch/train.py::train``, its mean loss over the last 5 steps below
+   that of the first 5 by 0.5 (the reference test's criterion); reduced
+   Qwen2.5-3B in float32 compute, 30 steps from parameters drawn on the
+   CPU, each loss within 1e-4 of the CPU's; (b) full-width Qwen2.5-3B
+   (float32 parameters, bf16 compute, remat "none") 5 steps of 8 x 128
+   through ``train``: every loss and grad norm finite, the mean of the
+   last 2 losses below the first; each step's wall, the peak memory, and
+   one step profiled (wall, device busy, idle share, kernels, the
+   heaviest kernels), then its forward + backward and its AdamW update
+   apart; (c) one step at remat "full": its loss and grad norm within
+   1e-5 of (b)'s first, its peak memory beside (b)'s; (d) the eval step
+   with ``use_kernels=True`` on the training batch at full width,
+   Qwen2.5-3B (36 flash launches) and Mamba2-2.7B (64 SSD launches),
+   each launch held to ``attention_ref`` / ``ssd_ref`` on its own inputs
+   and counted, each xent within 0.05 of the plain eval's; (e) the flash,
+   SSD and dcov wrappers refuse a requires-grad CUDA input under grad
+   mode, with no launch.
+8. A ``{"kernels": [...]}`` line (launches: the main paths', the graph
+   checks' prefills, the control loop's and the training eval's), then
+   ``{"ok": true, "device": ...}`` as the last line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -420,6 +442,17 @@ FLEET_CALLS = (("cold", 1024), ("steady", 1024), ("warm", 256))  # run_fleet's e
 LANES = ("REPRO_CONTRACTS", "REPRO_CHECKIFY")  # the engine's contract and NaN lanes
 LANE_TURNS = (False, True, True, False)  # lanes off and on, in turns
 NAN_CALL = dict(seeds=(0, 1), iters=9, window=6)  # the static call over a NaN landscape
+# phase 7, training through launch/train.py::train: every registry model
+# reduced, TRAIN_REDUCED_STEPS steps of 8 x 32 at lr 2e-3 (the reference's
+# tests/test_training_serving.py settings), its mean loss over the last 5
+# steps below that of the first 5 by TRAIN_DROP; full-width Qwen2.5-3B at the
+# launcher's batch and sequence, float32 parameters, TRAIN_FULL_STEPS steps
+TRAIN_REDUCED_STEPS, TRAIN_REDUCED_BS, TRAIN_REDUCED_LR = 30, (8, 32), 2e-3
+TRAIN_DROP = 0.5
+TRAIN_FULL_STEPS, TRAIN_FULL_BS = 5, (8, 128)
+TRAIN_CPU_REL = 1e-4  # reduced Qwen2.5-3B in float32 compute: each loss, card against CPU
+REMAT_REL = 1e-5  # remat "full"'s first loss and grad norm against remat "none"'s
+EVAL_XENT_ATOL = 5e-2  # the bf16 eval's xent through the kernels against the plain eval's
 FLEET_REGENERATE = ("PYTHONPATH=src python -c 'from repro_torch.experiments.fleet import "
                     "run_fleet; print(run_fleet(1024, seed=0, iters=30, window=12))'")
 
@@ -1349,6 +1382,31 @@ def reduced_config(arch):
     return cfg
 
 
+def slice_diagnosis(torch, arch, ctx, card_params, batch, cpu, card):
+    """What a failed card-vs-CPU check of a reduced fp32 prefill saw, for
+    its failure message: the error, the NaNs on each side, the largest
+    logit, the same prefill on the card through the kernels' plain versions
+    (a kernel's fault, or the rest of the card's path), whether the card's
+    run repeats bitwise, and the float32 matmul settings in force."""
+    from repro_torch.models.transformer import prefill
+
+    with torch.inference_mode():
+        again = prefill(ctx, card_params, _to(batch, "cuda"))[1].cpu()
+        with plain_route(arch):
+            plain = prefill(ctx, card_params, _to(batch, "cuda"))[1].cpu()
+    card = card.cpu()
+    flags = {"cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+             "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+             "float32_matmul_precision": torch.get_float32_matmul_precision(),
+             "TF32 environment": {k: v for k, v in os.environ.items() if "TF32" in k}}
+    return (f"max_abs_err {(card - cpu).abs().max().item():.3g} (tol {SLICE_FP32_TOL}), "
+            f"NaNs card {torch.isnan(card).sum().item()} / CPU {torch.isnan(cpu).sum().item()}, "
+            f"max|logit| CPU {cpu.abs().max().item():.4g}; through the plain versions on the "
+            f"card {(plain - cpu).abs().max().item():.3g}; a second card run "
+            f"{'repeats' if torch.equal(again, card) else 'differs'} "
+            f"({(again - cpu).abs().max().item():.3g}); {flags}; {card_line()}")
+
+
 def phase_slice_check(torch, arch, reduced_len):
     from repro_torch.configs.runtime import RunConfig
     from repro_torch.kernels import runtime
@@ -1368,7 +1426,8 @@ def phase_slice_check(torch, arch, reduced_len):
     say(f"  reduced {arch} ({cfg.n_layers} layers) fp32 prefill (2x{reduced_len}), card vs CPU: "
         f"max_abs_err {err:.3g} (tol {SLICE_FP32_TOL})")
     if not err <= SLICE_FP32_TOL:
-        fail(f"reduced {arch} fp32 prefill on the card disagrees with the CPU path")
+        fail(f"reduced {arch} fp32 prefill on the card disagrees with the CPU path: "
+             f"{slice_diagnosis(torch, arch, ctx, card_params, batch, cpu, card)}")
 
     if arch == SSM_ARCH:
         ssm_full_width_check(torch)
@@ -1567,7 +1626,7 @@ def ssm_full_width_check(torch):
     from repro_torch.configs.runtime import RunConfig
     from repro_torch.kernels import runtime
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
-    from repro_torch.kernels.ssd_scan import ssd_ref, ssd_scan
+    from repro_torch.kernels.ssd_scan import ssd_ref
     from repro_torch.models.transformer import ApplyCtx, init_model_params, prefill
     from repro_torch.serving.engine import cast_for_compute
 
@@ -1575,14 +1634,6 @@ def ssm_full_width_check(torch):
     tok = torch.from_numpy(
         np.random.default_rng(1).integers(0, cfg.vocab, (4, 512), dtype=np.int32)).cuda()
     worst = []
-
-    def held_to_plain(x, dt, A, Bm, Cm, *, chunk, initial_state=None):
-        y, st = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state)
-        y_ref, s_ref = ssd_ref(x, dt, A, Bm, Cm, chunk, initial_state)
-        y_tol, s_tol = ssd_tolerances(torch, y_ref, s_ref)
-        worst.append(max((y.float() - y_ref.float()).abs().max().item() / y_tol,
-                         (st - s_ref).abs().max().item() / s_tol))
-        return y, st
 
     def half_chunk(x, dt, A, Bm, Cm, *, chunk, initial_state=None):
         return ssd_ref(x, dt, A, Bm, Cm, chunk // 2, initial_state)
@@ -1592,7 +1643,7 @@ def ssm_full_width_check(torch):
     params = cast_for_compute(init_model_params(cfg, ctx.rcfg, gen, "cuda"), torch.bfloat16)
     with torch.inference_mode():
         runtime.reset_launch_counts()
-        with mock.patch.object(ssd_ops, "ssd_scan", held_to_plain):
+        with mock.patch.object(ssd_ops, "ssd_scan", ssd_held_to_plain(torch, worst)):
             _, via_kernel = prefill(ctx, params, {"tokens": tok})
         check_bodies(SSM_ARCH, 1, f"the full-width {SSM_ARCH} bf16 prefill")
         with plain_route(SSM_ARCH):
@@ -1651,6 +1702,24 @@ def flash_held_to_plain(torch, worst, windows):
     return held
 
 
+def ssd_held_to_plain(torch, worst):
+    """A stand-in for ``ssd_scan`` inside a model: it launches the kernel and
+    holds y and the final state to ``ssd_ref`` on the launch's own inputs,
+    with the kernel's tolerances (``ssd_tolerances``); each launch's worst
+    error / tolerance goes to ``worst``."""
+    from repro_torch.kernels.ssd_scan import ssd_ref, ssd_scan
+
+    def held(x, dt, A, Bm, Cm, *, chunk, initial_state=None):
+        y, st = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state)
+        y_ref, s_ref = ssd_ref(x, dt, A, Bm, Cm, chunk, initial_state)
+        y_tol, s_tol = ssd_tolerances(torch, y_ref, s_ref)
+        worst.append(max((y.float() - y_ref.float()).abs().max().item() / y_tol,
+                         (st - s_ref).abs().max().item() / s_tol))
+        return y, st
+
+    return held
+
+
 def engine_prefills_held(torch, engine, prompt_lens, label):
     """One prefill of ``engine`` (full width, on the card) at each prompt
     length, every flash launch held to ``attention_ref`` on its own inputs
@@ -1697,7 +1766,7 @@ def hybrid_full_width_check(torch):
     from repro_torch.kernels import runtime
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
-    from repro_torch.kernels.ssd_scan import ssd_ref, ssd_scan
+    from repro_torch.kernels.ssd_scan import ssd_ref
     from repro_torch.models.transformer import ApplyCtx, init_model_params, prefill
     from repro_torch.serving.engine import cast_for_compute
 
@@ -1707,14 +1776,6 @@ def hybrid_full_width_check(torch):
         np.random.default_rng(1).integers(0, cfg.vocab, (b, s), dtype=np.int32)).cuda()
     ssd_worst, flash_worst, windows = [], [], []
 
-    def ssd_held_to_plain(x, dt, A, Bm, Cm, *, chunk, initial_state=None):
-        y, st = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state)
-        y_ref, s_ref = ssd_ref(x, dt, A, Bm, Cm, chunk, initial_state)
-        y_tol, s_tol = ssd_tolerances(torch, y_ref, s_ref)
-        ssd_worst.append(max((y.float() - y_ref.float()).abs().max().item() / y_tol,
-                             (st - s_ref).abs().max().item() / s_tol))
-        return y, st
-
     def half_chunk(x, dt, A, Bm, Cm, *, chunk, initial_state=None):
         return ssd_ref(x, dt, A, Bm, Cm, chunk // 2, initial_state)
 
@@ -1723,7 +1784,7 @@ def hybrid_full_width_check(torch):
     params = cast_for_compute(init_model_params(cfg, ctx.rcfg, gen, "cuda"), torch.bfloat16)
     with torch.inference_mode():
         runtime.reset_launch_counts()
-        with mock.patch.object(ssd_ops, "ssd_scan", ssd_held_to_plain), \
+        with mock.patch.object(ssd_ops, "ssd_scan", ssd_held_to_plain(torch, ssd_worst)), \
                 mock.patch.object(fa_ops, "flash_attention_bhsd",
                                   flash_held_to_plain(torch, flash_worst, windows)):
             _, via_kernel = prefill(ctx, params, {"tokens": tok})
@@ -3032,6 +3093,238 @@ def phase_control_loop(torch):
     return counts
 
 
+def reduced_trajectory(torch, device):
+    """Reduced Qwen2.5-3B's losses over TRAIN_REDUCED_STEPS steps in float32
+    compute from parameters drawn on the CPU (seed 0) and moved to
+    ``device``, so that the card and the CPU start alike (the launcher
+    draws on its own device, whose generator gives other numbers)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import run_config
+    from repro_torch.models.transformer import ApplyCtx, init_model_params
+    from repro_torch.training import AdamWConfig, SyntheticLM, adamw, make_train_step
+
+    cfg = get_config(ARCH).reduced()
+    rcfg = run_config("none", "float32")
+    params = init_model_params(cfg, rcfg, torch.Generator().manual_seed(0), "cpu")
+    params = _to(params, device)
+    steps = TRAIN_REDUCED_STEPS
+    step = make_train_step(ApplyCtx(cfg, rcfg), AdamWConfig(
+        lr=TRAIN_REDUCED_LR, warmup_steps=max(steps // 10, 1), total_steps=steps))
+    opt = adamw.init(params)
+    data = SyntheticLM(cfg.vocab, TRAIN_REDUCED_BS[1], TRAIN_REDUCED_BS[0], seed=0)
+    losses = []
+    for i in range(steps):
+        batch = {k: torch.from_numpy(v).to(device) for k, v in data.batch(i).items()}
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def training_batch(torch, cfg):
+    """The launcher's first batch at TRAIN_FULL_BS (``SyntheticLM``, seed 0)."""
+    from repro_torch.training import SyntheticLM
+
+    b, s = TRAIN_FULL_BS
+    return {k: torch.from_numpy(v).cuda() for k, v in SyntheticLM(cfg.vocab, s, b).batch(0).items()}
+
+
+def full_width_training(torch):
+    """(b) and (c): full-width Qwen2.5-3B through ``train`` at remat "none",
+    then one step at remat "full", each with its peak memory; (b)'s step
+    profiled, split into forward + backward and the optimizer. Returns the
+    parameters after (c)'s step."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import run_config, train
+    from repro_torch.models.transformer import ApplyCtx
+    from repro_torch.training import AdamWConfig, adamw, make_train_step
+    from repro_torch.training.train_step import loss_fn
+
+    b, s = TRAIN_FULL_BS
+    cfg = get_config(ARCH)
+    free_card(torch, f"full-width {ARCH} training")
+    held = torch.cuda.memory_allocated() / 1e9  # what earlier phases leave allocated
+    torch.cuda.reset_peak_memory_stats()
+    params, losses, hist = train(ARCH, steps=TRAIN_FULL_STEPS, batch=b, seq=s, reduced=False,
+                                 device="cuda", log_every=1, remat="none")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    norms = [h["grad_norm"] for h in hist]
+    walls = [h["seconds"] * 1e3 for h in hist]
+    say(f"  (b) full-width {ARCH} ({cfg.n_params() / 1e9:.3f} B parameters, float32, bf16 "
+        f"compute, remat none), {b}x{s}: losses {[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 4) for x in norms]}; step wall ms {[round(x, 1) for x in walls]} (steps "
+        f"2-{len(walls)}: mean {np.mean(walls[1:]):.1f}); max_memory_allocated {peak:.2f} GB "
+        f"({held:.2f} GB of it allocated before the run); {card_line()}")
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()
+            and np.mean(losses[-2:]) < losses[0]):
+        fail(f"full-width {ARCH} training: a non-finite loss or grad norm, or the mean of the "
+             f"last 2 losses not below the first ({losses}, {norms})")
+
+    ctx = ApplyCtx(cfg, run_config("none"))
+    opt_cfg = AdamWConfig(warmup_steps=1, total_steps=TRAIN_FULL_STEPS)
+    opt = adamw.init(params)
+    step = make_train_step(ctx, opt_cfg)
+    batch = training_batch(torch, cfg)
+    state = {"params": params, "opt": opt}
+
+    def train_step():
+        state["params"], state["opt"], _ = step(state["params"], state["opt"], batch)
+
+    def forward_backward():
+        for p in adamw.leaves(state["params"]):
+            p.grad = None
+        loss_fn(ctx, state["params"], batch)[0].backward()
+
+    def optimizer():
+        grads = adamw.tree_map(lambda p: p.grad, state["params"])
+        adamw.update(opt_cfg, grads, state["opt"], state["params"])
+
+    profile_window(torch, f"{ARCH} train step {b}x{s} (full width)", train_step, reps=2)
+    profile_window(torch, "  of which forward + backward", forward_backward, reps=2)
+    profile_window(torch, "  of which the AdamW update", optimizer, reps=2)
+    peaks = []
+    for fn in (forward_backward, optimizer):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+    say(f"  max_memory_allocated within one forward + backward {peaks[0]:.2f} GB, within one "
+        f"AdamW update {peaks[1]:.2f} GB")
+    state.clear()  # the closures above hold the dict, not the trees
+    del params, opt
+    free_card(torch, f"full-width {ARCH} training with remat full")
+
+    torch.cuda.reset_peak_memory_stats()
+    params, losses_c, hist_c = train(ARCH, steps=1, batch=b, seq=s, reduced=False,
+                                     device="cuda", log_every=0, remat="full")
+    peak_c = torch.cuda.max_memory_allocated() / 1e9
+    l_err = abs(losses_c[0] - losses[0]) / abs(losses[0])
+    g_err = abs(hist_c[0]["grad_norm"] - norms[0]) / norms[0]
+    say(f"  (c) remat full, one step: loss {losses_c[0]:.6f} (none: {losses[0]:.6f}, rel "
+        f"{l_err:.3g}), grad norm {hist_c[0]['grad_norm']:.6f} (none: {norms[0]:.6f}, rel "
+        f"{g_err:.3g}); step wall {hist_c[0]['seconds'] * 1e3:.1f} ms; max_memory_allocated "
+        f"{peak_c:.2f} GB against remat none's {peak:.2f} GB")
+    if not (l_err <= REMAT_REL and g_err <= REMAT_REL):
+        fail(f"remat full's first step disagrees with remat none's beyond {REMAT_REL}")
+    return params
+
+
+def eval_through_kernels(torch, arch, params):
+    """(d): ``make_eval_step`` at full width with ``use_kernels=True`` on the
+    training batch, every flash or SSD launch held to its plain version on
+    its own inputs, its xent against the plain eval's. Returns the
+    launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.runtime import RunConfig
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models.transformer import ApplyCtx
+    from repro_torch.training import make_eval_step
+
+    cfg = get_config(arch)
+    batch = training_batch(torch, cfg)
+    base = dict(remat="none", moe_impl="dense", param_dtype="float32")
+    worst, windows = [], []
+    runtime.reset_launch_counts()
+    with mock.patch.object(fa_ops, "flash_attention_bhsd",
+                           flash_held_to_plain(torch, worst, windows)), \
+            mock.patch.object(ssd_ops, "ssd_scan", ssd_held_to_plain(torch, worst)):
+        got = make_eval_step(ApplyCtx(cfg, RunConfig(use_kernels=True, **base)))(params, batch)
+    counts = runtime.launch_counts()
+    want = make_eval_step(ApplyCtx(cfg, RunConfig(**base)))(params, batch)
+    n = sum(launches_per_prefill(arch))
+    gap = abs(got["xent"].item() - want["xent"].item())
+    say(f"  (d) {arch} eval through the kernels ({TRAIN_FULL_BS[0]}x{TRAIN_FULL_BS[1]}, bf16 "
+        f"compute): xent {got['xent'].item():.5f}, plain {want['xent'].item():.5f} (gap "
+        f"{gap:.3g}, tol {EVAL_XENT_ATOL}); launches {counts}, each held to its plain version: "
+        f"worst error / tolerance {max(worst, default=0):.3g}")
+    if len(worst) != n or sum(counts.values()) != n or not max(worst) <= 1.0:
+        fail(f"{arch} eval: {len(worst)} of {n} launches held, or one disagrees")
+    if not gap <= EVAL_XENT_ATOL:
+        fail(f"{arch} eval through the kernels: xent {gap:.3g} from the plain eval's")
+    return counts
+
+
+def guard_on_card(torch):
+    """(e): the flash, SSD and dcov wrappers raise with a requires-grad CUDA
+    input under grad mode, and launch nothing."""
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.dcov import dcov_gram_windows
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    q = torch.randn(1, 2, 64, 64, device="cuda", dtype=torch.bfloat16)
+    x = torch.randn(1, 64, 2, 64, device="cuda")
+    dt, A = torch.rand(1, 64, 2, device="cuda"), -torch.rand(2, device="cuda")
+    bc = torch.randn(1, 64, 16, device="cuda")
+    cols = torch.randn(2, 10, 7, device="cuda")
+    n_valid = torch.tensor([10, 4], dtype=torch.int32, device="cuda")
+    calls = [("flash_attention_bhsd", lambda: flash_attention_bhsd(q.requires_grad_(), q, q)),
+             ("ssd_scan", lambda: ssd_scan(x.requires_grad_(), dt, A, bc, bc, chunk=64)),
+             ("dcov_gram_windows", lambda: dcov_gram_windows(cols.requires_grad_(), n_valid))]
+    runtime.reset_launch_counts()
+    for name, call in calls:
+        try:
+            call()
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+        else:
+            fail(f"{name} took a requires-grad CUDA input under grad mode")
+    if any(runtime.launch_counts().values()):
+        fail(f"a refused call launched a kernel: {runtime.launch_counts()}")
+    say("  (e) the flash, SSD and dcov wrappers refuse a requires-grad CUDA input under grad "
+        "mode, with no launch")
+
+
+def phase_training(torch):
+    """Phase 7 (module note). Returns the eval's launches."""
+    import numpy as np
+
+    from repro_torch.configs.registry import ARCH_IDS, get_config
+    from repro_torch.configs.runtime import RunConfig
+    from repro_torch.launch.train import train
+    from repro_torch.models.transformer import init_model_params
+
+    t0 = time.perf_counter()
+    free_card(torch, "the reduced training runs")
+    b, s = TRAIN_REDUCED_BS
+    for arch in ARCH_IDS:
+        _, losses, hist = train(arch, steps=TRAIN_REDUCED_STEPS, batch=b, seq=s,
+                                lr=TRAIN_REDUCED_LR, device="cuda", log_every=0)
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        say(f"  (a) reduced {arch}: {len(losses)} steps of {b}x{s}, mean loss of the first 5 "
+            f"{first:.4f}, of the last 5 {last:.4f}; {np.mean([h['seconds'] for h in hist[1:]]) * 1e3:.1f} "
+            "ms a step after the first")
+        if not (np.isfinite(losses).all() and last < first - TRAIN_DROP):
+            fail(f"reduced {arch}: its loss did not fall by {TRAIN_DROP} ({losses})")
+    card, cpu = reduced_trajectory(torch, "cuda"), reduced_trajectory(torch, "cpu")
+    worst = max(abs(a - c) / abs(c) for a, c in zip(card, cpu))
+    say(f"  (a) reduced {ARCH} in float32 compute, {len(card)} steps from the same parameters: "
+        f"worst loss gap, card against CPU, {worst:.3g} relative (tol {TRAIN_CPU_REL}); loss "
+        f"{card[0]:.4f} -> {card[-1]:.4f}")
+    if not worst <= TRAIN_CPU_REL:
+        fail(f"reduced {ARCH}'s training on the card leaves the CPU's: {card} against {cpu}")
+
+    params = full_width_training(torch)
+    counts = eval_through_kernels(torch, ARCH, params)
+    del params
+    free_card(torch, f"the full-width {SSM_ARCH} eval")
+    cfg = get_config(SSM_ARCH)
+    params = init_model_params(cfg, RunConfig(), torch.Generator(device="cuda").manual_seed(0),
+                               "cuda")
+    for name, n in eval_through_kernels(torch, SSM_ARCH, params).items():
+        counts[name] += n
+    del params
+    torch.cuda.empty_cache()
+    guard_on_card(torch)
+    say(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail("src/repro_torch not found: run from the root of a checkout")
@@ -3076,6 +3369,9 @@ def main() -> None:
     phase_coral_profile(torch)
     say("== phase 6: control loop")
     for name, n in phase_control_loop(torch).items():
+        counts[name] = counts.get(name, 0) + n
+    say("== phase 7: training")
+    for name, n in phase_training(torch).items():
         counts[name] = counts.get(name, 0) + n
     say(f"== done in {time.perf_counter() - t0:.1f} s")
     sources = {

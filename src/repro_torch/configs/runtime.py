@@ -9,9 +9,12 @@ attention kernel, ``repro_torch.kernels.flash_attention``. Decode
 (``Sq == 1``) takes the plain path in both packages. ``moe_impl`` takes
 the reference's one-device values, ``"auto"`` and ``"dense"`` (both the
 compute-all-experts path: there is no mesh); its expert-parallel values
-raise in ``models/moe.py``. Fields that only the JAX package's training
-and sharding paths read (remat, sharding rules, MoE capacity, decode TP)
-wait for the slices that port them (ROADMAP queue 1 items 15 and 16).
+raise in ``models/moe.py``. ``remat`` is the training path's
+rematerialisation policy (``models/transformer.py::forward_train``:
+``"none"``, ``"full"`` or ``"dots"``), with the reference's default. The
+fields that only the JAX package's sharding paths read (sharding rules,
+MoE capacity, decode TP) wait for the multi-device slice (ROADMAP queue 1
+item 16).
 """
 from __future__ import annotations
 
@@ -31,6 +34,8 @@ class RunConfig:
     attn_block_k: int = 1024
     # use the blocked path above this many (query × KV) positions
     attn_blocked_threshold: int = 2048
+    # rematerialisation of each layer in forward_train: none | full | dots
+    remat: str = "full"
     # prefill attention through the hand-written flash attention kernel
     # (the reference's TPU deployment flag ``use_pallas``)
     use_kernels: bool = False

@@ -49,6 +49,7 @@ def dcov_gram_windows(cols: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor
     n_valid: (B,) int32, each at least 1 (the caller clamps, as the
     reference's engine does).
     """
+    runtime.refuse_grad("dcov_gram_windows", cols, n_valid)
     if cols.dim() != 3 or n_valid.shape != cols.shape[:1]:
         raise ValueError(f"cols must be (B, W, C) and n_valid (B,), got "
                          f"{tuple(cols.shape)} and {tuple(n_valid.shape)}")
@@ -76,6 +77,7 @@ def dcov_gram(cols: torch.Tensor) -> torch.Tensor:
     """(C, C) float32 Gram ⟨A_c, A_c'⟩ of one (n, C) block, every row valid.
     Diagonal entries are the dVar sums, off-diagonals the dCov sums (both
     unnormalized; dCor takes their ratio)."""
+    runtime.refuse_grad("dcov_gram", cols)
     if cols.dim() != 2 or cols.shape[0] < 1:
         raise ValueError(f"cols must be (n, C) with n >= 1, got {tuple(cols.shape)}")
     if not runtime.on_card(cols):

@@ -142,7 +142,10 @@ def flash_attention_bhsd(
     """Attention over (B, H, S, D) tensors; returns (B, Hq, Sq, Dv) in
     ``v.dtype``. CUDA tensors launch the kernel's body that
     :func:`body_for` names, on the current device (the output is laid out
-    in (B, Sq, Hq, Dv) memory order); CPU tensors take ``attention_ref``."""
+    in (B, Sq, Hq, Dv) memory order); CPU tensors take ``attention_ref``.
+    Raises with an input that requires grad under grad mode
+    (``runtime.refuse_grad``)."""
+    runtime.refuse_grad("flash_attention_bhsd", q, k, v)
     _check(q, k, v, window)
     if not runtime.on_card(q, k, v):
         return attention_ref(q, k, v, causal=causal, window=window)

@@ -18,6 +18,16 @@ source is rebuilt, and loaded with ``ctypes``. ``build()`` starts one
 Every wrapper calls :func:`count_launch` where it launches its kernel and
 nowhere else, so a run can show that its main path went through the
 kernels (:func:`launch_counts`, :func:`reset_launch_counts`).
+
+No kernel has a backward. A wrapper fills its output through a C call,
+so on the card an input that requires grad would give an output with no
+``grad_fn`` and the gradient would be lost without an error. Every
+wrapper therefore calls :func:`refuse_grad` at entry, on both devices:
+with grad mode on, an input that requires grad raises. The JAX package
+never differentiates a Pallas kernel either (it trains with
+``use_pallas=False``); the port trains on the models' plain paths
+(``use_kernels=False``) and reaches the kernels in its eval step, under
+``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -74,6 +84,18 @@ def on_card(*tensors: torch.Tensor) -> bool:
     raise ValueError(
         f"kernel inputs must all lie on the CPU or all on one CUDA device, got {kinds}"
     )
+
+
+def refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise ``RuntimeError`` when grad mode is on and any of ``tensors``
+    (None entries skipped) requires grad: kernel ``name`` has no backward
+    (module note)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and the kernel has no backward. The JAX "
+            "package trains without its kernels (use_pallas=False): train with "
+            "RunConfig(use_kernels=False), or call the kernel under torch.no_grad()"
+        )
 
 
 def count_launch(name: str, body: Optional[str] = None) -> None:

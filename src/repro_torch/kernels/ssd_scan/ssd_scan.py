@@ -176,7 +176,9 @@ def ssd_scan(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns y (B, S, NH, hd) in ``x.dtype`` and the final state
     (B, NH, hd, N) in float32. CUDA tensors launch the kernel's body that
-    :func:`body_for` names; CPU tensors take ``ssd_ref``."""
+    :func:`body_for` names; CPU tensors take ``ssd_ref``. Raises with an
+    input that requires grad under grad mode (``runtime.refuse_grad``)."""
+    runtime.refuse_grad("ssd_scan", x, dt, A, Bm, Cm, initial_state)
     _check(x, dt, A, Bm, Cm, chunk, initial_state)
     extra = () if initial_state is None else (initial_state,)
     if not runtime.on_card(x, dt, A, Bm, Cm, *extra):

@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Dict, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -49,6 +49,7 @@ from repro_torch.configs.runtime import RunConfig
 from repro_torch.models.transformer import ApplyCtx, init_model_params
 from repro_torch.serving import Request, ServingEngine, ServingRuntime
 from repro_torch.serving.engine import capture_counts
+from repro_torch.training.data import multimodal_extras  # noqa: F401  (importable from here too)
 
 
 def build_engine(
@@ -80,23 +81,6 @@ def build_engine(
     gen = torch.Generator(device=device).manual_seed(seed)
     params = init_model_params(cfg, rcfg, gen, device)
     return ServingEngine(ApplyCtx(cfg, rcfg), params, batch, max_len, graphs=graphs)
-
-
-def multimodal_extras(cfg, batch: int, seed: int = 0, std: float = 0.02) -> Dict[str, np.ndarray]:
-    """The stub modality front ends, as the reference's
-    ``training/data.py::multimodal_extras`` draws them: patch embeddings
-    ``vision_embeds`` (B, n_vision_tokens, d_model) for a vision model,
-    frame embeddings ``enc_feats`` (B, encoder_seq_len, d_model) for an
-    encoder-decoder model, normal(0, ``std``) float32 from a numpy seed."""
-    rng = np.random.default_rng(seed)
-    out = {}
-    if cfg.n_vision_tokens:
-        out["vision_embeds"] = rng.normal(
-            0, std, (batch, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32)
-    if cfg.is_encoder_decoder:
-        out["enc_feats"] = rng.normal(
-            0, std, (batch, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32)
-    return out
 
 
 def serve(

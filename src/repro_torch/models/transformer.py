@@ -14,6 +14,7 @@ the reference's ``run_prologue`` applies it (here ``run_stack`` runs both,
 in the order ``_parts`` gives).
 
 Entry points:
+  forward_train(ctx, params, batch)          -> (logits, aux)
   prefill(ctx, params, batch, capacity, out) -> (cache, last_logits)
   decode_step(ctx, params, cache, tokens)     -> (cache, logits)
 ``batch`` holds ``tokens`` (B, S) and, as in the reference,
@@ -61,16 +62,25 @@ the device and reads nothing back to the host, so the whole step can be
 captured once in a CUDA graph and replayed (``serving/engine.py``, whose
 serve step advances ``length`` in place).
 
+Training (``forward_train``) takes each layer's parameters from one
+``unbind`` of every stacked tensor per call (``_unbind``: the backward of
+an indexed view costs a zero-filled copy of the whole stack per layer),
+and each layer through ``_maybe_remat`` (``RunConfig.remat``). It reads
+no kernel under grad: the wrappers raise there (``kernels/runtime.py``),
+and the training launcher runs the plain paths, as the reference's does.
+
 Every branch of the reference's model is ported. Hymba's meta tokens
 and cross-layer KV sharing are not in the reference, so not here either.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.runtime import RunConfig
@@ -224,8 +234,19 @@ def layer_windows(cfg: ModelConfig, n_layers: Optional[int] = None, offset: int 
 
 
 def _layer(stack: dict, i: int) -> dict:
-    """Layer ``i``'s parameters: a view of every stacked tensor."""
+    """Layer ``i``'s parameters: a view of every stacked tensor (prefill and
+    decode)."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in stack.items()}
+
+
+def _unbind(stack: dict) -> list:
+    """Every layer's parameters from one ``unbind`` of each stacked tensor
+    (the training path). Autograd's backward of ``v[i]`` writes layer i's
+    gradient into a zero tensor the size of the whole stack, L times per
+    stack; the backward of ``unbind`` is one ``stack`` of the L gradients."""
+    cols = {k: _unbind(v) if isinstance(v, dict) else v.unbind(0) for k, v in stack.items()}
+    n = len(next(iter(cols.values())))
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -324,8 +345,9 @@ def layer_full(
     pos3=None,
     enc=None,
     lcache: Optional[Dict[str, torch.Tensor]] = None,
-) -> torch.Tensor:
-    """One layer over the whole sequence; returns the new hidden state.
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One layer over the whole sequence; returns the new hidden state and
+    the layer's MoE aux loss (None for a layer without a router).
     ``enc`` is the encoder's (output, positions) for a decoder layer's
     cross attention. With ``lcache`` (this layer's cache tensors), writes
     its entries in place: K/V (or MLA's latent and RoPE key) to slots
@@ -342,7 +364,7 @@ def layer_full(
         return out
 
     if cfg.arch_type == "ssm":
-        return h + mamba2()
+        return h + mamba2(), None
     s = h.shape[1]
     if cfg.mla is not None:
         attn_out, (latent, krope) = mla_full(cfg, lp["attn"], hn, positions, ctx.rcfg)
@@ -363,19 +385,21 @@ def layer_full(
         if lcache is not None:
             lcache["cross_k"].copy_(ck)
             lcache["cross_v"].copy_(cv)
-    return h + _ffn(ctx, lp, _norm(cfg, lp, "ln2", h))
+    ff, aux = _ffn(ctx, lp, _norm(cfg, lp, "ln2", h))
+    return h + ff, aux
 
 
-def _ffn(ctx: ApplyCtx, lp: dict, hn2: torch.Tensor) -> torch.Tensor:
-    """The layer's FFN: the MoE FFN (its aux loss dropped, as the
-    reference's prefill and decode drop it), Whisper's GELU MLP or the
-    dense SwiGLU."""
+def _ffn(ctx: ApplyCtx, lp: dict, hn2: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's FFN and its aux loss: the MoE FFN with its load-balance
+    loss (which only ``forward_train`` sums; prefill and decode drop it, as
+    the reference's do), or Whisper's GELU MLP or the dense SwiGLU, with
+    None."""
     fp = lp["ffn"]
     if "router" in fp:
-        return moe.moe_ffn(ctx.cfg, ctx.rcfg, fp, hn2)[0]
+        return moe.moe_ffn(ctx.cfg, ctx.rcfg, fp, hn2)
     if ctx.cfg.arch_type == "audio":
-        return gelu_mlp(hn2, fp["wg"], fp["bg"], fp["wd"], fp["bd"])
-    return swiglu(hn2, fp["wg"], fp["wu"], fp["wd"])
+        return gelu_mlp(hn2, fp["wg"], fp["bg"], fp["wd"], fp["bd"]), None
+    return swiglu(hn2, fp["wg"], fp["wu"], fp["wd"]), None
 
 
 def run_stack(
@@ -394,7 +418,7 @@ def run_stack(
     stack each run through here (``_parts``)."""
     for i, win in enumerate(windows):
         lcache = None if cache is None else {name: c[i] for name, c in cache.items()}
-        h = layer_full(ctx, _layer(stack_params, i), win, h, positions, pos3, enc, lcache)
+        h, _ = layer_full(ctx, _layer(stack_params, i), win, h, positions, pos3, enc, lcache)
     return h
 
 
@@ -454,24 +478,103 @@ def unembed(ctx: ApplyCtx, params, h: torch.Tensor) -> torch.Tensor:
     return h @ w.to(h.dtype)
 
 
-def encode(ctx: ApplyCtx, params, enc_feats: torch.Tensor):
+def _encoder_layer(ctx: ApplyCtx, lp: dict, h: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """One encoder layer: bidirectional self-attention, then the GELU MLP."""
+    cfg = ctx.cfg
+    out, _ = attn_full(ctx, lp["attn"], _norm(cfg, lp, "ln1", h), pos, None, None, causal=False)
+    h = h + out
+    return h + _ffn(ctx, lp, _norm(cfg, lp, "ln2", h))[0]
+
+
+def encode(ctx: ApplyCtx, params, enc_feats: torch.Tensor, train: bool = False):
     """Whisper's encoder over the stub frame embeddings (B, T_enc, d):
     sinusoidal positions, then per layer bidirectional self-attention and
     the GELU MLP, then the encoder's final LayerNorm. Returns (output,
-    positions (B, T_enc))."""
+    positions (B, T_enc)). ``train`` (``forward_train``) takes the layers
+    from ``_unbind`` and each through ``_maybe_remat``, as the reference's
+    training path takes its scanned encoder body."""
     cfg = ctx.cfg
     b, t, _ = enc_feats.shape
     pos = torch.arange(t, dtype=torch.int32, device=enc_feats.device).expand(b, t)
     h = enc_feats.to(ctx.rcfg.cdtype)
     h = h + sinusoidal_pos(pos, cfg.d_model).to(h.dtype)
     ep = params["encoder"]
-    for i in range(cfg.n_encoder_layers):
-        lp = _layer(ep["layers"], i)
-        out, _ = attn_full(ctx, lp["attn"], _norm(cfg, lp, "ln1", h), pos, None, None,
-                           causal=False)
-        h = h + out
-        h = h + _ffn(ctx, lp, _norm(cfg, lp, "ln2", h))
+    if train:
+        body = _maybe_remat(ctx.rcfg, _encoder_layer)
+        for lp in _unbind(ep["layers"]):
+            h = body(ctx, lp, h, pos)
+    else:
+        for i in range(cfg.n_encoder_layers):
+            h = _encoder_layer(ctx, _layer(ep["layers"], i), h, pos)
     return layer_norm(h, ep["final_norm"], ep["final_norm_b"], cfg.norm_eps), pos
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep ``aten.mm`` outputs, recompute the rest."""
+    if op is torch.ops.aten.mm.default:
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(rcfg: RunConfig, fn):
+    """``fn`` rematerialised by ``rcfg.remat`` when grad mode is on (the
+    reference's ``_maybe_remat`` around its scanned layer body): ``"none"``
+    keeps every activation; ``"full"`` wraps each call in
+    ``torch.utils.checkpoint`` (non-reentrant), so backward recomputes the
+    layer from its input; ``"dots"`` is the counterpart of
+    ``checkpoint_dots_with_no_batch_dims``, a selective checkpoint that
+    saves the outputs of ``aten.mm`` (the products of activations with
+    weights) and recomputes everything else, ``bmm`` included (attention's
+    products, and the MoE expert products, which torch runs as ``bmm``
+    where XLA sees no batch dimension). With grad mode off ``fn`` runs as
+    it is."""
+    if rcfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat {rcfg.remat!r}: none | full | dots")
+    if rcfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if rcfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts, _save_weight_products)
+    return functools.partial(torch_checkpoint.checkpoint, fn, use_reentrant=False, **kw)
+
+
+def forward_train(ctx: ApplyCtx, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+    """batch: tokens (B, S) [+ vision_embeds | enc_feats] -> (logits (B, S,
+    vocab) in the compute dtype, aux: the MoE load-balance loss summed over
+    the layers, float32).
+
+    The reference's training forward: the encoder (each layer through
+    ``_maybe_remat``), M-RoPE positions, the embeddings, the dense prologue
+    (not rematerialised, as the reference's unrolled ``run_prologue``), then
+    the main stack, each layer through ``_maybe_remat``. Each stack's
+    parameters come from ``_unbind``, once per call. The aux loss is summed
+    per stack in layer order, then the prologue's and the main stack's
+    added, as the reference sums them."""
+    cfg = ctx.cfg
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    dev = tokens.device
+    positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
+    pos3 = (build_mrope_positions(b, s, cfg.n_vision_tokens, device=dev)
+            if cfg.rope_type == "mrope" else None)
+    enc = encode(ctx, params, batch["enc_feats"], train=True) if cfg.is_encoder_decoder else None
+    h = embed(ctx, params, tokens, positions, batch.get("vision_embeds"))
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    for key, _, windows in _parts(cfg):
+        body = layer_full if key == "prologue" else _maybe_remat(ctx.rcfg, layer_full)
+        part = torch.zeros((), dtype=torch.float32, device=dev)
+        for lp, win in zip(_unbind(params[key]), windows):
+            h, a = body(ctx, lp, win, h, positions, pos3, enc)
+            if a is not None:
+                part = part + a
+        aux = aux + part
+    return unembed(ctx, params, h), aux
 
 
 # ---------------------------------------------------------------------------
@@ -664,7 +767,8 @@ def layer_decode(
         q_pos = torch.zeros((b, 1), dtype=torch.int32, device=h.device)
         out = attention(q, ck, cv, q_pos, enc_pos, causal=False, rcfg=ctx.rcfg)
         h = h + out.reshape(b, 1, -1) @ lp["cross"]["wo"].to(hn.dtype)
-    return h + _ffn(ctx, lp, _norm(cfg, lp, "ln2", h))
+    ff, _ = _ffn(ctx, lp, _norm(cfg, lp, "ln2", h))
+    return h + ff
 
 
 def decode_step(ctx: ApplyCtx, params, cache, tokens: torch.Tensor):

@@ -829,3 +829,109 @@ def test_capture_survives_a_collected_engine(cuda):
     finally:
         gc.set_threshold(*thresholds)
     assert len(new.pool) == 2 and capture_counts() == {ctx.cfg.name: 2}
+
+
+# ----------------------------------------------------------------- training
+
+
+@pytest.mark.gpu
+def test_wrappers_refuse_grad_on_the_card(cuda):
+    """A requires-grad CUDA input under grad mode raises before any launch;
+    under no_grad the same call launches the kernel."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(1, 2, 64, 64, generator=g, device="cuda", dtype=torch.bfloat16)
+               for _ in range(3))
+    x = torch.randn(1, 64, 2, 64, generator=g, device="cuda")
+    dt = torch.rand(1, 64, 2, generator=g, device="cuda")
+    A = -torch.rand(2, generator=g, device="cuda")
+    Bm, Cm = (torch.randn(1, 64, 16, generator=g, device="cuda") for _ in range(2))
+    cols = torch.randn(3, 10, 7, generator=g, device="cuda")
+    n_valid = torch.tensor([10, 7, 3], dtype=torch.int32, device="cuda")
+    calls = {
+        "flash_attention": lambda t: flash_attention_bhsd(t, k, v),
+        "ssd_scan": lambda t: ssd_scan(t, dt, A, Bm, Cm, chunk=64),
+        "dcov": lambda t: dcov_gram_windows(t, n_valid),
+    }
+    first = {"flash_attention": q, "ssd_scan": x, "dcov": cols}
+    for name, call in calls.items():
+        leaf = first[name].clone().requires_grad_(True)
+        runtime.reset_launch_counts()
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(leaf)
+        assert runtime.launch_counts()[name] == 0
+        with torch.no_grad():
+            call(leaf)
+        torch.cuda.synchronize()
+        assert runtime.launch_counts()[name] == 1
+    with pytest.raises(RuntimeError, match="dcov_gram.*no backward"):
+        dcov_gram(cols[0].clone().requires_grad_(True))
+
+
+def _train_losses(arch, device, steps=5):
+    """Reduced ``arch``'s losses and grad norms over ``steps`` train steps in
+    float32 compute, from parameters drawn on the CPU (seed 0) and moved to
+    ``device``: the same start on both devices."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import run_config
+    from repro_torch.models.transformer import ApplyCtx, init_model_params
+    from repro_torch.training import AdamWConfig, SyntheticLM, adamw, make_train_step
+    from repro_torch.training.data import multimodal_extras
+
+    cfg = get_config(arch).reduced()
+    rcfg = run_config("none", "float32")
+    params = init_model_params(cfg, rcfg, torch.Generator().manual_seed(0), "cpu")
+    params = adamw.tree_map(lambda t: t.to(device), params)
+    step = make_train_step(ApplyCtx(cfg, rcfg), AdamWConfig(lr=2e-3, warmup_steps=2,
+                                                             total_steps=10))
+    opt = adamw.init(params)
+    data = SyntheticLM(cfg.vocab, 32, 8, seed=0)
+    extras = multimodal_extras(cfg, 8, 0)
+    out = []
+    for i in range(steps):
+        batch = {k: torch.from_numpy(v).to(device) for k, v in dict(data.batch(i), **extras).items()}
+        params, opt, m = step(params, opt, batch)
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "moonshot-v1-16b-a3b", "mamba2-2.7b"])
+def test_reduced_train_steps_on_the_card_match_the_cpu(cuda, arch):
+    """Five steps from the same parameters: each loss and grad norm within
+    1e-4 relative (float32, TF32 off; summation order only, carried on by
+    the updates)."""
+    card, cpu = _train_losses(arch, "cuda"), _train_losses(arch, "cpu")
+    for i, ((lc, gc), (lh, gh)) in enumerate(zip(card, cpu)):
+        assert lc == pytest.approx(lh, rel=1e-4), (i, card, cpu)
+        assert gc == pytest.approx(gh, rel=1e-4), (i, card, cpu)
+    assert card[-1][0] < card[0][0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mamba2-2.7b", "hymba-1.5b"])
+def test_bf16_eval_through_the_kernels_matches_the_plain_eval(cuda, arch):
+    """The eval step with ``use_kernels=True`` (bf16 compute, parameters that
+    require grad, as after training) launches flash and/or SSD once per
+    layer, and its xent is within 2e-2 of the plain eval's (both round
+    to bf16 at other places, 2^-8 relative, on a loss near 6)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.runtime import RunConfig
+    from repro_torch.models.transformer import ApplyCtx, init_model_params
+    from repro_torch.training import SyntheticLM, adamw, make_eval_step
+
+    cfg = get_config(arch).reduced()
+    params = init_model_params(cfg, RunConfig(), torch.Generator(device="cuda").manual_seed(0),
+                               "cuda")
+    for p in adamw.leaves(params):
+        p.requires_grad_(True)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLM(cfg.vocab, 64, 4).batch(0).items()}
+    runtime.reset_launch_counts()
+    got = make_eval_step(ApplyCtx(cfg, RunConfig(use_kernels=True)))(params, batch)
+    counts = runtime.launch_counts()
+    plain = make_eval_step(ApplyCtx(cfg, RunConfig()))(params, batch)
+    assert runtime.launch_counts() == counts
+    want_flash = 0 if cfg.arch_type == "ssm" else cfg.n_layers
+    want_ssd = cfg.n_layers if cfg.arch_type in ("ssm", "hybrid") else 0
+    assert (counts["flash_attention"], counts["ssd_scan"]) == (want_flash, want_ssd)
+    assert torch.isfinite(got["xent"])
+    assert abs(got["xent"].item() - plain["xent"].item()) <= 2e-2
