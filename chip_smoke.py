@@ -3,8 +3,13 @@
 GPU, from the root of a checkout:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --multi-device   # phases 1 and 8 alone
 
-Eight main paths, each at full size through its kernels (the fifth is
+Nine main paths, the first eight each at full size through its kernels
+(the ninth, multi-device launch, phase 8, reaches no kernel but tune's
+dcov: the dry run on the production meshes, held to the card on a 1x1
+mesh, and the expert-parallel MoE at Moonlight-16B-A3B's full width over
+4 ranks; the fifth is
 the serving control loop, CORAL tuning live Qwen2.5-3B traffic, phase 6;
 the sixth, Moonlight-16B-A3B served at full width and depth and
 DeepSeek-V2's MLA at full width, its depth cut to 2 layers, phases 3 and
@@ -243,7 +248,25 @@ Phases, each of which exits non-zero on failure:
    and counted, each xent within 0.05 of the plain eval's; (e) the flash,
    SSD and dcov wrappers refuse a requires-grad CUDA input under grad
    mode, with no launch.
-8. A ``{"kernels": [...]}`` line (launches: the main paths', the graph
+8. Multi-device launch (``phase_multi_device``; the port's
+   ``sharding``, ``launch/dryrun.py``, ``report``, ``tune`` and the
+   expert-parallel MoE): (a) the dry run, three processes at once on
+   ``fake`` meshes with the card hidden: every registry model at
+   decode_32k and Qwen2.5-3B at train_4k, prefill_32k and long_500k on
+   16x16, DeepSeek-V2-236B train_4k on 2x16x16, each pair's ``[OK]``
+   line, then ``report``'s two tables per mesh (counted per chip, not
+   timed); (b) full-width Qwen2.5-3B prefill (4 x 512, the plain path) on
+   a 1x1 mesh, the dry run against a fresh process on the card
+   (``tools/dryrun_card_check.py``): argument bytes and matmul FLOPs
+   (``FlopCounterMode``) exactly, the peak within max(10 %, 256 MB) of
+   ``max_memory_allocated``; (c) Moonlight-16B-A3B's MoE layer at full
+   width (64 experts, top-6, 2 shared, d 2048, bf16) over 4 gloo ranks on
+   the card (``tools/moe_ep_check.py``), on 2x2 and 1x4 meshes over 4 x
+   512 and 4 x 1 tokens: EP and EP2D within 2e-2 x max|dense| of
+   ``moe_ffn_dense`` at capacity factor 8, no assignment dropped; at 1.25
+   the dropped share and the wall time per call printed; (d) ``tune`` from
+   (a)'s Qwen2.5-3B decode_32k artifact: CORAL's pick and ORACLE's.
+9. A ``{"kernels": [...]}`` line (launches: the main paths', the graph
    checks' prefills, the control loop's and the training eval's), then
    ``{"ok": true, "device": ...}`` as the last line.
 
@@ -453,6 +476,25 @@ TRAIN_FULL_STEPS, TRAIN_FULL_BS = 5, (8, 128)
 TRAIN_CPU_REL = 1e-4  # reduced Qwen2.5-3B in float32 compute: each loss, card against CPU
 REMAT_REL = 1e-5  # remat "full"'s first loss and grad norm against remat "none"'s
 EVAL_XENT_ATOL = 5e-2  # the bf16 eval's xent through the kernels against the plain eval's
+# phase 8, multi-device launch: (a) the dry runs, three processes at once on
+# fake meshes (no card), their artifacts under experiments/dryrun; (b) the
+# 1x1 check, full-width Qwen2.5-3B prefill of 4 x 512 on the plain path:
+# argument bytes and matmul FLOPs exact, the peak within DRY_PEAK_REL of the
+# card's max_memory_allocated or DRY_PEAK_ABS, whichever is larger (the
+# caching allocator rounds each block up and cuBLAS takes its workspace
+# from it; the dry run counts neither); (c) Moonlight's MoE layer at full
+# width in bf16 over EP_RANKS gloo ranks on the card: EP and EP2D within
+# EP_REL_TOL x max|dense| of moe_ffn_dense at capacity factor 8 (both
+# multiply the same bf16 rows, in other batches, and EP2D sums its d_ff
+# halves in bf16: a few bf16 ulps, 2^-8 relative, as tests/test_torch_moe.py's
+# BF16_REL); (d) tune from (a)'s Qwen2.5-3B decode_32k artifact
+DRY_JOBS = (("--arch", "all", "--shape", "decode_32k"),
+            ("--arch", ARCH, "--shape", "train_4k,prefill_32k,long_500k"),
+            ("--arch", MLA_ARCH, "--shape", "train_4k", "--multi-pod"))
+DRY_DIR = ROOT / "experiments" / "dryrun"
+DRY_PEAK_REL, DRY_PEAK_ABS = 0.10, 256 << 20
+EP_RANKS, EP_MESHES, EP_TOKENS = 4, ("2x2", "1x4"), ("4x512", "4x1")
+EP_REL_TOL = 2e-2
 FLEET_REGENERATE = ("PYTHONPATH=src python -c 'from repro_torch.experiments.fleet import "
                     "run_fleet; print(run_fleet(1024, seed=0, iters=30, window=12))'")
 
@@ -3325,6 +3367,106 @@ def phase_training(torch):
     return counts
 
 
+def _run_tool(args, timeout=600, env=None):
+    """Run a command from the checkout's root: (stdout, its JSON lines)."""
+    r = subprocess.run([sys.executable, *args], capture_output=True, text=True, cwd=ROOT,
+                       timeout=timeout, env=env)
+    if r.returncode != 0:
+        fail(f"{' '.join(args)} exited {r.returncode}: {r.stderr[-2000:]}")
+    return r.stdout, [json.loads(line) for line in r.stdout.splitlines() if line.startswith("{")]
+
+
+def dry_runs():
+    """(a): the dry-run CLI in DRY_JOBS processes at once, on fake meshes in
+    processes of their own (the card hidden from them); their [OK] lines
+    and the report's tables."""
+    from repro_torch.configs.registry import ARCH_IDS
+    from repro_torch.launch import report
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *job, "--out",
+                               str(DRY_DIR)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, cwd=ROOT, env=env) for job in DRY_JOBS]
+    for job, pr in zip(DRY_JOBS, procs):
+        out, err = pr.communicate(timeout=900)
+        for line in out.splitlines():
+            if line.startswith(("[OK]", "[FAIL]")):
+                say(f"  (a) {line}")
+        if pr.returncode != 0:
+            fail(f"the dry run {' '.join(job)} exited {pr.returncode}: {err[-2000:]}")
+    say(f"  (a) dry runs took {time.perf_counter() - t0:.1f} s (three processes at once)")
+    want = {"16x16": len(ARCH_IDS) + 3, "2x16x16": 1}
+    for mesh, n in want.items():
+        recs = report.load(str(DRY_DIR), mesh)
+        if len(recs) != n:
+            fail(f"{len(recs)} dry-run artifacts for mesh {mesh}, not {n}")
+        say(f"  (a) report, mesh {mesh} (counted per chip, not timed):")
+        for line in (report.dryrun_table(recs) + "\n" + report.roofline_table(recs)).splitlines():
+            say(f"    {line}")
+
+
+def dry_card_check():
+    """(b): the 1x1 dry run of a full-width prefill against the card's run
+    in a fresh process."""
+    dry = _run_tool(["tools/dryrun_card_check.py", "--mode", "dry"],
+                    env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))[1][-1]
+    real = _run_tool(["tools/dryrun_card_check.py", "--mode", "real"])[1][-1]
+    peak_tol = max(DRY_PEAK_REL * real["peak_bytes"], DRY_PEAK_ABS)
+    say(f"  (b) {ARCH} prefill 4 x 512 on a 1x1 mesh: argument bytes {dry['argument_bytes']} "
+        f"counted, {real['argument_bytes']} on the card; matmul FLOPs {dry['flops']:.6e} counted, "
+        f"{real['flops']:.6e} by FlopCounterMode on the card; peak {dry['peak_bytes'] / 1e9:.3f} GB "
+        f"counted, {real['peak_bytes'] / 1e9:.3f} GB max_memory_allocated "
+        f"(gap {(dry['peak_bytes'] - real['peak_bytes']) / 1e6:+.1f} MB, tol "
+        f"{peak_tol / 1e6:.0f} MB); {card_line()}")
+    if not real["finite"]:
+        fail("the card's prefill gave non-finite logits")
+    if dry["argument_bytes"] != real["argument_bytes"] or dry["flops"] != real["flops"]:
+        fail(f"the 1x1 dry run's counts differ from the card's: {dry} against {real}")
+    if abs(dry["peak_bytes"] - real["peak_bytes"]) > peak_tol:
+        fail(f"the 1x1 dry run's peak is off the card's by more than {peak_tol / 1e6:.0f} MB")
+
+
+def ep_card_check():
+    """(c): Moonlight's MoE layer at full width over EP_RANKS gloo ranks on
+    the card, EP and EP2D against the dense path."""
+    out, rows = _run_tool(["tools/moe_ep_check.py", "--arch", MOE_ARCH, "--ranks", str(EP_RANKS),
+                           "--meshes", *EP_MESHES, "--tokens", *EP_TOKENS, "--dtype", "bfloat16",
+                           "--device", "cuda"], timeout=900)
+    if len(rows) != len(EP_MESHES) * len(EP_TOKENS) * 4:
+        fail(f"the expert-parallel check gave {len(rows)} rows: {out[-2000:]}")
+    for r in rows:
+        say(f"  (c) {MOE_ARCH} MoE layer, mesh {r['mesh']}, tokens {r['tokens']}, {r['impl']} at "
+            f"cf {r['capacity_factor']}: max|err| {r['max_abs_err']:.4g} (max|dense| "
+            f"{r['max_abs_dense']:.4g}), wall {r['wall_ms']:.2f} ms a call, dropped "
+            f"{r['dropped_share']:.4f} of assignments")
+        if r["capacity_factor"] == 8.0 and not (
+                r["max_abs_err"] <= EP_REL_TOL * r["max_abs_dense"] and r["dropped_share"] == 0.0):
+            fail(f"expert-parallel MoE leaves the dense path: {r}")
+    say(f"  (c) {card_line()}")
+
+
+def phase_multi_device(torch):
+    """Phase 8: the dry run on the production meshes, the 1x1 dry run held
+    to the card, the expert-parallel MoE at full width, and tune."""
+    from repro_torch.launch import tune
+
+    t0 = time.perf_counter()
+    free_card(torch, "the multi-device phase")
+    dry_runs()
+    dry_card_check()
+    ep_card_check()
+    res = tune.tune(ARCH, "decode_32k", dryrun_dir=str(DRY_DIR), verbose=False)
+    for who in ("coral", "oracle"):
+        r = res[who]
+        say(f"  (d) tune {ARCH} decode_32k: {who.upper()} picks {r['config']}, tau {r['tau']:.1f}, "
+            f"{r['power_kw']:.3f} kW ({r['measurements']} measurements); target tau "
+            f"{res['tau_target']:.1f}, budget {res['p_budget_kw']:.3f} kW")
+    if not res["coral"]["feasible"]:
+        say("  (d) CORAL's pick misses the target or the budget (reported, as the reference's)")
+    say(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail("src/repro_torch not found: run from the root of a checkout")
@@ -3338,6 +3480,11 @@ def main() -> None:
     t0 = time.perf_counter()
     say("== phase 1: environment")
     phase_environment(torch)
+    if sys.argv[1:] == ["--multi-device"]:  # phase 8 alone (no {"kernels"} or {"ok"} line)
+        say("== phase 8: multi-device launch")
+        phase_multi_device(torch)
+        say(f"== phase 8 passed in {time.perf_counter() - t0:.1f} s")
+        return
     say("== phase 2: kernel check")
     kern = {"flash_attention": phase_flash_check(torch), "ssd_scan": phase_ssd_check(torch),
             "dcov": phase_dcov_check(torch)}
@@ -3373,6 +3520,8 @@ def main() -> None:
     say("== phase 7: training")
     for name, n in phase_training(torch).items():
         counts[name] = counts.get(name, 0) + n
+    say("== phase 8: multi-device launch")
+    phase_multi_device(torch)
     say(f"== done in {time.perf_counter() - t0:.1f} s")
     sources = {
         "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",

@@ -7,14 +7,16 @@ goes through the Pallas TPU kernel") is ``use_kernels`` here: prefill
 attention (``Sq > 1``) goes through the hand-written Hopper flash
 attention kernel, ``repro_torch.kernels.flash_attention``. Decode
 (``Sq == 1``) takes the plain path in both packages. ``moe_impl`` takes
-the reference's one-device values, ``"auto"`` and ``"dense"`` (both the
-compute-all-experts path: there is no mesh); its expert-parallel values
-raise in ``models/moe.py``. ``remat`` is the training path's
-rematerialisation policy (``models/transformer.py::forward_train``:
-``"none"``, ``"full"`` or ``"dots"``), with the reference's default. The
-fields that only the JAX package's sharding paths read (sharding rules,
-MoE capacity, decode TP) wait for the multi-device slice (ROADMAP queue 1
-item 16).
+the reference's values: ``"dense"`` (compute all experts),
+``"expert_parallel"`` and ``"expert_parallel_2d"`` (experts over the
+mesh's ``"model"`` axis; they need a mesh), and ``"auto"``
+(expert-parallel where the mesh's ``"model"`` axis has more than one
+device and divides the experts, else dense). ``remat`` is the training
+path's rematerialisation policy (``models/transformer.py::forward_train``:
+``"none"``, ``"full"`` or ``"dots"``), with the reference's default.
+``sharding_rules``, ``capacity_factor`` and ``decode_tp_over_data`` are
+read only under a mesh (``sharding/specs.py``, ``models/moe.py``,
+``launch/dryrun.py``), with the reference's defaults.
 """
 from __future__ import annotations
 
@@ -36,11 +38,20 @@ class RunConfig:
     attn_blocked_threshold: int = 2048
     # rematerialisation of each layer in forward_train: none | full | dots
     remat: str = "full"
+    # decode cache width of long_500k (the sliding-window variant)
+    long_context_window: int = 8192
     # prefill attention through the hand-written flash attention kernel
     # (the reference's TPU deployment flag ``use_pallas``)
     use_kernels: bool = False
-    # MoE FFN: dense | auto (on one device, auto is dense) | expert_parallel[_2d]
+    # sharding rule set name (see repro_torch.sharding.specs)
+    sharding_rules: str = "megatron_fsdp"
+    # MoE FFN: dense | expert_parallel | expert_parallel_2d | auto
     moe_impl: str = "auto"
+    capacity_factor: float = 1.25
+    # decode-time tensor-parallel mode: replicate the (small) activations
+    # over the data axes and let the embed-dim contraction reduce with an
+    # activation all-reduce, instead of fsdp-gathering the weights every step
+    decode_tp_over_data: bool = False
 
     @property
     def pdtype(self) -> torch.dtype:

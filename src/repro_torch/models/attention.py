@@ -11,6 +11,13 @@ Three execution paths, in the reference's dispatch order:
               sliding-window prefill (``_blocked_swa``) visits only the
               key tiles that cover each query tile's window;
   * direct  — one einsum, for short KV (decode steps, smoke tests).
+
+Under a mesh (DTensor inputs) attention runs on each rank's shard
+(``_sharded``): the batch over the data axes, the heads over ``"model"``
+where the KV heads divide (else the query heads, each shard taking the KV
+heads its query heads read), and a decode cache whose slot axis is
+sharded over ``"model"`` by the flash-decode split: each shard scores its
+slots, and the softmax's max and sums reduce over ``"model"``.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.runtime import RunConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.sharding.specs import is_dtensor
 
 NEG_INF = -1e30
 
@@ -134,6 +142,8 @@ def attention(
     rcfg: RunConfig = RunConfig(),
 ) -> torch.Tensor:
     """Grouped-query attention. Returns (B, Sq, Hq, Dv) in ``v.dtype``."""
+    if is_dtensor(q):
+        return _sharded(q, k, v, q_pos, kv_pos, causal, window, rcfg)
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
     if hq % hkv:
@@ -160,3 +170,64 @@ def attention(
     else:
         out = _direct(qg, k, v, q_pos, kv_pos, causal, window, scale)
     return out.reshape(b, sq, hq, v.shape[-1]).to(v.dtype)
+
+
+def _split_softmax(q, k, v, q_pos, kv_pos, causal, window, group, scale=None) -> torch.Tensor:
+    """Attention of ``q`` (B, Sq, Hq, D) over this shard's slots of k/v
+    (B, W_loc, Hkv, D), the softmax's max and sums reduced over ``group``
+    (the flash-decode split; no reduction where ``group`` is None). Returns
+    (B, Sq, Hq, Dv) in ``v.dtype``."""
+    from torch.distributed import _functional_collectives as fc
+
+    def reduce(t, op):
+        return t if group is None else fc.wait_tensor(fc.all_reduce(t, op, group))
+
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, hq // hkv, d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+    m = _mask(q_pos, kv_pos, causal, window)
+    scores = torch.where(m[:, None, None, :, :], scores, NEG_INF)
+    mx = reduce(scores.amax(dim=-1, keepdim=True), "max")
+    p = torch.exp(scores - mx)
+    dn = reduce(p.sum(dim=-1), "sum")
+    acc = reduce(torch.einsum("bhgqk,bkhd->bhgqd", p, v.float()), "sum")
+    out = (acc / torch.clamp_min(dn, 1e-30)[..., None]).permute(0, 3, 1, 2, 4)
+    return out.reshape(b, sq, hq, v.shape[-1]).to(v.dtype)
+
+
+def _sharded(q, k, v, q_pos, kv_pos, causal, window, rcfg) -> torch.Tensor:
+    """``attention`` over DTensors, on each rank's shard (module note)."""
+    from repro_torch.launch.hlo_analysis import memoized
+    from repro_torch.sharding.specs import (
+        Spec, batch_split, from_local, is_sharded_on, mesh_shape, to_local)
+
+    mesh = q.device_mesh
+    b, _, hq, _ = q.shape
+    hkv = k.shape[2]
+    bs = batch_split(mesh, b)
+    n_model = mesh_shape(mesh).get("model", 1)
+    if is_sharded_on(k, 1, "model"):  # a decode cache split over its slots
+        out = _split_softmax(
+            to_local(mesh, q, Spec(bs, None, None, None)),
+            to_local(mesh, k, Spec(bs, "model", None, None)),
+            to_local(mesh, v, Spec(bs, "model", None, None)),
+            to_local(mesh, q_pos, Spec(bs, None)), to_local(mesh, kv_pos, Spec(bs, "model")),
+            causal, window, mesh.get_group("model"))
+        return from_local(mesh, out, Spec(bs, None, None, None), q)
+    kv_heads = "model" if hkv % n_model == 0 else None
+    q_heads = "model" if hq % n_model == 0 else None
+    ql = to_local(mesh, q, Spec(bs, None, q_heads, None))
+    kl = to_local(mesh, k, Spec(bs, None, kv_heads, None))
+    vl = to_local(mesh, v, Spec(bs, None, kv_heads, None))
+    if q_heads and not kv_heads:  # the KV heads this shard's query heads read
+        hl = hq // n_model
+        first = mesh.get_local_rank("model") * hl
+        idx = (first + torch.arange(hl, device=kl.device)) // (hq // hkv)
+        kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+    args = (ql, kl, vl, to_local(mesh, q_pos, Spec(bs, None)), to_local(mesh, kv_pos, Spec(bs, None)))
+    key = ("attention", tuple((tuple(t.shape), t.dtype, t.stride()) for t in args), causal, window,
+           rcfg.use_kernels, rcfg.attn_block_q, rcfg.attn_block_k, rcfg.attn_blocked_threshold)
+    out = memoized(key, lambda *a: attention(*a, causal=causal, window=window, rcfg=rcfg), *args)
+    return from_local(mesh, out, Spec(bs, None, q_heads, None), q)

@@ -24,6 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.specs import settle
+
 Tree = Any
 WHOLE_DRAW_MAX = 1 << 31  # elements (8 GiB in float32) a leaf may have to be drawn whole
 
@@ -80,6 +82,16 @@ def init_params(
     return tree_map_specs(one, specs)
 
 
+def abstract_params(specs: Tree, dtype: torch.dtype = torch.float32) -> Tree:
+    """Meta tensors of every leaf's shape (the reference's
+    ``ShapeDtypeStruct`` tree): no allocation."""
+    return tree_map_specs(lambda s: torch.empty(s.shape, dtype=dtype, device="meta"), specs)
+
+
+def param_axes(specs: Tree) -> Tree:
+    return tree_map_specs(lambda s: s.axes, specs)
+
+
 # ---------------------------------------------------------------------------
 # Elementary ops (pure functions over tensors)
 # ---------------------------------------------------------------------------
@@ -88,7 +100,7 @@ def init_params(
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     """RMS norm computed in float32, returned in ``x.dtype``."""
     dt = x.dtype
-    x = x.float()
+    x = settle(x).float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * w.float()).to(dt)
 
@@ -97,7 +109,7 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float) ->
     """LayerNorm with bias (Whisper), computed in float32, returned in
     ``x.dtype``."""
     dt = x.dtype
-    x = x.float()
+    x = settle(x).float()
     mu = x.mean(dim=-1, keepdim=True)
     var = torch.square(x - mu).mean(dim=-1, keepdim=True)
     x = (x - mu) * torch.rsqrt(var + eps)

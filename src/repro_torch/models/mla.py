@@ -10,7 +10,10 @@ V is a view of the expanded (B, S, H, nope + Dv) tensor, read in place
 with its row stride. Decode: the reference's matrix-absorption
 form, in float32: scores against the cached latent plus the shared RoPE
 key, so a token costs O(W·r) rather than O(W·H·d). The cache holds only
-(latent, k_rope), kv_lora_rank + qk_rope_head_dim values a token.
+(latent, k_rope), kv_lora_rank + qk_rope_head_dim values a token. Under
+a mesh the absorbed scores and mix run on each rank's shard
+(``_latent_sharded``), a cache split over its slots by attention's
+flash-decode split.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.runtime import RunConfig
 from repro_torch.models.attention import NEG_INF, _mask, attention
 from repro_torch.models.layers import ParamSpec, apply_rope, rms_norm
+from repro_torch.sharding.specs import is_dtensor
 
 
 def mla_param_specs(cfg: ModelConfig, n_layers: int) -> dict:
@@ -106,16 +110,41 @@ def mla_decode(
     wk = kvb[:, :, : m.qk_nope_head_dim].float()  # (r, H, dn)
     wv = kvb[:, :, m.qk_nope_head_dim:].float()  # (r, H, dv)
     q_eff = torch.einsum("bshn,rhn->bshr", q_nope.float(), wk)  # (B,1,H,r)
-    lat = latent_cache.float()
     scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
-    scores = (
-        torch.einsum("bshr,bwr->bhsw", q_eff, lat)
-        + torch.einsum("bshd,bwd->bhsw", q_rope.float(), krope_cache.float())
-    ) * scale
-    msk = _mask(positions, kv_pos, True, None)  # (B,1,W)
-    scores = torch.where(msk[:, None, :, :], scores, NEG_INF)
-    pr = torch.softmax(scores, dim=-1)
-    out_lat = torch.einsum("bhsw,bwr->bshr", pr, lat)
+    if is_dtensor(latent_cache):
+        out_lat = _latent_sharded(q_eff, q_rope, latent_cache, krope_cache, positions, kv_pos,
+                                  scale)
+    else:
+        lat = latent_cache.float()
+        scores = (
+            torch.einsum("bshr,bwr->bhsw", q_eff, lat)
+            + torch.einsum("bshd,bwd->bhsw", q_rope.float(), krope_cache.float())
+        ) * scale
+        msk = _mask(positions, kv_pos, True, None)  # (B,1,W)
+        scores = torch.where(msk[:, None, :, :], scores, NEG_INF)
+        pr = torch.softmax(scores, dim=-1)
+        out_lat = torch.einsum("bhsw,bwr->bshr", pr, lat)
     out = torch.einsum("bshr,rhv->bshv", out_lat, wv)
     out = out.to(x.dtype).reshape(b, 1, cfg.n_heads * m.v_head_dim)
     return out @ p["wo"].to(x.dtype)
+
+
+def _latent_sharded(q_eff, q_rope, latent_cache, krope_cache, positions, kv_pos, scale):
+    """The absorbed scores and the latent mix of ``mla_decode`` under a mesh,
+    on each rank's shard: the latent and RoPE key are one key of r + dr
+    features shared by every head, the latent its value; a cache split over
+    its slots takes attention's flash-decode split. Returns (B, 1, H, r)."""
+    from repro_torch.models.attention import _split_softmax
+    from repro_torch.sharding.specs import Spec, batch_split, from_local, is_sharded_on, to_local
+
+    mesh = latent_cache.device_mesh
+    bs = batch_split(mesh, latent_cache.shape[0])
+    slots = "model" if is_sharded_on(latent_cache, 1, "model") else None
+    q = to_local(mesh, torch.cat([q_eff, q_rope.float()], dim=-1), Spec(bs, None, None, None))
+    lat = to_local(mesh, latent_cache, Spec(bs, slots, None)).float()
+    kr = to_local(mesh, krope_cache, Spec(bs, slots, None)).float()
+    k = torch.cat([lat, kr], dim=-1)[:, :, None, :]
+    out = _split_softmax(q, k, lat[:, :, None, :], to_local(mesh, positions, Spec(bs, None)),
+                         to_local(mesh, kv_pos, Spec(bs, slots)), True, None,
+                         mesh.get_group("model") if slots else None, scale)
+    return from_local(mesh, out, Spec(bs, None, None, None), latent_cache)

@@ -77,7 +77,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint as torch_checkpoint
@@ -88,26 +88,65 @@ from repro_torch.models import moe, ssm
 from repro_torch.models.attention import attention
 from repro_torch.models.layers import (
     ParamSpec,
+    abstract_params,
     apply_mrope,
     apply_rope,
     gelu_mlp,
     init_params,
     layer_norm,
+    param_axes,
     rms_norm,
     swiglu,
 )
 from repro_torch.models.mla import _latent, mla_decode, mla_full, mla_param_specs
+from repro_torch.sharding.specs import fit_dim, is_dtensor, select_layer, unbind_layers
 
 KV_DTYPE = torch.bfloat16  # the reference's cache dtype, whatever the compute dtype
 
 
 @dataclasses.dataclass(frozen=True)
 class ApplyCtx:
-    """Model + runtime configuration. The reference's ``mesh`` (SPMD
-    sharding) waits for the multi-device slice (ROADMAP queue 1 item 16)."""
+    """Model + runtime configuration, and the ``DeviceMesh`` the parameters
+    and activations are DTensors over (None: one device, plain tensors)."""
 
     cfg: ModelConfig
     rcfg: RunConfig
+    mesh: Any = None
+
+
+def constrain_batch(ctx: ApplyCtx, x: torch.Tensor) -> torch.Tensor:
+    """Pin activations to batch sharding over the data axes (the
+    reference's ``with_sharding_constraint``): a DTensor ``x`` is
+    redistributed to its batch over the data axes, the rest replicated
+    (a pending partial sum over ``"model"`` is reduced here). The identity
+    without a mesh, for a plain tensor, in decode-TP mode on one token, or
+    where the batch does not divide."""
+    if ctx.mesh is None or not is_dtensor(x):
+        return x
+    if ctx.rcfg.decode_tp_over_data and x.shape[1] == 1:
+        return x  # decode TP mode: leave single-token activations unpinned
+    from repro_torch.sharding.specs import Spec, batch_split, placements
+
+    da = batch_split(ctx.mesh, x.shape[0])
+    if da is None:
+        return x
+    return x.redistribute(ctx.mesh, placements(ctx.mesh, Spec(da, *([None] * (x.ndim - 1)))))
+
+
+def gather_weights(ctx: ApplyCtx, tree, h: torch.Tensor):
+    """A layer's weights (a tree, or one tensor) with their shards over the
+    data axes gathered, right before ``h`` goes through them (fsdp: gather
+    on use, one layer at a time, and again in a rematerialised backward),
+    so that the batch stays sharded over the data axes. The identity
+    without a mesh, and in decode-TP mode on one token (the contraction
+    then reduces activations instead)."""
+    if ctx.mesh is None or (ctx.rcfg.decode_tp_over_data and h.shape[1] == 1):
+        return tree
+    from repro_torch.sharding.specs import gather_data
+
+    if isinstance(tree, dict):
+        return {k: gather_weights(ctx, v, h) for k, v in tree.items()}
+    return gather_data(tree)
 
 
 # ---------------------------------------------------------------------------
@@ -236,7 +275,8 @@ def layer_windows(cfg: ModelConfig, n_layers: Optional[int] = None, offset: int 
 def _layer(stack: dict, i: int) -> dict:
     """Layer ``i``'s parameters: a view of every stacked tensor (prefill and
     decode)."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in stack.items()}
+    return {k: _layer(v, i) if isinstance(v, dict) else select_layer(v, i)
+            for k, v in stack.items()}
 
 
 def _unbind(stack: dict) -> list:
@@ -244,7 +284,7 @@ def _unbind(stack: dict) -> list:
     (the training path). Autograd's backward of ``v[i]`` writes layer i's
     gradient into a zero tensor the size of the whole stack, L times per
     stack; the backward of ``unbind`` is one ``stack`` of the L gradients."""
-    cols = {k: _unbind(v) if isinstance(v, dict) else v.unbind(0) for k, v in stack.items()}
+    cols = {k: _unbind(v) if isinstance(v, dict) else unbind_layers(v) for k, v in stack.items()}
     n = len(next(iter(cols.values())))
     return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
@@ -271,7 +311,7 @@ def _heads(cfg: ModelConfig, ap: dict, x: torch.Tensor, name: str, n_heads: int)
     y = x @ ap["w" + name].to(x.dtype)
     if "b" + name in ap:
         y = y + ap["b" + name].to(x.dtype)
-    return y.reshape(*x.shape[:2], n_heads, cfg.resolved_head_dim)
+    return fit_dim(y, -1, n_heads).reshape(*x.shape[:2], n_heads, cfg.resolved_head_dim)
 
 
 def _q(cfg: ModelConfig, ap: dict, x: torch.Tensor) -> torch.Tensor:
@@ -323,6 +363,47 @@ def cross_attn_full(ctx: ApplyCtx, ap: dict, x, enc_out, enc_pos):
     return out.reshape(b, s, -1) @ ap["wo"].to(x.dtype), (k, v)
 
 
+def _store(c: torch.Tensor, new: torch.Tensor, slot: Optional[torch.Tensor] = None) -> None:
+    """Write ``new`` (B, S, ...) into cache tensor ``c`` (B, W, ...) in
+    place: into slots [0, S) (prefill), or into ring slot ``slot`` (a (1,)
+    index; decode). Under a mesh the write is made on each rank's shard
+    (``_store_sharded``)."""
+    if is_dtensor(c):
+        _store_sharded(c, new, slot)
+    elif slot is None:
+        c[:, :new.shape[1]] = new
+    else:
+        c.index_copy_(1, slot, new.to(c.dtype))
+
+
+def _store_sharded(c, new, slot) -> None:
+    """``_store`` on DTensors: ``new`` is redistributed to the cache's
+    placements and copied into the local shard. Where the slot axis is
+    split over mesh axes (the decode cache), a ring write lands only on
+    the shard that holds the slot; the others rewrite what they hold."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = c.device_mesh
+    cl = c.to_local()
+    split = [i for i, p in enumerate(c.placements) if p == Shard(1)]
+    nl = new.redistribute(mesh, [Replicate() if p == Shard(1) else p for p in c.placements])
+    nl = nl.to_local().to(cl.dtype)
+    if slot is None:
+        if split:
+            raise ValueError("a prefill writes into a cache whose slot axis is whole")
+        cl[:, :nl.shape[1]] = nl
+        return
+    slot = slot.to_local() if is_dtensor(slot) else slot
+    first = 0
+    for i in split:
+        first = first * mesh.size(i) + mesh.get_local_rank(i)
+    local = slot - first * cl.shape[1]
+    inside = (local >= 0) & (local < cl.shape[1])
+    local = local.clamp(0, cl.shape[1] - 1)
+    keep = cl.index_select(1, local)
+    cl.index_copy_(1, local, torch.where(inside.reshape((1,) * cl.ndim), nl, keep))
+
+
 def _mix(lp: dict, attn_out: torch.Tensor, ssm_out: torch.Tensor, dtype) -> torch.Tensor:
     """A hybrid layer's ``sigmoid(mix_gate)``-weighted sum of its attention
     and Mamba2 outputs, in float32 (the reference's float32 gate promotes
@@ -354,6 +435,7 @@ def layer_full(
     [0, S), the SSM and conv states, or both, and the cross attention's
     K/V whole."""
     cfg = ctx.cfg
+    lp = gather_weights(ctx, lp, h)
     hn = _norm(cfg, lp, "ln1", h)
 
     def mamba2():
@@ -369,13 +451,13 @@ def layer_full(
     if cfg.mla is not None:
         attn_out, (latent, krope) = mla_full(cfg, lp["attn"], hn, positions, ctx.rcfg)
         if lcache is not None:
-            lcache["ckv"][:, :s] = latent
-            lcache["krope"][:, :s] = krope
+            _store(lcache["ckv"], latent)
+            _store(lcache["krope"], krope)
     else:
         attn_out, (k, v) = attn_full(ctx, lp["attn"], hn, positions, pos3, window)
         if lcache is not None:
-            lcache["k"][:, :s] = k
-            lcache["v"][:, :s] = v
+            _store(lcache["k"], k)
+            _store(lcache["v"], v)
     if cfg.arch_type == "hybrid":
         attn_out = _mix(lp, attn_out, mamba2(), hn.dtype)
     h = h + attn_out
@@ -396,7 +478,7 @@ def _ffn(ctx: ApplyCtx, lp: dict, hn2: torch.Tensor) -> Tuple[torch.Tensor, Opti
     None."""
     fp = lp["ffn"]
     if "router" in fp:
-        return moe.moe_ffn(ctx.cfg, ctx.rcfg, fp, hn2)
+        return moe.moe_ffn(ctx.cfg, ctx.rcfg, ctx.mesh, fp, hn2)
     if ctx.cfg.arch_type == "audio":
         return gelu_mlp(hn2, fp["wg"], fp["bg"], fp["wd"], fp["bd"]), None
     return swiglu(hn2, fp["wg"], fp["wu"], fp["wd"]), None
@@ -411,14 +493,19 @@ def run_stack(
     pos3=None,
     enc=None,
     cache: Optional[Dict[str, torch.Tensor]] = None,
+    pin: bool = False,
 ) -> torch.Tensor:
     """Apply every layer in order. With ``cache`` (stacked (L, ...) cache
     tensors), each layer writes its entries in place (``layer_full``).
     The prologue (the reference's unrolled ``run_prologue``) and the main
-    stack each run through here (``_parts``)."""
+    stack each run through here (``_parts``); ``pin`` (the main stack's)
+    pins each layer's output to the batch sharding, as the reference's
+    scanned body does."""
     for i, win in enumerate(windows):
-        lcache = None if cache is None else {name: c[i] for name, c in cache.items()}
+        lcache = None if cache is None else {name: select_layer(c, i) for name, c in cache.items()}
         h, _ = layer_full(ctx, _layer(stack_params, i), win, h, positions, pos3, enc, lcache)
+        if pin:
+            h = constrain_batch(ctx, h)
     return h
 
 
@@ -456,7 +543,7 @@ def embed(ctx: ApplyCtx, params, tokens: torch.Tensor, positions: torch.Tensor,
     ``vision_embeds.shape[1]`` rows replaced by ``vision_embeds``, and
     Whisper's sinusoidal positions added."""
     cfg = ctx.cfg
-    h = params["embed"][tokens.long()].to(ctx.rcfg.cdtype)
+    h = _lookup(params["embed"], tokens).to(ctx.rcfg.cdtype)
     if vision_embeds is not None and cfg.n_vision_tokens:
         nv = vision_embeds.shape[1]
         if nv > h.shape[1]:
@@ -464,7 +551,28 @@ def embed(ctx: ApplyCtx, params, tokens: torch.Tensor, positions: torch.Tensor,
         h = torch.cat([vision_embeds.to(h.dtype), h[:, nv:]], dim=1)
     if cfg.rope_type == "none" and cfg.arch_type != "ssm":
         h = h + sinusoidal_pos(positions, cfg.d_model).to(h.dtype)
-    return h
+    return constrain_batch(ctx, h)
+
+
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``; under a mesh, vocab-parallel: the table's embed
+    axis is gathered (fsdp), each ``"model"`` shard looks up the tokens in
+    its slice of the vocabulary, and the rows are a partial sum over
+    ``"model"`` (no gather of the whole table)."""
+    if not is_dtensor(table):
+        return table[tokens.long()]
+    from repro_torch.sharding.specs import Spec, batch_split, from_local, is_sharded_on, to_local
+
+    mesh = table.device_mesh
+    bs = batch_split(mesh, tokens.shape[0])
+    vs = "model" if is_sharded_on(table, 0, "model") else None
+    tl = to_local(mesh, table, Spec(vs, None))
+    idx = to_local(mesh, tokens, Spec(bs, None)).long()
+    if vs:
+        idx = idx - mesh.get_local_rank("model") * tl.shape[0]
+    inside = (idx >= 0) & (idx < tl.shape[0])
+    rows = tl[idx.clamp(0, tl.shape[0] - 1)] * inside[..., None].to(tl.dtype)
+    return from_local(mesh, rows, Spec(bs, None, None), table, partial=("model",) if vs else ())
 
 
 def unembed(ctx: ApplyCtx, params, h: torch.Tensor) -> torch.Tensor:
@@ -475,12 +583,13 @@ def unembed(ctx: ApplyCtx, params, h: torch.Tensor) -> torch.Tensor:
     else:
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return h @ w.to(h.dtype)
+    return h @ gather_weights(ctx, w, h).to(h.dtype)
 
 
 def _encoder_layer(ctx: ApplyCtx, lp: dict, h: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """One encoder layer: bidirectional self-attention, then the GELU MLP."""
     cfg = ctx.cfg
+    lp = gather_weights(ctx, lp, h)
     out, _ = attn_full(ctx, lp["attn"], _norm(cfg, lp, "ln1", h), pos, None, None, causal=False)
     h = h + out
     return h + _ffn(ctx, lp, _norm(cfg, lp, "ln2", h))[0]
@@ -502,10 +611,10 @@ def encode(ctx: ApplyCtx, params, enc_feats: torch.Tensor, train: bool = False):
     if train:
         body = _maybe_remat(ctx.rcfg, _encoder_layer)
         for lp in _unbind(ep["layers"]):
-            h = body(ctx, lp, h, pos)
+            h = constrain_batch(ctx, body(ctx, lp, h, pos))
     else:
         for i in range(cfg.n_encoder_layers):
-            h = _encoder_layer(ctx, _layer(ep["layers"], i), h, pos)
+            h = constrain_batch(ctx, _encoder_layer(ctx, _layer(ep["layers"], i), h, pos))
     return layer_norm(h, ep["final_norm"], ep["final_norm_b"], cfg.norm_eps), pos
 
 
@@ -571,6 +680,8 @@ def forward_train(ctx: ApplyCtx, params, batch) -> Tuple[torch.Tensor, torch.Ten
         part = torch.zeros((), dtype=torch.float32, device=dev)
         for lp, win in zip(_unbind(params[key]), windows):
             h, a = body(ctx, lp, win, h, positions, pos3, enc)
+            if key == "layers":
+                h = constrain_batch(ctx, h)
             if a is not None:
                 part = part + a
         aux = aux + part
@@ -595,33 +706,42 @@ def _parts(cfg: ModelConfig) -> list:
 
 
 def _empty_cache(cfg: ModelConfig, n: int, b: int, w: int, dev,
-                 enc_len: int) -> Dict[str, torch.Tensor]:
+                 enc_len: int, mesh=None) -> Dict[str, torch.Tensor]:
     """The stacked bf16 cache tensors of ``n`` layers and a batch of ``b``
     rows: K/V (or MLA's latent and RoPE key) with ``w`` slots,
     zero-filled, and/or the SSM and conv states of a Mamba2 or hybrid
     model (every layer's prefill overwrites them, so they start
     uninitialised), and an encoder-decoder's cross-attention K/V over
     ``enc_len`` encoder positions (zero-filled; prefill overwrites them
-    whole)."""
+    whole). Under ``mesh`` each is the DTensor of
+    ``sharding.specs.prefill_cache_spec``, made shard by shard."""
+    def new(name, shape, zero=True):
+        if mesh is not None:
+            from repro_torch.sharding.specs import prefill_cache_spec, sharded_new
+
+            return sharded_new(mesh, shape, KV_DTYPE, prefill_cache_spec(mesh, name, shape, b),
+                               dev, zero)
+        return (torch.zeros if zero else torch.empty)(shape, dtype=KV_DTYPE, device=dev)
+
     cache = {}
     if cfg.mla is not None:
         m = cfg.mla
-        cache["ckv"] = torch.zeros((n, b, w, m.kv_lora_rank), dtype=KV_DTYPE, device=dev)
-        cache["krope"] = torch.zeros((n, b, w, m.qk_rope_head_dim), dtype=KV_DTYPE, device=dev)
+        cache["ckv"] = new("ckv", (n, b, w, m.kv_lora_rank))
+        cache["krope"] = new("krope", (n, b, w, m.qk_rope_head_dim))
     elif cfg.arch_type != "ssm":
         shape = (n, b, w, cfg.n_kv_heads, cfg.resolved_head_dim)
-        cache["k"] = torch.zeros(shape, dtype=KV_DTYPE, device=dev)
-        cache["v"] = torch.zeros(shape, dtype=KV_DTYPE, device=dev)
+        cache["k"] = new("k", shape)
+        cache["v"] = new("v", shape)
     if cfg.arch_type in ("ssm", "hybrid"):
         s = cfg.ssm
         nh = s.n_ssm_heads(cfg.d_model)
         conv_dim = s.inner(cfg.d_model) + 2 * s.d_state
-        cache["ssm"] = torch.empty((n, b, nh, s.headdim, s.d_state), dtype=KV_DTYPE, device=dev)
-        cache["conv"] = torch.empty((n, b, s.d_conv - 1, conv_dim), dtype=KV_DTYPE, device=dev)
+        cache["ssm"] = new("ssm", (n, b, nh, s.headdim, s.d_state), zero=False)
+        cache["conv"] = new("conv", (n, b, s.d_conv - 1, conv_dim), zero=False)
     if cfg.is_encoder_decoder:
         shape = (n, b, enc_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-        cache["cross_k"] = torch.zeros(shape, dtype=KV_DTYPE, device=dev)
-        cache["cross_v"] = torch.zeros(shape, dtype=KV_DTYPE, device=dev)
+        cache["cross_k"] = new("cross_k", shape)
+        cache["cross_v"] = new("cross_v", shape)
     return cache
 
 
@@ -659,14 +779,15 @@ def prefill(ctx: ApplyCtx, params, batch, capacity: Optional[int] = None,
     enc = encode(ctx, params, batch["enc_feats"]) if cfg.is_encoder_decoder else None
     h = embed(ctx, params, tokens, positions, batch.get("vision_embeds"))
     if out is None:
-        out = empty_cache(cfg, b, max(s, capacity or 0), dev, enc_len)
+        out = empty_cache(cfg, b, max(s, capacity or 0), dev, enc_len, ctx.mesh)
     else:  # a cache preallocated by the caller, prefilled in place
         for _, part, _ in _parts(cfg):
             for name in RING_KEYS:
                 if name in out[part]:
                     out[part][name].zero_()
     for key, part, windows in _parts(cfg):
-        h = run_stack(ctx, params[key], windows, h, positions, pos3, enc, out[part])
+        h = run_stack(ctx, params[key], windows, h, positions, pos3, enc, out[part],
+                      pin=key == "layers")
     logits = unembed(ctx, params, h[:, -1:])
     out["length"].fill_(s)
     return out, logits
@@ -678,20 +799,32 @@ def prefill(ctx: ApplyCtx, params, batch, capacity: Optional[int] = None,
 
 
 def empty_cache(cfg: ModelConfig, b: int, w: int, device=None,
-                enc_len: Optional[int] = None) -> dict:
+                enc_len: Optional[int] = None, mesh=None) -> dict:
     """A cache of ``b`` rows and ``w`` K/V slots, for ``prefill(...,
     out=)``: the stacked tensors of the main stack (``"main"``) and of the
     prologue (``"pro"``, where the model has one), and a zero ``length``.
     An encoder-decoder model's layers also hold the cross-attention K/V
     of ``enc_len`` encoder positions (``cfg.encoder_seq_len`` by
-    default), unpadded, as the reference's ``abstract_cache``."""
+    default), unpadded, as the reference's ``abstract_cache``. Under
+    ``mesh`` (a prefill under a mesh) the tensors are DTensors."""
     n_pro = _n_prologue(cfg)
     enc_len = enc_len or cfg.encoder_seq_len
-    cache = {"main": _empty_cache(cfg, cfg.n_layers - n_pro, b, w, device, enc_len)}
+    cache = {"main": _empty_cache(cfg, cfg.n_layers - n_pro, b, w, device, enc_len, mesh)}
     if n_pro:
-        cache["pro"] = _empty_cache(cfg, n_pro, b, w, device, enc_len)
-    cache["length"] = torch.zeros((), dtype=torch.int32, device=device)
+        cache["pro"] = _empty_cache(cfg, n_pro, b, w, device, enc_len, mesh)
+    if mesh is not None:
+        from repro_torch.sharding.specs import Spec, sharded_new
+
+        cache["length"] = sharded_new(mesh, (), torch.int32, Spec(), device, True)
+    else:
+        cache["length"] = torch.zeros((), dtype=torch.int32, device=device)
     return cache
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, w: int, enc_len: Optional[int] = None) -> dict:
+    """The cache tree of ``empty_cache`` as meta tensors (the reference's
+    ``ShapeDtypeStruct`` cache): capacity ``w`` per attention layer."""
+    return empty_cache(cfg, batch, w, "meta", enc_len)
 
 
 def _ring_kv_pos(length: torch.Tensor, w: int, device=None) -> torch.Tensor:
@@ -724,6 +857,7 @@ def layer_decode(
     reads the cross-attention K/V its prefill cached. Returns the new
     hidden state."""
     cfg = ctx.cfg
+    lp = gather_weights(ctx, lp, h)
     b = h.shape[0]
     hn = _norm(cfg, lp, "ln1", h)
 
@@ -741,16 +875,16 @@ def layer_decode(
     if cfg.mla is not None:
         latent, krope = _latent(cfg, lp["attn"], hn, pos)
         ckv, krc = lcache["ckv"], lcache["krope"]
-        ckv.index_copy_(1, slot, latent.to(ckv.dtype))
-        krc.index_copy_(1, slot, krope.to(krc.dtype))
+        _store(ckv, latent, slot)
+        _store(krc, krope, slot)
         attn_out = mla_decode(cfg, lp["attn"], hn, pos, ckv.to(hn.dtype), krc.to(hn.dtype),
                               kv_pos)
     else:
         q, k, v = _qkv(cfg, lp["attn"], hn, hn)
         q, k = _rope_qk(cfg, q, k, pos, pos3)
         kc, vc = lcache["k"], lcache["v"]
-        kc.index_copy_(1, slot, k.to(kc.dtype))
-        vc.index_copy_(1, slot, v.to(vc.dtype))
+        _store(kc, k, slot)
+        _store(vc, v, slot)
         attn_out = attention(
             q, kc.to(hn.dtype), vc.to(hn.dtype), pos, kv_pos,
             causal=True, window=window, rcfg=ctx.rcfg,
@@ -795,8 +929,10 @@ def decode_step(ctx: ApplyCtx, params, cache, tokens: torch.Tensor):
     ring = None if slots is None else _ring(t, slots.shape[2], b)  # one width for every layer
     for key, part, windows in _parts(cfg):  # the prologue's layers, then the main stack's
         for i, win in enumerate(windows):
-            lc = {name: c[i] for name, c in cache[part].items()}
+            lc = {name: select_layer(c, i) for name, c in cache[part].items()}
             h = layer_decode(ctx, _layer(params[key], i), win, lc, h, pos, ring, pos3)
+            if key == "layers":
+                h = constrain_batch(ctx, h)
     new_cache = dict(cache)
     new_cache["length"] = t + 1
     return new_cache, unembed(ctx, params, h)
@@ -812,3 +948,11 @@ def init_model_params(
 ) -> dict:
     """Random parameters in ``rcfg.pdtype`` drawn from ``generator``."""
     return init_params(param_specs(cfg), generator, rcfg.pdtype, device)
+
+
+def abstract_model_params(cfg: ModelConfig, rcfg: RunConfig) -> dict:
+    return abstract_params(param_specs(cfg), rcfg.pdtype)
+
+
+def model_param_axes(cfg: ModelConfig) -> dict:
+    return param_axes(param_specs(cfg))

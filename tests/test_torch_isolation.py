@@ -7,7 +7,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tools" / "moe_ep_check.py", ROOT / "tools" / "dryrun_card_check.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -49,6 +50,17 @@ def test_serving_remainder_is_scanned():
     for module in ("serving/controller.py", "device/measure.py", "serving/engine.py",
                    "serving/runtime.py"):
         assert f"src/repro_torch/{module}" in names
+
+
+def test_multi_device_launch_is_scanned():
+    """The multi-device slice's modules, and the tools ``chip_smoke.py``
+    runs them through on the card."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for module in ("sharding/specs.py", "launch/mesh.py", "launch/specs.py", "launch/dryrun.py",
+                   "launch/hlo_analysis.py", "launch/report.py", "launch/tune.py",
+                   "configs/shapes.py"):
+        assert f"src/repro_torch/{module}" in names
+    assert {"tools/moe_ep_check.py", "tools/dryrun_card_check.py"} <= names
 
 
 def test_scan_catches_a_reference_import(tmp_path):

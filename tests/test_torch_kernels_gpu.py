@@ -935,3 +935,54 @@ def test_bf16_eval_through_the_kernels_matches_the_plain_eval(cuda, arch):
     assert (counts["flash_attention"], counts["ssd_scan"]) == (want_flash, want_ssd)
     assert torch.isfinite(got["xent"])
     assert abs(got["xent"].item() - plain["xent"].item()) <= 2e-2
+
+
+# ---------------------------------------------------------------------------
+# Multi-device launch on the card (tools/dryrun_card_check.py,
+# tools/moe_ep_check.py), each in processes of their own
+# ---------------------------------------------------------------------------
+
+PEAK_REL, PEAK_ABS = 0.10, 256 << 20  # the dry run's peak against the card's allocator
+
+
+def _tool(*args) -> list:
+    """Run a tool from the repository root; its JSON lines."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, *args], capture_output=True, text=True, timeout=600,
+                       cwd=root)
+    assert r.returncode == 0, r.stderr[-3000:]
+    return [json.loads(line) for line in r.stdout.splitlines() if line.startswith("{")]
+
+
+@pytest.mark.gpu
+def test_dryrun_counts_a_card_prefill(cuda):
+    """Reduced Qwen2.5-3B's prefill (4 x 512) on a 1×1 mesh: the dry run's
+    argument bytes and matmul FLOPs equal the card run's exactly, and its
+    peak is within max(10 %, 256 MB) of ``max_memory_allocated``."""
+    dry = _tool("tools/dryrun_card_check.py", "--mode", "dry", "--reduced")[-1]
+    real = _tool("tools/dryrun_card_check.py", "--mode", "real", "--reduced")[-1]
+    assert real["finite"]
+    assert dry["argument_bytes"] == real["argument_bytes"]
+    assert dry["flops"] == real["flops"]
+    assert dry["collective_bytes"] == 0
+    assert abs(dry["peak_bytes"] - real["peak_bytes"]) <= max(PEAK_REL * real["peak_bytes"], PEAK_ABS)
+
+
+@pytest.mark.gpu
+def test_expert_parallel_on_the_card(cuda):
+    """Reduced Moonlight-16B-A3B's MoE layer over 2 gloo ranks on the
+    card's tensors (a 1×2 mesh: two expert owners; 2×1: the tokens split
+    over data and gathered back), float32: EP and EP2D equal the dense
+    path within 2e-4 at capacity factor 8."""
+    rows = _tool("tools/moe_ep_check.py", "--reduced", "--ranks", "2", "--meshes", "1x2", "2x1",
+                 "--tokens", "4x64", "4x1", "--dtype", "float32", "--reps", "1")
+    assert len(rows) == 16
+    for r in rows:
+        if r["capacity_factor"] == 8.0:
+            assert r["max_abs_err"] < 2e-4, r
+            assert r["dropped_share"] == 0.0, r

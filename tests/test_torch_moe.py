@@ -151,20 +151,20 @@ def test_shared_experts_match_jax(arch):
 
 
 def test_moe_impl_choices():
-    """``auto`` and ``dense`` run the compute-all path; the expert-parallel
-    paths exist only across devices and name their ROADMAP item."""
+    """``auto`` and ``dense`` run the compute-all path without a mesh; the
+    expert-parallel paths need one and say so."""
     cfg = REGISTRY["moonshot-v1-16b-a3b"].reduced()
     _, tp = _moe_layer("moonshot-v1-16b-a3b")
     _, x = _x((1, 6, cfg.d_model), "float32")
     ref = moe.moe_ffn_dense(cfg, tp, x)[0]
     assert RunConfig().moe_impl == "auto"
     for impl in ("auto", "dense"):
-        assert torch.equal(moe.moe_ffn(cfg, RunConfig(moe_impl=impl), tp, x)[0], ref)
+        assert torch.equal(moe.moe_ffn(cfg, RunConfig(moe_impl=impl), None, tp, x)[0], ref)
     for impl in moe.EXPERT_PARALLEL:
-        with pytest.raises(NotImplementedError, match="item 16"):
-            moe.moe_ffn(cfg, RunConfig(moe_impl=impl), tp, x)
+        with pytest.raises(ValueError, match="needs a mesh"):
+            moe.moe_ffn(cfg, RunConfig(moe_impl=impl), None, tp, x)
     with pytest.raises(ValueError, match="unknown moe_impl"):
-        moe.moe_ffn(cfg, RunConfig(moe_impl="grouped"), tp, x)
+        moe.moe_ffn(cfg, RunConfig(moe_impl="grouped"), None, tp, x)
 
 
 def _ctxs(arch, kernels, compute_dtype="float32"):
