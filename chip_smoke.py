@@ -83,8 +83,9 @@ Phases, each of which exits non-zero on failure:
    n=16384, C=8 (float64 in row blocks), two runs bitwise equal (times at
    the grid shape B=162, W=10, C=7, with the windows kernel's own
    duration from the profiler, at the joint grids' B=12 and the fleet's
-   (1024, 12, 7), at n=1600, C=7 and at n=16384, C=8; no library call
-   computes the Gram).
+   (1024, 12, 7), at n=1600, C=7 and at n=16384, C=8, the plain version
+   beside each, and whether the plain Gram at n=1600 is bitwise the
+   CPU's; no library call computes the Gram).
 3. Slice check, per model: (a) the reduced model in float32 on the card,
    through the kernel, against the same model on the CPU (plain path,
    which the CPU tests hold to the JAX package); (b) the model at full
@@ -546,6 +547,29 @@ def device_ms(fn, reps: int = 10, rounds: int = 5) -> float:
             fail(f"timing: the host took {enqueue_ms:.1f} ms to enqueue {reps} calls "
                  f"({host_ms:.1f} ms with no spin ahead), longer than a spin of "
                  f"{spin_ms / 2.0:.1f} ms covers, {SPIN_TRIES} times")
+        times.append(a.elapsed_time(b) / reps)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def events_ms(fn, reps: int = 3, rounds: int = 3) -> float:
+    """Device time of one call of ``fn`` from two CUDA events around ``reps``
+    calls with no spin ahead, median over ``rounds``: for a function of more
+    launches than a stream queues (the plain single-block Gram, hundreds of
+    elementwise launches a call), whose enqueue no spin of ``device_ms``
+    covers. Launch gaps, where the host falls behind, are in the time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
         times.append(a.elapsed_time(b) / reps)
     times.sort()
     return times[len(times) // 2]
@@ -1286,12 +1310,15 @@ def phase_dcov_check(torch):
     x = torch.from_numpy((rng.normal(size=(n_rows, c)) * np.asarray(DCOV_SCALES[:c])
                           ).astype(np.float32)).cuda()
     o_ms = device_ms(lambda: dcov_gram(x))
-    o_plain = device_ms(lambda: dcov_gram_ref(x), reps=3)
+    o_plain = events_ms(lambda: dcov_gram_ref(x))
+    on_cpu = dcov_gram_ref(x.cpu())
     o_ops = n_rows * (n_rows + 1) // 2 * dcov_pair_ops(c)
     o_bound, o_by = dcov_bound(4 * (n_rows * c + c * c), o_ops)
     say(f"  dcov gram at ORACLE scale (n, C)={DCOV_ORACLE}: kernel {o_ms:.4f} ms, plain "
         f"{o_plain:.4f} ms, library: none, bound {o_bound:.5f} ms ({o_by}; "
         f"{o_ops / 1e9:.3f} GFLOP)")
+    say(f"  dcov plain single-block Gram at {DCOV_ORACLE}: the card's bitwise the CPU's: "
+        f"{torch.equal(dcov_gram_ref(x).cpu(), on_cpu)}")
     if not torch.equal(dcov_gram(x), dcov_gram(x)):
         fail(f"dcov single-block kernel at {DCOV_ORACLE}: two runs give different bits")
     n_rows, c = DCOV_LARGE
@@ -1302,10 +1329,12 @@ def phase_dcov_check(torch):
     norm_err, dcor_err, zero_worst, zeros = dcov_against_f64(torch, gram, ref64)
     same = torch.equal(gram, again)
     l_ms = device_ms(lambda: dcov_gram(x))
+    l_plain = events_ms(lambda: dcov_gram_ref(x))
     l_ops = n_rows * (n_rows + 1) // 2 * dcov_pair_ops(c)
     l_bound, l_by = dcov_bound(4 * (n_rows * c + c * c), l_ops)
     ok = f64_ok(norm_err, dcor_err) and same and bool(torch.isfinite(gram).all())
-    say(f"  dcov gram at (n, C)={DCOV_LARGE}: kernel {l_ms:.4f} ms, bound {l_bound:.5f} ms "
+    say(f"  dcov gram at (n, C)={DCOV_LARGE}: kernel {l_ms:.4f} ms, plain {l_plain:.4f} ms, "
+        f"bound {l_bound:.5f} ms "
         f"({l_by}; {l_ops / 1e9:.3f} GFLOP), library: none; against float64: normalised Gram {norm_err:.3g} (tol {DCOV_NORM_ATOL}), dCor "
         f"{dcor_err:.3g} (tol {DCOV_DCOR64_ATOL}); two runs bitwise equal: {same} "
         f"{'ok' if ok else 'FAIL'}")

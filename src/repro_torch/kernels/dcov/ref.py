@@ -13,14 +13,16 @@ windows kernel sums in the same order and gives the same bits.
 
 ``dcov_gram_ref`` is the plain version of the ORACLE-scale form: the
 (n, n, C) stack of centred distance matrices materialized (in blocks of
-rows where it is large), then contracted, as the reference's oracle
-does, in float32 or float64.
+rows), as the reference's oracle does, in float32 or float64, and every
+sum taken pairwise in an order fixed here, so that its float32 Gram holds
+to float64 on any host.
 """
 from __future__ import annotations
 
 import torch
 
 STACK_BYTES = 1 << 30  # the most of dcov_gram_ref's (n, n, C) stack formed at once
+BLOCK_ROWS = 256  # and the most rows i of it (a block that stays in the CPU's cache)
 
 
 def dcor_from_sums(
@@ -65,29 +67,53 @@ def dcov_gram_windows_ref(cols: torch.Tensor, n_valid: torch.Tensor) -> torch.Te
     return gram
 
 
+def _pairwise_sum(t: torch.Tensor) -> torch.Tensor:
+    """Sum over dim 0 in an order this code fixes: the second half added
+    to the first, elementwise, until one slice is left (an odd length's
+    last slice folded into the first). The float32 error grows with
+    log2 of the length, and the bits are the same on every host and on
+    the card: each elementwise add rounds each element alone."""
+    while t.shape[0] > 1:
+        h = t.shape[0] // 2
+        s = t[:h] + t[h:2 * h]
+        if t.shape[0] % 2:
+            s[:1].add_(t[2 * h:])
+        t = s
+    return t[0]
+
+
 def dcov_gram_ref(cols: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(C, C) Gram of ⟨A_c, A_c'⟩ sums of one (n, C) block, with the
     (n, n, C) centred distance stack materialized, computed in ``dtype``
     (the kernel's float32 by default; ``torch.float64`` is the yardstick
     the kernel is held to where the exact Gram has a zero off the
-    diagonal). The stack is formed in blocks of rows of at most
-    ``STACK_BYTES`` each (one block for a CORAL landscape; n = 16384,
-    C = 8 would be 17 GB whole in float64), the row sums and the Gram
-    summed block by block."""
+    diagonal).
+
+    Every sum is pairwise over j for each row i, then pairwise over i
+    (``_pairwise_sum``): the row sums, the grand mean and the Gram alike.
+    No BLAS contraction takes part: its order over the n² stack rows is the
+    host library's, and a serial one puts a 1440-row landscape's
+    normalised float32 Gram ~1e-2 off float64. The stack is formed in
+    blocks of at most ``BLOCK_ROWS`` rows i and ``STACK_BYTES`` (n = 16384,
+    C = 8 would be 17 GB whole in float64), each column's products with
+    all C columns no larger; the blocks set no part of the order, so the
+    bits do not depend on them."""
     x = cols.to(dtype)
     n, c = x.shape
-    block = max(1, STACK_BYTES // max(1, n * c * x.element_size()))
+    block = max(1, min(BLOCK_ROWS, STACK_BYTES // max(1, n * c * x.element_size())))
     starts = range(0, n, block)
     inv_n = 1.0 / n
-    row = torch.cat([(x[i:i + block, None, :] - x[None, :, :]).abs().sum(dim=1)
-                     for i in starts]) * inv_n  # (n, C); the column means are its transpose
-    grand = row.sum(dim=0) * inv_n
-    gram = torch.zeros((c, c), dtype=dtype, device=x.device)
+
+    def dist(i):  # (n, rows, C): |x_j - x_i| for the block's rows i, j first
+        return (x[:, None, :] - x[None, i:i + block, :]).abs()
+
+    row = torch.cat([_pairwise_sum(dist(i)) for i in starts]) * inv_n  # (n, C); the column means are its transpose
+    grand = _pairwise_sum(row) * inv_n
+    parts = []
     for i in starts:
-        dist = (x[i:i + block, None, :] - x[None, :, :]).abs()
-        flat = (dist - row[i:i + block, None, :] - row[None, :, :] + grand).reshape(-1, c)
-        gram = gram + flat.T @ flat
-    return gram
+        a = dist(i) - row[None, i:i + block, :] - row[:, None, :] + grand
+        parts.append(torch.stack([_pairwise_sum(a[..., k:k + 1] * a) for k in range(c)], dim=1))
+    return _pairwise_sum(torch.cat(parts))  # (rows, C, C) partials, then over i
 
 
 def dcov_sums_ref(x: torch.Tensor, y: torch.Tensor):

@@ -205,16 +205,17 @@ def test_windows_wrapper_rejects_bad_inputs(bad):
 ZERO_PAIRS = [(6, "mem_freq"), (9, "gpu_freq")]  # (cell, knob independent of tau)
 
 
-def landscape_subgrid(cell_index):
+def landscape_subgrid(cell_index, full=False):
     """A noise-free (n, 7) landscape of knobs, tau and p on a product
-    sub-grid (every other level of each knob with more than 3 levels), and
-    the knob names."""
+    sub-grid (every other level of each knob with more than 3 levels), or
+    with ``full`` on every row of the cell's grid, and the knob names."""
     from repro_torch.experiments import scenarios
 
     cell = scenarios.enumerate_cells(workloads=scenarios.FULL_MATRIX_WORKLOADS)[cell_index]
     sim0 = scenarios.cell_simulator(cell, noise=0.0)
     levels = [d.values[::2] if len(d.values) > 3 else d.values for d in sim0.space.dims]
-    grid = np.asarray(list(itertools.product(*levels)), np.float64)
+    grid = (sim0.space.grid().astype(np.float64) if full
+            else np.asarray(list(itertools.product(*levels)), np.float64))
     land = np.stack(sim0.exact_all(grid), axis=1)
     return np.concatenate([grid, land], axis=1).astype(np.float32), sim0.space.names
 
@@ -249,6 +250,29 @@ def test_float32_grams_hold_to_float64_at_an_exact_zero_pair(cell, knob):
         np.testing.assert_allclose(got[big], want[big], atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("cell,knob", ZERO_PAIRS)
+def test_plain_gram_and_dcor_hold_to_float64_over_a_full_landscape(cell, knob):
+    """Every row of the cell's grid (1440). The plain Gram sums pairwise in
+    an order of its own: one BLAS GEMM over the n^2 stack rows, summed in
+    the host library's order, put cell 9's normalised Gram 8.2e-3 and its
+    dCor 4.2e-3 off float64 on a CPU whose BLAS summed serially
+    (tools/dcov_plain_order.py). The port's CPU dCor is held to float64
+    and to the JAX package's kernel."""
+    cols, names = landscape_subgrid(cell, full=True)
+    assert cols.shape == (1440, 7)
+    x = torch.from_numpy(cols)
+    g64 = dcov_gram_ref(x, dtype=torch.float64).numpy()
+    want = dcor_of(g64)
+    assert want[names.index(knob), 0] < 1e-6  # tau does not depend on this knob
+    np.testing.assert_allclose(normalised(dcov_gram_ref(x).numpy()), normalised(g64),
+                               atol=1e-6, rtol=0)
+    got = dcor_all_blocked(x[:, :5], x[:, 5:]).numpy()
+    big = want >= 1e-2
+    np.testing.assert_allclose(got[big], want[big], atol=1e-4, rtol=0)
+    pallas = np.asarray(dcor_all_pallas(jnp.asarray(cols[:, :5]), jnp.asarray(cols[:, 5:])))
+    np.testing.assert_allclose(got, pallas, atol=1e-4, rtol=0)
+
+
 def test_reference_kernel_is_nonzero_at_an_exact_zero_pair():
     """The JAX package's Pallas kernel gives gpu_freq against tau a dCor of
     6.8e-5 on cell 9's sub-grid where the float64 dCor is 0: the square
@@ -276,6 +300,20 @@ def test_plain_gram_takes_float64(monkeypatch, stack_bytes):
     assert got.dtype == torch.float64
     np.testing.assert_allclose(got.numpy(), want, atol=1e-12 * np.abs(want).max(), rtol=0)
     assert dcov_gram_ref(torch.from_numpy(x)).dtype == torch.float32
+
+
+@pytest.mark.parametrize("rows", [1, 7, 64])
+def test_plain_gram_bits_do_not_depend_on_its_blocks(monkeypatch, rows):
+    """dcov_gram_ref sums pairwise over j for each row i, then over i,
+    whatever block of rows i it forms at once: blocks of 1, 7 or 64 rows
+    give the bits of the whole 150-row stack, in float32 and float64."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy((rng.normal(size=(150, 7)) * SCALES).astype(np.float32))
+    whole = [dcov_gram_ref(x, dtype=d) for d in (torch.float32, torch.float64)]
+    monkeypatch.setattr(dcov_ref, "BLOCK_ROWS", rows)
+    for want in whole:
+        got = dcov_gram_ref(x, dtype=want.dtype)
+        assert torch.equal(got, want) and torch.equal(got, got.T)
 
 
 def test_ablation_variants_change_what_they_name():
