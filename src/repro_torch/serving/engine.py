@@ -20,10 +20,11 @@ all are busy. Each entry has a static (B, 1) int32 token buffer, and on
 the card its graph (captured when the entry is made, behind a warm-up
 on a side stream, before any prefill writes into it) and the graph's
 static logits. Captures are counted (``capture_counts``), as kernel
-launches are. An engine with graphs decodes only pool-entry caches:
-``graphs=False`` is the one way to the eager step on the card (a timing
-comparison); on the CPU the eager step is the only path. A failed
-capture raises; nothing falls back.
+launches are, and so are the engine's replays (``replays``). An engine
+with graphs decodes only pool-entry caches: ``graphs=False`` is the one
+way to the eager step on the card (a timing comparison); on the CPU the
+eager step is the only path. A failed capture raises; nothing falls
+back.
 
 Every call only enqueues work on the card; the runtime keeps ``c``
 decode groups in flight on one device queue (the current stream).
@@ -70,6 +71,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.transformer import ApplyCtx, decode_step, empty_cache, prefill
+from repro_torch.serving.tracing import trace_range
 
 # parameters the reference reads in float32 at use: the norm weights
 # (rms_norm widens them; MLA's kv_norm too; layer_norm its weights and
@@ -101,15 +103,16 @@ class HostLogits:
     __slots__ = ("_buf", "_event")
 
     def __init__(self, logits: torch.Tensor):
-        last = logits[:, -1].float()
-        if last.is_cuda:
-            self._buf = torch.empty(last.shape, dtype=torch.float32, pin_memory=True)
-            self._buf.copy_(last, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(last.device))
-        else:
-            self._buf = last
-            self._event = None
+        with trace_range("serving.logits.copy"):
+            last = logits[:, -1].float()
+            if last.is_cuda:
+                self._buf = torch.empty(last.shape, dtype=torch.float32, pin_memory=True)
+                self._buf.copy_(last, non_blocking=True)
+                self._event = torch.cuda.Event()
+                self._event.record(torch.cuda.current_stream(last.device))
+            else:
+                self._buf = last
+                self._event = None
 
     def wait(self) -> np.ndarray:
         """(B, vocab) float32 logits of the last position."""
@@ -188,6 +191,7 @@ class ServingEngine:
         self._prefill = make_prefill_step(ctx, capacity=max_len)
         self._serve = make_serve_step(ctx)
         self.pool: List[_Entry] = []
+        self.replays = 0  # graph replays, one per graphed decode
 
     def tokens(self, a) -> torch.Tensor:
         """Host int tokens -> an int32 tensor on the engine's device. On
@@ -314,8 +318,11 @@ class ServingEngine:
             raise ValueError("an engine with CUDA graphs decodes only pool-entry caches: "
                              "prefill with entry=acquire(), or build it with graphs=False")
         e = self.pool[k]
-        e.tokens.copy_(self.tokens(tokens), non_blocking=True)
-        e.graph.replay()
+        with trace_range("serving.decode.upload"):
+            e.tokens.copy_(self.tokens(tokens), non_blocking=True)
+        with trace_range("serving.decode.replay"):
+            e.graph.replay()
+        self.replays += 1
         return e.cache, e.logits
 
     @staticmethod

@@ -11,6 +11,15 @@ its group; on the card the engine replays that entry's CUDA graph for
 each decode, the port's counterpart of the reference's jitted step.
 Whenever slots are set, each engine ``reserve``s one entry per slot of
 the rings it serves, so that its captures precede the served traffic.
+(3) The loop records itself (``serving/tracing.py``): each request's
+``admitted``, ``started``, ``first_token`` and ``finished`` stamps, and
+in ``Request.group`` the ``GroupTrace`` of the group that served it,
+with its prefill's dispatch and one tuple per retire. The records live
+as long as the requests: an operator reads the finished groups as
+``{id(r.group): r.group for r in runtime.done}``, the queue wait of a
+request as ``r.admitted - runtime._effective_arrival(r)``, a retire's
+host time outside its wait as ``t_left - t_ready``. While a profiler
+runs, ``serving.*`` ranges name the same steps on the device trace.
 
 The paper (§II-A) tunes concurrency as a first-class resource knob, which
 only means anything if ``c`` in-flight decode groups genuinely pipeline.
@@ -72,6 +81,8 @@ from typing import Deque, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.serving.tracing import GroupTrace, trace_range
+
 # The single-tenant compatibility ring every runtime starts with.
 DEFAULT_TENANT = "default"
 
@@ -92,15 +103,20 @@ class Request:
     route: Optional[str] = None
     # owning tenant ring, stamped at submit
     tenant: Optional[str] = None
+    admitted: float = 0.0  # taken into a group (queue wait: admitted - arrival)
+    first_token: float = 0.0  # the first served token's stamp
+    # the record of the group that served it (serving/tracing.py)
+    group: Optional[GroupTrace] = dataclasses.field(default=None, repr=False, compare=False)
 
 
 class _Slot:
     """One in-flight decode group: KV cache + outstanding logits future."""
 
-    __slots__ = ("group", "entry", "cache", "logits", "live", "remaining")
+    __slots__ = ("group", "trace", "entry", "cache", "logits", "live", "remaining")
 
     def __init__(self):
         self.group: Optional[List[Request]] = None
+        self.trace: Optional[GroupTrace] = None
         self.entry: Optional[int] = None  # the engine's pool entry of this group
         self.cache = None
         self.logits = None  # HostLogits: the outstanding logits' copy to the host
@@ -137,7 +153,6 @@ class _TenantRing:
         self.slots: List[_Slot] = []
         self._events: Deque[Tuple[float, int]] = collections.deque()
         self._tokens_total = 0
-        self.steps = 0
         self.prefills = 0
 
     # -------------------------------------------------------------- pool
@@ -160,27 +175,34 @@ class _TenantRing:
                     break
         if not picked:
             return None
+        admitted = self.rt._t0 + now
+        for r in picked:
+            r.admitted = admitted
         ids = {id(r) for r in picked}
         self.waiting = [r for r in self.waiting if id(r) not in ids]
         return picked
 
     # ---------------------------------------------------------- pipeline
     def _start_group(self, slot: _Slot, group: List[Request]) -> None:
-        prompts = np.stack([r.prompt for r in group])
-        if len(group) < self.batch:
-            prompts = np.pad(prompts, ((0, self.batch - len(group)), (0, 0)))
         t = time.monotonic()
+        with trace_range("serving.prefill"):
+            prompts = np.stack([r.prompt for r in group])
+            if len(group) < self.batch:
+                prompts = np.pad(prompts, ((0, self.batch - len(group)), (0, 0)))
+            # async dispatch: the prefill (and its first logits) queue
+            # behind whatever the other slots — every tenant's — already
+            # have in flight. The last position's copy to the host starts
+            # here, not at retire: retire must only ever wait for this
+            # slot's own copy — a read there would queue behind every other
+            # slot's in-flight decode and serialize the whole ring.
+            slot.entry = self.engine.acquire()
+            slot.cache, logits = self.engine.prefill(prompts, entry=slot.entry)
+            slot.logits = self.engine.fetch_last(logits)
+        slot.trace = GroupTrace(self.prefills, slot.entry, len(group), self.batch,
+                                prompts.shape[1], t, time.monotonic())
         for r in group:
             r.started = t
-        # async dispatch: the prefill (and its first logits) queue behind
-        # whatever the other slots — every tenant's — already have in
-        # flight. The last position's copy to the host starts here, not at
-        # retire: retire must only ever wait for this slot's own copy — a
-        # read there would queue behind every other slot's in-flight
-        # decode and serialize the whole ring.
-        slot.entry = self.engine.acquire()
-        slot.cache, logits = self.engine.prefill(prompts, entry=slot.entry)
-        slot.logits = self.engine.fetch_last(logits)
+            r.group = slot.trace
         slot.group = group
         slot.live = [True] * len(group)
         slot.remaining = [max(1, int(r.max_new_tokens)) for r in group]
@@ -188,38 +210,53 @@ class _TenantRing:
 
     def _retire(self, slot: _Slot) -> None:
         """Host stage: block on this slot's logits, sample greedily on the
-        host, account tokens/completions, then dispatch the next decode."""
-        # (B, vocab) float32 logits: waits on *this slot's* copy event
-        # only, so the other slots' decodes keep running underneath the
-        # host work
-        lg = slot.logits.wait()
-        tok = lg.argmax(axis=-1).astype(np.int32)  # host-side sampling
-        t = time.monotonic()
-        n_live = 0
-        for j, r in enumerate(slot.group):
-            if not slot.live[j]:
-                continue
-            r.tokens.append(int(tok[j]))
-            slot.remaining[j] -= 1
-            n_live += 1
-            if slot.remaining[j] == 0:
-                slot.live[j] = False
-                r.finished = t
-                r.output = np.asarray(r.tokens, np.int32)
-                self.done.append(r)
-        self._record(t, n_live)
-        self.steps += 1
-        if any(slot.live):
-            # the slot's logits were waited on above, so this decode (on
-            # the card, a replay of the entry's graph) may overwrite the
-            # entry's static logits buffer: the only reader it had was
-            # that copy
-            slot.cache, logits = self.engine.decode(slot.cache, tok[:, None])
-            slot.logits = self.engine.fetch_last(logits)
-        else:
-            self.engine.release(slot.entry)
-            slot.group = slot.entry = None
-            slot.cache = slot.logits = None
+        host, account tokens/completions, then dispatch the next decode.
+        Appends one tuple to the group's ``GroupTrace.retires``."""
+        trace = slot.trace
+        t_enter = time.monotonic()
+        with trace_range("serving.retire"):
+            # (B, vocab) float32 logits: waits on *this slot's* copy event
+            # only, so the other slots' decodes keep running underneath
+            # the host work
+            with trace_range("serving.retire.wait"):
+                lg = slot.logits.wait()
+            t_ready = time.monotonic()
+            with trace_range("serving.retire.sample"):
+                tok = lg.argmax(axis=-1).astype(np.int32)  # host-side sampling
+            t = time.monotonic()
+            with trace_range("serving.retire.account"):
+                if not trace.retires:  # every row's first token
+                    for r in slot.group:
+                        r.first_token = t
+                n_live = n_done = 0
+                for j, r in enumerate(slot.group):
+                    if not slot.live[j]:
+                        continue
+                    r.tokens.append(int(tok[j]))
+                    slot.remaining[j] -= 1
+                    n_live += 1
+                    if slot.remaining[j] == 0:
+                        slot.live[j] = False
+                        n_done += 1
+                        r.finished = t
+                        r.output = np.asarray(r.tokens, np.int32)
+                        self.done.append(r)
+                self._record(t, n_live)
+            t_accounted = time.monotonic()
+            with trace_range("serving.retire.dispatch"):
+                if n_live > n_done:
+                    # the slot's logits were waited on above, so this
+                    # decode (on the card, a replay of the entry's graph)
+                    # may overwrite the entry's static logits buffer: the
+                    # only reader it had was that copy
+                    slot.cache, logits = self.engine.decode(slot.cache, tok[:, None])
+                    slot.logits = self.engine.fetch_last(logits)
+                else:
+                    self.engine.release(slot.entry)
+                    slot.group = slot.trace = slot.entry = None
+                    slot.cache = slot.logits = None
+            t_left = time.monotonic()
+        trace.retires.append((t_enter, t_ready, t, t_accounted, t_left, n_live, n_live - n_done))
 
     def step_pass(self) -> bool:
         """One ring pass over this tenant's slots: refill idle slots from
@@ -395,10 +432,6 @@ class ServingRuntime:
     @property
     def slots(self) -> List[_Slot]:
         return self._default.slots
-
-    @property
-    def steps(self) -> int:
-        return sum(r.steps for r in self.tenants.values())
 
     @property
     def prefills(self) -> int:
@@ -695,7 +728,8 @@ class ServingRuntime:
             if not self.step():
                 if not idle_wait and not self._busy() and not self._pod_inflight:
                     break
-                time.sleep(5e-4)
+                with trace_range("serving.idle"):
+                    time.sleep(5e-4)
         span = time.monotonic() - t0
         new = [
             r
