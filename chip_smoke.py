@@ -39,8 +39,9 @@ Phases, each of which exits non-zero on failure:
    ptxas report (registers, shared memory, spills, warnings) of the flash
    kernel's wgmma body, of the SSD scan's three wgmma-body kernels (each
    at N = 128 and N = 16) and of
-   the dcov single-block form's two kernels at C = 7 and 8 (a library
-   built by an earlier run into build/ has no report to print).
+   the dcov single-block form's two kernels at C = 7 and 8, and of the
+   Mamba2 decode state step's (``ssm_decode``, each (hd, N) and dtype; a
+   library built by an earlier run into build/ has no report to print).
 2. Kernel check: each kernel against its plain version on the card over
    the CPU tests' sweep and its main path's shape, then the kernel's, the
    plain version's and (where one exists) a library call's device times
@@ -85,7 +86,14 @@ Phases, each of which exits non-zero on failure:
    duration from the profiler, at the joint grids' B=12 and the fleet's
    (1024, 12, 7), at n=1600, C=7 and at n=16384, C=8, the plain version
    beside each, and whether the plain Gram at n=1600 is bitwise the
-   CPU's; no library call computes the Gram).
+   CPU's; no library call computes the Gram); ``ssm_decode`` against
+   ``ssm_decode_ref`` in float32 and bf16 compute at the Mamba2 cell's
+   decode shape (B=32, nh=80, hd=64, N=128), Hymba-1.5B's (B=32, nh=50,
+   N=16) and the CPU tests' widths, on the model's strided views and a
+   layer of a stacked cache, three chained steps each (the state bit for
+   bit, y as the ``gpu`` test holds it), timed at the cell's and Hymba's
+   shapes with each call stepping the next of 16 layers (no library call
+   computes the step).
 3. Slice check, per model: (a) the reduced model in float32 on the card,
    through the kernel, against the same model on the CPU (plain path,
    which the CPU tests hold to the JAX package); (b) the model at full
@@ -171,7 +179,9 @@ Phases, each of which exits non-zero on failure:
    the bodies their shapes take (Qwen2.5-3B: 36 flash; Mamba2-2.7B: 64 SSD;
    Hymba-1.5B: 32 flash and 32 SSD; Moonlight-16B-A3B: 48 flash;
    Qwen2-VL-72B at 8 layers, text-only: 8 flash; all ``wgmma``), and
-   each decode must have gone
+   ``ssm_decode`` once per Mamba2 layer in every warm-up step and capture
+   of the decode graphs (Mamba2-2.7B 64, Hymba-1.5B 32; a replay launches
+   from the graph, uncounted), and each decode must have gone
    through the engine's CUDA graphs, one capture per pool entry (c entries
    at concurrency c), not one per step, counted by the build-count guard
    (``count_builds``'s ``capture:<model>``). Whisper-medium, which the runtime
@@ -184,7 +194,8 @@ Phases, each of which exits non-zero on failure:
    step over the same weights: logits bitwise equal; for Whisper and
    Qwen2-VL with their stub inputs, and ``generate`` with them on both
    engines giving the same greedy tokens; the prefills' launches counted
-   and checked by body.
+   and checked by body, and the eager steps', warm-up steps' and
+   capture's ``ssm_decode`` launches counted.
    For Qwen2.5-3B then the τ-vs-concurrency probe over c in 1 ... 5
    (``tpu_pod_space``'s values), graphed and eager engines in turns,
    after one prefill at its prompt length (64) with every flash launch
@@ -268,7 +279,8 @@ Phases, each of which exits non-zero on failure:
    the dropped share and the wall time per call printed; (d) ``tune`` from
    (a)'s Qwen2.5-3B decode_32k artifact: CORAL's pick and ORACLE's.
 9. A ``{"kernels": [...]}`` line (launches: the main paths', the graph
-   checks' prefills, the control loop's and the training eval's), then
+   checks' prefills and decode steps, the control loop's and the training
+   eval's), then
    ``{"ok": true, "device": ...}`` as the last line.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -384,6 +396,15 @@ SSD_SWEEP = [
 SSD_SERVE = (4, 512, 80, 64, 128, 256, False)  # Mamba2-2.7B prefill, B=4 x 512
 SSD_LONG = (1, 4096, 80, 64, 128, 256, False)  # a 4096-token Mamba2-2.7B prefill
 SSD_HYMBA = (4, 512, 50, 64, 16, 256, False)  # Hymba-1.5B prefill, B=4 x 512
+# ssm_decode, (B, nh, hd, N): the mamba2-2.7b.chat-backlog cell's decode
+# step and Hymba-1.5B's at the same batch, then the CPU tests' widths; the
+# chained steps held per case, and the layers of the stacked cache a timed
+# call steps in turn (16 of 42 MB at the cell's shape, against 50 MB of L2)
+SSM_DECODE_SERVE = (32, 80, 64, 128)
+SSM_DECODE_HYMBA = (32, 50, 64, 16)
+SSM_DECODE_SWEEP = [(3, 80, 64, 128), (3, 50, 64, 16), (2, 16, 16, 16), (1, 4, 16, 16)]
+SSM_DECODE_STEPS = 3
+SSM_DECODE_LAYERS = 16
 # the SSD wgmma body's kernels (ssd_scan.cu), in launch order
 SSD_PHASES = ("ssd_chunk_states", "ssd_state_passing", "ssd_chunk_outputs")
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s
@@ -613,7 +634,8 @@ def phase_environment(torch):
     for kernel, label, needles in (("flash_attention", "flash wgmma body", ("flash_fwd_wgmma",)),
                                    ("ssd_scan", "ssd wgmma body", SSD_PHASES),
                                    ("dcov", "dcov single-block form, C = 7 and 8",
-                                    tuple(f"{k}ILi{c}E" for c in (7, 8) for k in DCOV_PASSES))):
+                                    tuple(f"{k}ILi{c}E" for c in (7, 8) for k in DCOV_PASSES)),
+                                   ("ssm_decode", "ssm decode state step", ("ssm_decode_kernel",))):
         if kernel not in log:  # built by an earlier run into build/
             say(f"  {label}: library built by an earlier run, no ptxas report")
             continue
@@ -1084,6 +1106,141 @@ def ssd_hymba_times(torch):
               "Hymba-1.5B serving shape, the model's views")
 
 
+def ssm_decode_inputs(torch, dtype, b, nh, hd, n, layers, seed):
+    """The decode state step's inputs as the model hands them in: x, B and
+    C views of one convolution output (B, 1, nh·hd + 2N), raw dt a view of
+    a wider projection row, in ``dtype``; dt_bias, A_log and D float32 in
+    Mamba2's ranges. Returns (a bf16 stacked cache (layers, B, nh, hd, N),
+    the seven arguments after the state)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    di = nh * hd
+    xbc = torch.randn(b, 1, di + 2 * n, generator=g, device="cuda").to(dtype)
+    proj = torch.randn(b, 1, nh + 24, generator=g, device="cuda").to(dtype)
+    cache = torch.randn(layers, b, nh, hd, n, generator=g, device="cuda").to(torch.bfloat16)
+    heads = torch.rand(3, nh, generator=g, device="cuda")
+    return cache, (xbc[..., :di].reshape(b, nh, hd), proj[:, 0, 24:], -4 + 3 * heads[0],
+                   torch.log(1 + 15 * heads[1]), xbc[:, 0, di:di + n], xbc[:, 0, di + n:],
+                   1 + heads[2])
+
+
+def bf16_ulp(torch, v):
+    """One bf16 ulp at the magnitude of each element of ``v``."""
+    v = v.float().abs().clamp_min(2.0 ** -100)
+    return torch.exp2(torch.floor(torch.log2(v)) - 7)
+
+
+def ssm_decode_held(torch, state, args, label):
+    """One ``ssm_decode`` launch on ``state`` (in place) against
+    ``ssm_decode_ref`` on a copy: the new bf16 state bit for bit (the
+    kernel computes the plain version's float32 operations in its order,
+    with no fused multiply-add, and rounds as ``copy_`` does); y in float32
+    within 1e-5 max|y| (the sum over N in another order), in bf16 within
+    one bf16 ulp of y_p = sum_n C s' plus one of y at each element (the two
+    float32 sums may round to neighbouring bf16 values before the skip is
+    added, and that sum is rounded once more), as the ``gpu`` test holds
+    it. Returns y's max_abs_err."""
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.ssm_decode import ssm_decode, ssm_decode_ref, ssm_step_ref
+
+    want_state = state.clone()
+    before = runtime.launch_counts()["ssm_decode"]
+    y = ssm_decode(state, *args)
+    _, s_new = ssm_step_ref(want_state.float(), *args)
+    y_ref = ssm_decode_ref(want_state, *args)
+    torch.cuda.synchronize()
+    if runtime.launch_counts()["ssm_decode"] != before + 1:
+        fail(f"ssm_decode {label}: the kernel did not launch once")
+    if y.shape != y_ref.shape or y.dtype != y_ref.dtype:
+        fail(f"ssm_decode {label}: y {tuple(y.shape)} {y.dtype}, want {tuple(y_ref.shape)} "
+             f"{y_ref.dtype}")
+    same = torch.equal(state, want_state)
+    err = (y.float() - y_ref.float()).abs()
+    if y.dtype == torch.float32:
+        tol = 1e-5 * y_ref.abs().max().item()
+        ok = err.max().item() <= tol
+        note = f"(tol {tol:.3g})"
+    else:
+        y_p = torch.einsum("bn,bhpn->bhp", args[5].float(), s_new).to(torch.bfloat16)
+        tol = bf16_ulp(torch, y_p) + bf16_ulp(torch, torch.maximum(y.float().abs(),
+                                                                  y_ref.float().abs()))
+        ok = bool((err <= tol).all())
+        ulps = bf16_ulps(torch, y, y_ref)
+        note = (f"= {ulps.max().item()} ulps of y at most, {(ulps > 0).float().mean().item():.3%} "
+                "of y apart (tol one ulp of y_p plus one of y)")
+    say(f"  ssm_decode {label}: state bitwise {same}, y max_abs_err {err.max().item():.3g} {note} "
+        f"{'ok' if same and ok else 'FAIL'}")
+    if not (same and ok):
+        fail(f"ssm_decode disagrees with ssm_decode_ref at {label}")
+    return err.max().item()
+
+
+def ssm_decode_work(b, nh, hd, n, x_bytes):
+    """Bytes a launch must move (the bf16 state read and written; x, dt, B
+    and C read and y written in the compute dtype; dt_bias, A_log and D in
+    float32) and its operations, 5 an element of the state (s·dA, (B·dt)·x,
+    their sum, C·s' accumulated)."""
+    nbytes = 2 * 2 * b * nh * hd * n + x_bytes * (2 * b * nh * hd + 2 * b * n + b * nh) + 12 * nh
+    return nbytes, 5 * b * nh * hd * n
+
+
+def ssm_decode_times(torch, shape, label):
+    """The kernel's and the plain version's device times at ``shape``,
+    bf16, each call stepping the next of SSM_DECODE_LAYERS layers of one
+    stacked cache, as a decode step steps its layers, so that no layer's
+    state is still in L2 when it is read again; the bound beside them."""
+    import itertools
+
+    from repro_torch.kernels.ssm_decode import ssm_decode, ssm_decode_ref
+
+    b, nh, hd, n = shape
+    cache, args = ssm_decode_inputs(torch, torch.bfloat16, b, nh, hd, n, SSM_DECODE_LAYERS,
+                                    seed=99)
+
+    def stepping(fn):
+        layer = itertools.count()
+        return lambda: fn(cache[next(layer) % SSM_DECODE_LAYERS], *args)
+
+    ms = device_ms(stepping(ssm_decode), reps=SSM_DECODE_LAYERS)
+    plain_ms = device_ms(stepping(ssm_decode_ref), reps=SSM_DECODE_LAYERS)
+    nbytes, flops = ssm_decode_work(b, nh, hd, n, 2)
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    say(f"  ssm_decode {label} {shape} (bf16): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+        f"library: none, bound {bound_ms:.5f} ms ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP "
+        f"at 67 TFLOP/s f32), kernel / bound {ms / bound_ms:.2f}, plain / kernel "
+        f"{plain_ms / ms:.1f}; {card_line()}")
+    del cache
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_ssm_decode_check(torch):
+    """``ssm_decode`` against its plain version on the card, in float32 and
+    bf16 compute, at the Mamba2 cell's shape, Hymba-1.5B's and the CPU
+    tests' widths: SSM_DECODE_STEPS chained steps on one layer of a stacked
+    cache, new inputs each step, each held by ``ssm_decode_held``; then the
+    kernel's and the plain version's times at the cell's and Hymba's
+    shapes. Returns the cell's row of the ``kernels`` line."""
+    serve_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for i, shape in enumerate([SSM_DECODE_SERVE, SSM_DECODE_HYMBA] + SSM_DECODE_SWEEP):
+            cache, args = ssm_decode_inputs(torch, dtype, *shape, layers=2, seed=i)
+            for step in range(SSM_DECODE_STEPS):
+                if step:
+                    args = ssm_decode_inputs(torch, dtype, *shape, layers=1,
+                                             seed=100 * (i + 1) + step)[1]
+                err = ssm_decode_held(torch, cache[1], args,
+                                      f"{dname} (B, nh, hd, N)={shape}, step {step + 1}")
+                if shape == SSM_DECODE_SERVE and dtype == torch.bfloat16:
+                    serve_err = max(serve_err, err)
+            del cache, args
+    row = ssm_decode_times(torch, SSM_DECODE_SERVE, "the Mamba2 cell's shape")
+    ssm_decode_times(torch, SSM_DECODE_HYMBA, "Hymba-1.5B's shape")
+    torch.cuda.empty_cache()
+    return {"max_abs_err": serve_err, **row}
+
+
 def dcov_windows_inputs(torch, b, w, c, seed):
     """B (W, C) windows at CORAL's column scales, n_valid drawn per episode
     from {1, 2, 3, W-1, W}, rows past n_valid zero, and in every third
@@ -1372,6 +1529,17 @@ def launches_per_prefill(arch):
     if cfg.is_encoder_decoder:
         flash = 2 * cfg.n_layers + cfg.n_encoder_layers
     return flash, cfg.n_layers if cfg.arch_type in ("ssm", "hybrid") else 0
+
+
+def ssm_decode_want(arch, captures, eager_steps=0):
+    """``ssm_decode`` launches that ``captures`` CUDA graph captures of
+    ``arch``'s decode step (each WARMUP_STEPS eager steps and the capture;
+    a replay launches from the graph, uncounted) and ``eager_steps`` eager
+    decode steps make: one a step per Mamba2 layer, as many as the SSD
+    scan's launches per prefill."""
+    from repro_torch.serving.engine import WARMUP_STEPS
+
+    return (captures * (WARMUP_STEPS + 1) + eager_steps) * launches_per_prefill(arch)[1]
 
 
 def prompt_len(arch):
@@ -1959,6 +2127,10 @@ def serve_runs(torch, arch):
                  f"{m['pool_entries']} pool entries; want one capture per entry, {c} entries")
     if captures != sum(SERVE_ORDER):
         fail(f"{arch}: {captures} graph captures counted, want {sum(SERVE_ORDER)}")
+    want = ssm_decode_want(arch, captures)
+    if counts["ssm_decode"] != want:
+        fail(f"{arch}: {counts['ssm_decode']} ssm_decode launches in the serve() runs, want {want}: "
+             "one a Mamba2 layer in every warm-up step and capture of the decode graphs")
     prefills = len(metrics) * SERVE["requests"] // SERVE["batch"]
     say(f"  {arch} launches on its main path: {counts} over {prefills} prefills, "
         f"peak memory {peak_gb:.2f} GB")
@@ -1970,7 +2142,7 @@ def phase_serve(torch):
     from repro_torch.launch.serve import build_engine
     from repro_torch.serving import measure_concurrency_curve
 
-    totals = dict.fromkeys(("flash_attention", "ssd_scan"), 0)
+    totals = dict.fromkeys(("flash_attention", "ssd_scan", "ssm_decode"), 0)
     for arch in (ARCH, SSM_ARCH, HYBRID_ARCH, MOE_ARCH, VLM_ARCH):
         counts, prefills = serve_runs(torch, arch)
         check_bodies(arch, prefills, f"the {arch} serve() runs")
@@ -2128,6 +2300,12 @@ def graph_bitwise_check(torch, arch):
         fail(f"{arch}: the eager decode steps' logits are not finite")
     same = torch.equal(a, b)
     captures = captures_of(built)
+    want = ssm_decode_want(arch, captures, GRAPH_STEPS)
+    if want:
+        say(f"  {arch} ssm_decode launches in the graph check: {counts['ssm_decode']} (want {want}: "
+            f"the eager engine's {GRAPH_STEPS} steps, the graphed engine's warm-up and capture)")
+    if counts["ssm_decode"] != want:
+        fail(f"{arch}: {counts['ssm_decode']} ssm_decode launches in the graph check, want {want}")
     say(f"  {arch} decode, {GRAPH_STEPS} greedy steps after a 4x{s} prefill: graphed vs eager "
         f"logits bitwise equal: {same} (max |diff| {(a - b).abs().max().item():.3g}), "
         f"{captures} capture over {len(graphed.pool)} pool entry")
@@ -3516,7 +3694,7 @@ def main() -> None:
         return
     say("== phase 2: kernel check")
     kern = {"flash_attention": phase_flash_check(torch), "ssd_scan": phase_ssd_check(torch),
-            "dcov": phase_dcov_check(torch)}
+            "dcov": phase_dcov_check(torch), "ssm_decode": phase_ssm_decode_check(torch)}
     say("== phase 3: slice check")
     phase_slice_check(torch, ARCH, 96)
     phase_slice_check(torch, SSM_ARCH, 93)
@@ -3559,6 +3737,8 @@ def main() -> None:
                      "src/repro/kernels/ssd_scan/ssd_scan.py:28"),
         "dcov": ("src/repro_torch/kernels/dcov/csrc/dcov.cu",
                  "src/repro/kernels/dcov/dcov.py:67"),
+        # the JAX package's decode state step is plain jnp: it replaces no kernel
+        "ssm_decode": ("src/repro_torch/kernels/ssm_decode/csrc/ssm_decode.cu", None),
     }
     unlaunched = [name for name in sources if counts[name] == 0]
     if unlaunched:

@@ -53,6 +53,7 @@ SOURCES: Dict[str, Path] = {
     "flash_attention": _KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu",
     "ssd_scan": _KERNELS_DIR / "ssd_scan" / "csrc" / "ssd_scan.cu",
     "dcov": _KERNELS_DIR / "dcov" / "csrc" / "dcov.cu",
+    "ssm_decode": _KERNELS_DIR / "ssm_decode" / "csrc" / "ssm_decode.cu",
 }
 
 NVCC_FLAGS = (

@@ -5,7 +5,11 @@ Prefill uses the chunked dual form: intra-chunk attention-like (C Bᵀ ⊙ L)
 products and an inter-chunk state recurrence, either through the
 hand-written Hopper kernel (``rcfg.use_kernels``, the reference's
 ``use_pallas``) or its plain version ``kernels/ssd_scan/ref.py::ssd_ref``.
-Decode is the pure recurrent step, with no kernel, as in the reference.
+Decode is the recurrent step. The reference's is plain ``jnp``; here, with
+``rcfg.use_kernels``, its state step is the hand-written kernel
+``kernels/ssm_decode`` (one pass over the bf16 cache, in place), and
+without, the same plain lines (``kernels/ssm_decode/ref.py``) on the state
+widened to float32.
 
 Dtypes follow the reference: x, B and C leave the convolution in the
 compute dtype, dt and A are float32, the state and every product of the
@@ -23,7 +27,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.runtime import RunConfig
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_ref
+from repro_torch.kernels.ssm_decode import ssm_decode, ssm_decode_ref
 from repro_torch.models.layers import ParamSpec, rms_norm
+from repro_torch.sharding.specs import is_dtensor
 
 
 def ssm_param_specs(cfg: ModelConfig, n_layers: int) -> dict:
@@ -128,14 +134,10 @@ def mamba2_forward(
     return out, state
 
 
-def mamba2_decode(
-    cfg: ModelConfig,
-    p: dict,
-    x: torch.Tensor,  # (B,1,d)
-    ssm_state: torch.Tensor,  # (B,nh,hd,N)
-    conv_state: torch.Tensor,  # (B,d_conv-1,conv_dim)
-):
-    """Single recurrent step. Returns (out (B,1,d), new_ssm, new_conv)."""
+def _decode_in(cfg: ModelConfig, p: dict, x: torch.Tensor, conv_state: torch.Tensor):
+    """A decode step's in-projection and convolution: (z, the heads' x
+    (B,nh,hd) as a strided view of the convolution's output, raw dt (B,nh),
+    B and C (B,N), the new conv state)."""
     s = cfg.ssm
     proj = x @ p["in_proj"].to(x.dtype)
     z, _, _, _, dt, di, nh = _split_proj(cfg, proj)
@@ -145,16 +147,62 @@ def mamba2_decode(
     conv_out = torch.einsum("bkc,kc->bc", window, w) + p["conv_b"].to(x.dtype)
     xbc = F.silu(conv_out)[:, None, :]
     xi, Bm, Cm = xbc.split([di, s.d_state, s.d_state], dim=-1)
-    dt = F.softplus(dt.float() + p["dt_bias"][None, None, :])
-    A = -torch.exp(p["A_log"].float())
     xh = xi.reshape(x.shape[0], nh, s.headdim)  # (B,nh,hd)
-    dt1 = dt[:, 0]  # (B,nh)
-    dA = torch.exp(dt1 * A[None, :])  # (B,nh)
-    dBx = torch.einsum("bn,bh,bhp->bhpn", Bm[:, 0].float(), dt1, xh.float())
-    new_state = ssm_state * dA[:, :, None, None] + dBx
-    y = torch.einsum("bn,bhpn->bhp", Cm[:, 0].float(), new_state)
-    y = y.to(x.dtype) + xh * p["D"].to(x.dtype)[None, :, None]
-    y = y.reshape(x.shape[0], 1, di)
+    return z, xh, dt[:, 0], Bm[:, 0], Cm[:, 0], new_conv
+
+
+def _decode_out(cfg: ModelConfig, p: dict, x: torch.Tensor, y: torch.Tensor, z: torch.Tensor):
+    """A decode step's gate, norm and out-projection of y (B,nh,hd)."""
+    y = y.reshape(x.shape[0], 1, cfg.ssm.inner(cfg.d_model))
     y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
-    out = y @ p["out_proj"].to(x.dtype)
-    return out, new_state.to(ssm_state.dtype), new_conv
+    return y @ p["out_proj"].to(x.dtype)
+
+
+def _step_args(p: dict, xh, dt, Bm, Cm) -> tuple:
+    return (xh, dt, p["dt_bias"], p["A_log"], Bm, Cm, p["D"])
+
+
+def mamba2_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
+                  rcfg: RunConfig) -> torch.Tensor:
+    """Single recurrent step against a layer's cache (``ssm``, ``conv``),
+    whose states are overwritten in place; returns out (B,1,d). With
+    ``rcfg.use_kernels`` the state step is ``ssm_decode`` (the kernel on the
+    card, its plain version on the CPU), else its plain version: the state
+    widened to float32, stepped, and stored back in the cache's dtype
+    (rounded to bf16 in the model's cache; a float32 cache keeps the
+    float32 step, as the reference's ``mamba2_decode`` returns it)."""
+    z, xh, dt, Bm, Cm, new_conv = _decode_in(cfg, p, x, cache["conv"].to(x.dtype))
+    args = _step_args(p, xh, dt, Bm, Cm)
+    if not rcfg.use_kernels:
+        y = ssm_decode_ref(cache["ssm"], *args)
+    elif is_dtensor(cache["ssm"]):
+        y = _sharded_step(cache["ssm"], *args)
+    else:
+        y = ssm_decode(cache["ssm"], *args)
+    cache["conv"].copy_(new_conv)
+    return _decode_out(cfg, p, x, y, z)
+
+
+def _sharded_step(state, xh, dt, dt_bias, A_log, Bm, Cm, D):
+    """``ssm_decode`` over DTensors, on each rank's shard: rows and heads
+    are independent, so each rank steps the rows and heads of its shard of
+    the cache, in place, with x, dt and B, C, dt_bias, A_log, D brought to
+    the same split. The cache's placements decide the split (the batch over
+    the data axes, the heads over ``"model"``: ``sharding.specs``)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = state.device_mesh
+    split = state.placements
+    if any(pl not in (Replicate(), Shard(0), Shard(1)) for pl in split):
+        raise ValueError(f"the SSM cache splits only its rows and heads, got {split}")
+    heads = [Shard(0) if pl == Shard(1) else Replicate() for pl in split]
+    rows = [pl if pl == Shard(0) else Replicate() for pl in split]
+
+    def local(t, placements):
+        if not is_dtensor(t):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        return t.redistribute(mesh, placements).to_local()
+
+    y = ssm_decode(state.to_local(), local(xh, split), local(dt, split), local(dt_bias, heads),
+                   local(A_log, heads), local(Bm, rows), local(Cm, rows), local(D, heads))
+    return DTensor.from_local(y, mesh, split, run_check=False)

@@ -44,11 +44,12 @@ one cache width W, window or global. A Mamba2 model keeps no K/V but the
 SSM state ``ssm`` (L, B, nh, hd, N) and the conv state ``conv``
 (L, B, d_conv - 1, conv_dim); prefill stores the float32 final state
 rounded to bf16, and decode widens it to float32, steps, and stores it
-rounded again, at the reference's places. A hybrid (Hymba) layer keeps
-both: K/V for its attention heads and ``ssm`` / ``conv`` for its Mamba2
-heads, which read the same normed input side by side; their outputs are
-mixed by ``sigmoid(mix_gate)`` in float32 and cast back to the compute
-dtype, as in the reference. An MLA layer keeps no K/V but the normed
+rounded again, at the reference's places (with ``use_kernels`` one
+kernel launch a layer does all three, in place: ``kernels/ssm_decode``).
+A hybrid (Hymba) layer keeps both: K/V for its attention heads and
+``ssm`` / ``conv`` for its Mamba2 heads, which read the same normed input
+side by side; their outputs are mixed by ``sigmoid(mix_gate)`` in
+float32 and cast back to the compute dtype, as in the reference. An MLA layer keeps no K/V but the normed
 latent ``ckv`` (L, B, W, kv_lora_rank) and the rotated RoPE key ``krope``
 (L, B, W, qk_rope_head_dim), on the same ring of W slots. The prologue's
 layers have a cache of their own, ``"pro"``, beside ``"main"``. Where the
@@ -862,12 +863,7 @@ def layer_decode(
     hn = _norm(cfg, lp, "ln1", h)
 
     def mamba2():
-        out, st, cv = ssm.mamba2_decode(
-            cfg, lp["ssm"], hn, lcache["ssm"].float(), lcache["conv"].to(hn.dtype)
-        )
-        lcache["ssm"].copy_(st)  # rounded to the bf16 cache
-        lcache["conv"].copy_(cv)
-        return out
+        return ssm.mamba2_decode(cfg, lp["ssm"], hn, lcache, ctx.rcfg)
 
     if cfg.arch_type == "ssm":
         return h + mamba2()

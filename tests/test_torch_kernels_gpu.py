@@ -35,6 +35,15 @@ block equal to ``BENCH_fleet.json``'s (``json.dumps`` with sorted keys).
 With the contract and NaN lanes on (``REPRO_CONTRACTS=1
 REPRO_CHECKIFY=1``) a static call over the grid and the 64-twin fleet
 give the lane-off record exactly, with the same dcov launches.
+Mamba2's decode state step (``ssm_decode``): the new bf16 state bit for
+bit against the plain version on the card (the kernel computes the plain
+version's float32 operations in its order, with no fused multiply-add, and
+rounds once, to nearest even, as ``copy_`` does), after one step and after
+each of ten chained steps; y in float32 within 1e-5 × max|y| (the sum over N
+in another order only), y in bf16 within one bf16 ulp of y_p = Σ_n C·s' plus
+one of y at each element (the two float32 sums may round to neighbouring
+bf16 values before the skip is added to them, and that sum is rounded once
+more).
 The serving engine's CUDA graph of the decode step (reduced Qwen2.5-3B,
 Mamba2-2.7B, a 4-layer Hymba-1.5B, DeepSeek-V2-236B,
 Moonlight-16B-A3B, Whisper-medium with its encoder's features and
@@ -69,6 +78,7 @@ from repro_torch.kernels.dcov import (
 )
 from repro_torch.kernels.flash_attention.flash_attention import first_blind_row
 from repro_torch.kernels.ssd_scan import ssd_ref, ssd_scan
+from repro_torch.kernels.ssm_decode import ssm_decode, ssm_decode_ref, ssm_step_ref
 from repro_torch.kernels.ssd_scan.ssd_scan import body_for as ssd_body_for
 from repro_torch.kernels.ssd_scan.ssd_scan import body_launches as ssd_body_launches
 
@@ -831,6 +841,125 @@ def test_capture_survives_a_collected_engine(cuda):
     assert len(new.pool) == 2 and capture_counts() == {ctx.cfg.name: 2}
 
 
+# ------------------------------------------------------------- ssm decode
+
+# (B, nh, hd, N): the Mamba2 cell's (B 32), Hymba-1.5B's at B 32 and 3, the
+# reduced models' at B 2
+SSM_DECODE_SHAPES = [(32, 80, 64, 128), (3, 80, 64, 128), (32, 50, 64, 16), (3, 50, 64, 16),
+                     (2, 16, 16, 16)]
+
+
+def _ssm_decode_inputs(b, nh, hd, n, dtype, seed=0):
+    """The state step's inputs as the model passes them: x, B and C views of
+    one convolution output (B, 1, nh hd + 2N), raw dt a view of a wider
+    projection row, the bf16 state a layer of a stacked cache; dt_bias,
+    A_log in Mamba2's ranges (as ``tests/test_torch_ssm.py`` draws them)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    di = nh * hd
+    xbc = torch.randn(b, 1, di + 2 * n, generator=g, device="cuda").to(dtype)
+    proj = torch.randn(b, 1, nh + 24, generator=g, device="cuda").to(dtype)
+    cache = torch.randn(2, b, nh, hd, n, generator=g, device="cuda").to(torch.bfloat16)
+    heads = torch.rand(3, nh, generator=g, device="cuda")
+    x = xbc[..., :di].reshape(b, nh, hd)
+    return (cache[1], x, proj[:, 0, 24:], -4 + 3 * heads[0], torch.log(1 + 15 * heads[1]),
+            xbc[:, 0, di:di + n], xbc[:, 0, di + n:], 1 + heads[2])
+
+
+def _bf16_ulp(v):
+    """One bf16 ulp at the magnitude of each element of ``v``."""
+    v = v.float().abs().clamp_min(2.0 ** -100)
+    return 2.0 ** (torch.floor(torch.log2(v)) - 7)
+
+
+def _ssm_decode_close(y, y_ref, state, state_ref, y_sum):
+    """The state bit for bit; y in float32 within 1e-5 max|y| (the sum's
+    order only); y in bf16 within one bf16 ulp of the sum y_p = Σ_n C s'
+    (the two float32 sums may round to neighbouring bf16 values before the
+    skip is added) and one of y (the skip's sum rounded once more), at each
+    element."""
+    assert state.dtype == torch.bfloat16 and torch.equal(state, state_ref)
+    assert y.shape == y_ref.shape and y.dtype == y_ref.dtype
+    if y.dtype == torch.float32:
+        torch.testing.assert_close(y, y_ref, atol=1e-5 * y_ref.abs().max().item(), rtol=0)
+        return
+    tol = _bf16_ulp(y_sum.to(torch.bfloat16)) + _bf16_ulp(torch.maximum(y.float().abs(),
+                                                                       y_ref.float().abs()))
+    err = (y.float() - y_ref.float()).abs()
+    ulps = bf16_ulps(y, y_ref)
+    print(f"y: {(ulps > 0).float().mean().item():.4%} of elements apart, "
+          f"at most {ulps.max().item()} ulps of y")
+    assert bool((err <= tol).all()), (err / tol).max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,nh,hd,n", SSM_DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_decode_kernel_matches_ref(cuda, b, nh, hd, n, dtype):
+    """One launch against the plain version on the card, on the model's
+    strided views: the new state held bit for bit (the kernel follows the
+    plain version's operations and order, with no FMA), y as
+    ``_ssm_decode_close`` says. Ten chained steps, new inputs each step,
+    are held the same way after every step."""
+    args = _ssm_decode_inputs(b, nh, hd, n, dtype)
+    state_ref = args[0].clone()
+    for step in range(10):
+        if step:
+            args = (args[0],) + _ssm_decode_inputs(b, nh, hd, n, dtype, seed=step)[1:]
+        before = runtime.launch_counts()["ssm_decode"]
+        y = ssm_decode(*args)
+        torch.cuda.synchronize()
+        assert runtime.launch_counts()["ssm_decode"] == before + 1
+        _, new_state = ssm_step_ref(state_ref.float(), *args[1:])
+        y_sum = torch.einsum("bn,bhpn->bhp", args[6].float(), new_state)
+        y_ref = ssm_decode_ref(state_ref, *args[1:])
+        _ssm_decode_close(y, y_ref, args[0], state_ref, y_sum)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "hymba-1.5b"])
+def test_captured_decode_step_runs_the_ssm_decode_kernel(cuda, arch):
+    """Full width and depth, bf16: capturing the decode step records one
+    ``ssm_decode`` launch per layer (64 for Mamba2-2.7B, 32 for
+    Hymba-1.5B), the three warm-up steps as many each, and replays none;
+    eight replays give the eager step's logits and caches bit for bit."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.runtime import RunConfig
+    from repro_torch.models.transformer import ApplyCtx, init_model_params
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.engine import WARMUP_STEPS
+
+    cfg = get_config(arch)
+    ctx = ApplyCtx(cfg, RunConfig(compute_dtype="bfloat16", use_kernels=True))
+    params = init_model_params(cfg, ctx.rcfg, torch.Generator(device="cuda").manual_seed(0),
+                               "cuda")
+    rng = np.random.default_rng(5)
+    prompt = rng.integers(0, cfg.vocab, (4, 32), dtype=np.int32)
+    feeds = rng.integers(0, cfg.vocab, (8, 4, 1), dtype=np.int32)
+    out = {}
+    for graphs in (False, True):
+        eng = ServingEngine(ctx, params, 4, 48, graphs=graphs)
+        runtime.reset_launch_counts()
+        k = eng.acquire()
+        if graphs:
+            assert runtime.launch_counts()["ssm_decode"] == (WARMUP_STEPS + 1) * cfg.n_layers
+        runtime.reset_launch_counts()
+        cache, logits = eng.prefill(prompt, entry=k)
+        steps = [logits.clone()]
+        for tok in feeds:
+            cache, logits = eng.decode(cache, tok)
+            steps.append(logits.clone())
+        torch.cuda.synchronize()
+        launches = runtime.launch_counts()["ssm_decode"]
+        assert launches == (0 if graphs else len(feeds) * cfg.n_layers)
+        if graphs:
+            assert eng.replays == len(feeds)
+        out[graphs] = (steps, cache["main"]["ssm"].clone(), cache["main"]["conv"].clone())
+        del eng, cache
+    for a, b in zip(out[False][0], out[True][0]):
+        assert torch.equal(a, b)
+    assert torch.equal(out[False][1], out[True][1]) and torch.equal(out[False][2], out[True][2])
+
+
 # ----------------------------------------------------------------- training
 
 
@@ -847,12 +976,14 @@ def test_wrappers_refuse_grad_on_the_card(cuda):
     Bm, Cm = (torch.randn(1, 64, 16, generator=g, device="cuda") for _ in range(2))
     cols = torch.randn(3, 10, 7, generator=g, device="cuda")
     n_valid = torch.tensor([10, 7, 3], dtype=torch.int32, device="cuda")
+    dec = _ssm_decode_inputs(2, 4, 16, 16, torch.bfloat16)
     calls = {
         "flash_attention": lambda t: flash_attention_bhsd(t, k, v),
         "ssd_scan": lambda t: ssd_scan(t, dt, A, Bm, Cm, chunk=64),
         "dcov": lambda t: dcov_gram_windows(t, n_valid),
+        "ssm_decode": lambda t: ssm_decode(dec[0], t, *dec[2:]),
     }
-    first = {"flash_attention": q, "ssd_scan": x, "dcov": cols}
+    first = {"flash_attention": q, "ssd_scan": x, "dcov": cols, "ssm_decode": dec[1]}
     for name, call in calls.items():
         leaf = first[name].clone().requires_grad_(True)
         runtime.reset_launch_counts()

@@ -96,6 +96,9 @@ def test_mamba2_forward_matches_jax(np_params, kernels):
 
 
 def test_mamba2_decode_matches_jax(np_params):
+    """The model's decode entry point, kernels off, on a float32 cache
+    (its plain state step at float32, stored back unrounded) against the
+    reference's step: out, the new state and the new conv state."""
     jctx, tctx = _ctxs(False)
     cfg = tctx.cfg
     s = cfg.ssm
@@ -107,9 +110,10 @@ def test_mamba2_decode_matches_jax(np_params):
     p_np = _layer0(np_params["layers"]["ssm"])
     ref = jax_ssm.mamba2_decode(jctx.cfg, jax.tree.map(jnp.asarray, p_np),
                                 *(jnp.asarray(a) for a in (x, st, conv)))
-    out = ssm.mamba2_decode(cfg, params_from_jax(p_np, "cpu"),
-                            *(torch.from_numpy(a) for a in (x, st, conv)))
-    for a, b in zip(out, ref):
+    cache = {"ssm": torch.from_numpy(st.copy()), "conv": torch.from_numpy(conv.copy())}
+    y = ssm.mamba2_decode(cfg, params_from_jax(p_np, "cpu"), torch.from_numpy(x), cache,
+                          RunConfig(use_kernels=False))
+    for a, b in zip((y, cache["ssm"], cache["conv"]), ref):
         assert a.shape == b.shape and a.dtype == torch.float32
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL)
 
