@@ -9,16 +9,27 @@ mix or a per-layer metric by adding files alone:
 - ``perfbench/traffic/<mix>.json``, naming ``perfbench/traffic/<generator>.py``;
 - ``perfbench/metrics/<metric>.py``: a reader ``read(obs)`` per per-layer
   metric, returning a number or None;
-- ``perfbench/reference/<family>.py``: the plain reference.
+- ``perfbench/reference/<family>.py``: the plain reference;
+- ``perfbench/families/<family>.py``: how the configuration file's keys
+  set the program's ``ModelConfig``, and the FLOPs and bytes of the
+  family's steps (``counts/model.py``).
+
+A new model family is three files: its family file, its reference, and
+a configuration whose ``init`` has a rule for every leaf of the
+program's parameter tree (``weights.py``).
 """
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 from pathlib import Path
 from types import ModuleType
 
 ROOT = Path(__file__).resolve().parents[1]
+# the key under which a configuration found by :func:`cell` keeps the
+# root it was found in, so that its family file is taken from there too
+ROOT_KEY = "_root"
 
 
 def manifest(root: Path = ROOT) -> dict:
@@ -53,6 +64,7 @@ def cell(name: str, root: Path = ROOT) -> dict:
         raise KeyError(f"BENCHMARK.json has no workload {name!r}")
     spec = _json(root, "workloads", name + ".json")
     conf = _json(root, "configs", entry["config"] + ".json")
+    conf[ROOT_KEY] = str(root)
     mix = _json(root, "traffic", entry["traffic"] + ".json")
     e2e = [m for m in man["end_to_end"] if name in m.get("workloads", [name])]
     per_layer = [m for m in man["per_layer"] if name in m.get("workloads", [name])
@@ -71,3 +83,15 @@ def reader(metric: str, root: Path = ROOT) -> ModuleType:
 
 def reference(family: str, root: Path = ROOT) -> ModuleType:
     return _module(root, "reference", family + ".py")
+
+
+@functools.lru_cache(maxsize=None)
+def family(name: str, root: Path = ROOT) -> ModuleType:
+    """``perfbench/families/<name>.py``, loaded once per root."""
+    return _module(root, "families", name + ".py")
+
+
+def family_of(conf: dict) -> ModuleType:
+    """The family file of configuration ``conf``, from the root its cell
+    was found in (the repository's, for a configuration read directly)."""
+    return family(conf["family"], Path(conf.get(ROOT_KEY, ROOT)))

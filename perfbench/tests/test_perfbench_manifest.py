@@ -82,6 +82,7 @@ def test_every_piece_of_a_cell_is_found_by_name(cell):
     c = manifest.cell(cell)
     manifest.generator(c["mix"]["generator"])
     manifest.reference(c["conf"]["family"])
+    assert manifest.family_of(c["conf"]) is manifest.family(c["conf"]["family"], manifest.ROOT)
     for m in c["per_layer"]:
         assert callable(manifest.reader(m["name"]).read)
     assert {"batch", "concurrency", "max_len", "latency_over", "limits"} <= set(c["spec"])
