@@ -27,7 +27,10 @@ CORAL loop over the 54-cell x 3-seed static grid, the 6 drift cells, the
 of ``BENCH_fleet.json`` (its windowed dCor through ``dcov``), and Hymba-1.5B
 served at full width (attention and
 Mamba2 heads side by side in every layer: ``flash_attention`` with a
-1024-token window on 29 of its 32 layers and ``ssd_scan`` at N = 16).
+1024-token window on 29 of its 32 layers and ``ssd_scan`` at N = 16), and
+the published Hymba-1.5B (``hymba-1.5b-base``: Mamba-1 heads through
+``selective_scan`` beside attention through ``flash_attention`` at
+(D, Dv) = (64, 128), a window with the 128 meta tokens as its sink).
 Moonlight's bf16 weights take 56.8 GB of the card's 80 (one tree at a
 time: ``free_card`` checks before each is drawn), so the script needs a
 card with ~60 GB free.
@@ -41,7 +44,8 @@ Phases, each of which exits non-zero on failure:
    at N = 128 and N = 16) and of
    the dcov single-block form's two kernels at C = 7 and 8, and of the
    Mamba2 decode state step's (``ssm_decode``, each (hd, N) and dtype; a
-   library built by an earlier run into build/ has no report to print).
+   library built by an earlier run into build/ has no report to print),
+   and of ``selective_scan``.
 2. Kernel check: each kernel against its plain version on the card over
    the CPU tests' sweep and its main path's shape, then the kernel's, the
    plain version's and (where one exists) a library call's device times
@@ -93,7 +97,21 @@ Phases, each of which exits non-zero on failure:
    layer of a stacked cache, three chained steps each (the state bit for
    bit, y as the ``gpu`` test holds it), timed at the cell's and Hymba's
    shapes with each call stepping the next of 16 layers (no library call
-   computes the step).
+   computes the step); the published Hymba's flash launches, (D, Dv) =
+   (64, 128) on the ``wgmma`` body with the window's sink (windows across
+   tile edges, B=8 x 2176 with window 1024 and sink 128, one row of the
+   cell's longest prefill, 8064, windowed and global), each held to
+   ``attention_ref``, then timed at B=8 x 2176 and 8064 beside the bound
+   (``perfbench/counts/flash_window.py``; the plain version where the card
+   holds its score matrix); ``selective_scan`` against
+   ``selective_scan_ref`` at the hymba-1.5b.docqa-poisson cell's prefill
+   shapes (B=8, S in {8064, 2176}, di=3200, N=16), a ragged S and a
+   part-filled warp, on the model's strided views: y and the bf16 final
+   state within 1e-2 of their largest values, and at the ragged shape a
+   scan that reads dt one position late and a state one position short
+   both outside those tolerances; timed at the cell's two shapes beside
+   the plain version, the byte bound and the exponentials' time on the
+   special-function units.
 3. Slice check, per model: (a) the reduced model in float32 on the card,
    through the kernel, against the same model on the CPU (plain path,
    which the CPU tests hold to the JAX package); (b) the model at full
@@ -177,7 +195,8 @@ Phases, each of which exits non-zero on failure:
    launch counts reset just before and read just after each model's runs;
    each model's kernels must have launched once per layer and prefill, on
    the bodies their shapes take (Qwen2.5-3B: 36 flash; Mamba2-2.7B: 64 SSD;
-   Hymba-1.5B: 32 flash and 32 SSD; Moonlight-16B-A3B: 48 flash;
+   Hymba-1.5B: 32 flash and 32 SSD; the published Hymba-1.5B: 32 flash
+   and 32 ``selective_scan``; Moonlight-16B-A3B: 48 flash;
    Qwen2-VL-72B at 8 layers, text-only: 8 flash; all ``wgmma``), and
    ``ssm_decode`` once per Mamba2 layer in every warm-up step and capture
    of the decode graphs (Mamba2-2.7B 64, Hymba-1.5B 32; a replay launches
@@ -363,7 +382,7 @@ SWEEP = [  # the card tests' sweep (tests/test_torch_kernels_gpu.py), then the s
 ]
 # (D, Dv) pairs of the flash kernel's tensor-core bodies in bf16, with
 # 16-byte aligned rows (flash_attention.py::body_for); the rest is simt
-FLASH_WGMMA_DIMS = {(64, 64), (128, 128), (192, 128)}
+FLASH_WGMMA_DIMS = {(64, 64), (128, 128), (192, 128), (64, 128)}
 FLASH_MMA_DIMS = {(16, 16), (32, 32)}
 LONG_SHAPE = dict(b=1, hq=16, hkv=2, s=4096, d=128, dv=128, causal=True, window=None)
 # Hymba-1.5B's prefill (B=4 x 512): its window of 1024 masks nothing at S = 512
@@ -405,6 +424,25 @@ SSM_DECODE_HYMBA = (32, 50, 64, 16)
 SSM_DECODE_SWEEP = [(3, 80, 64, 128), (3, 50, 64, 16), (2, 16, 16, 16), (1, 4, 16, 16)]
 SSM_DECODE_STEPS = 3
 SSM_DECODE_LAYERS = 16
+# the published Hymba-1.5B (``hymba-1.5b-base``), as the cell
+# hymba-1.5b.docqa-poisson serves it: 128 meta tokens before prompts of
+# 2,048 to 7,936, B 8. Flash at (D, Dv) = (64, 128), Hq 25 over Hkv 5:
+# (b, s, window, sink) held to ``attention_ref`` (the card tests' cases,
+# then the cell's longest prefill at one row, whose score matrix the card
+# holds), then the cell's window and global layers timed at its shortest
+# and longest prefills at B 8
+HYMBA_BASE_ARCH = "hymba-1.5b-base"
+HYMBA_BASE_FLASH = [(8, 2176, 1024, 128), (2, 1100, 256, 128), (2, 1500, None, 0),
+                    (1, 8064, 1024, 128), (1, 8064, None, 0)]
+HYMBA_BASE_FLASH_TIMED = [(8, 2176, 1024, 128), (8, 2176, None, 0), (8, 8064, 1024, 128),
+                          (8, 8064, None, 0)]
+# selective_scan, (B, S, di): the cell's longest and shortest prefills, a
+# ragged length (no multiple of the kernel's 16-position chunk) and a
+# channel count that leaves a warp part-filled; N = 16 (the kernel's)
+SCAN_SHAPES = [(8, 8064, 3200), (8, 2176, 3200), (3, 1001, 3200), (2, 77, 200)]
+SCAN_TIMED = [(8, 8064, 3200), (8, 2176, 3200)]
+SCAN_TOL = 1e-2  # of max|y| and of max|h|, as tests/test_torch_hymba_gpu.py (its note says why)
+SFU_EXP2_PER_S = 16 * 132 * 1.98e9  # ex2 on the special-function units: 16 a clock per SM
 # the SSD wgmma body's kernels (ssd_scan.cu), in launch order
 SSD_PHASES = ("ssd_chunk_states", "ssd_state_passing", "ssd_chunk_outputs")
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s
@@ -635,7 +673,8 @@ def phase_environment(torch):
                                    ("ssd_scan", "ssd wgmma body", SSD_PHASES),
                                    ("dcov", "dcov single-block form, C = 7 and 8",
                                     tuple(f"{k}ILi{c}E" for c in (7, 8) for k in DCOV_PASSES)),
-                                   ("ssm_decode", "ssm decode state step", ("ssm_decode_kernel",))):
+                                   ("ssm_decode", "ssm decode state step", ("ssm_decode_kernel",)),
+                                   ("selective_scan", "selective scan", ("selective_scan_kernel",))):
         if kernel not in log:  # built by an earlier run into build/
             say(f"  {label}: library built by an earlier run, no ptxas report")
             continue
@@ -759,6 +798,7 @@ def phase_flash_check(torch):
                 "window of 1024 masks nothing at S=512), contiguous")
     del q, k, v
     mla = mla_flash_times(torch)
+    hymba_base = hymba_base_flash_check(torch)
     new_rows = {"whisper_encoder": shape_times(
                     torch, WHISPER_FLASH, len(SWEEP) + 5,
                     "Whisper-medium encoder (B=4, H=16, S=1500, D=64, bidirectional)"),
@@ -767,7 +807,78 @@ def phase_flash_check(torch):
                                         "Qwen2-VL-72B (B=4, Hq=64, Hkv=8, S=512, D=128)")}
     torch.cuda.empty_cache()
     return {"max_abs_err": worst[("bfloat16", len(SWEEP))], "plain_ms": plain_ms, **row,
-            "mla": mla, **new_rows}
+            "mla": mla, "hymba_base": hymba_base, **new_rows}
+
+
+def hymba_base_flash_check(torch):
+    """The published Hymba's flash launches, (D, Dv) = (64, 128) with the
+    window's sink, on the wgmma body: each HYMBA_BASE_FLASH case against
+    ``attention_ref`` (bf16 tolerance), then the kernel's device time at
+    each HYMBA_BASE_FLASH_TIMED shape beside its bound (every launch bound
+    by operations: ``perfbench/counts/flash_window.py``) and, where the
+    card holds its score matrix, the plain version's. Returns the rows of
+    the cell's longest prefill."""
+    import numpy as np
+
+    from perfbench.counts import flash_window
+    from repro_torch.kernels.flash_attention import (
+        attention_ref,
+        body_for,
+        body_launches,
+        flash_attention_bhsd,
+    )
+
+    def inputs(b, s, seed):
+        rng = np.random.default_rng(seed)
+        return tuple(torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                     .to("cuda", torch.bfloat16)
+                     for shape in ((b, 25, s, 64), (b, 5, s, 64), (b, 5, s, 128)))
+
+    for i, (b, s, window, sink) in enumerate(HYMBA_BASE_FLASH):
+        q, k, v = inputs(b, s, 200 + i)
+        body = body_for(q, k, v, window)
+        before = body_launches()["wgmma"]
+        out = flash_attention_bhsd(q, k, v, causal=True, window=window, sink=sink)
+        torch.cuda.synchronize()
+        launched = body_launches()["wgmma"] == before + 1
+        ref = attention_ref(q, k, v, causal=True, window=window, sink=sink)
+        err = (out.float() - ref.float()).abs().max().item()
+        ok = body == "wgmma" and launched and err <= ATOL["bfloat16"]
+        say(f"  flash bf16 published Hymba (B={b}, Hq=25, Hkv=5, S={s}, D=64, Dv=128, window "
+            f"{window}, sink {sink}, {body} body): max_abs_err {err:.3g} (tol "
+            f"{ATOL['bfloat16']}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"flash at the published Hymba's (64, 128), S={s}, window {window}, sink {sink}: "
+                 f"not on the wgmma body, no launch, or max_abs_err {err:.3g}")
+        del q, k, v, out, ref
+        torch.cuda.empty_cache()
+    rows = {}
+    for i, (b, s, window, sink) in enumerate(HYMBA_BASE_FLASH_TIMED):
+        q, k, v = inputs(b, s, 300 + i)
+        ms = device_ms(lambda: flash_attention_bhsd(q, k, v, causal=True, window=window,
+                                                    sink=sink))
+        flops = flash_window.flops(b, 25, s, 64, 128, window, sink)
+        nbytes = flash_window.nbytes(b, 25, 5, s, 64, 128)
+        bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        plain = "plain: the card holds no (B, H, S, S) score matrix at this shape"
+        plain_ms = None
+        if s <= 2176:
+            plain_ms = device_ms(lambda: attention_ref(q, k, v, causal=True, window=window,
+                                                       sink=sink), reps=1, rounds=3)
+            plain = f"plain {plain_ms:.4f} ms"
+        kind = "global" if window is None else f"window {window} + sink {sink}"
+        say(f"  flash published Hymba {kind} (B={b}, Hq=25, Hkv=5, S={s}, D=64, Dv=128, wgmma "
+            f"body): kernel {ms:.4f} ms, {plain}, library: none (SDPA takes no sink), bound "
+            f"{bound_ms:.5f} ms ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), kernel / bound "
+            f"{ms / bound_ms:.2f}; {card_line()}")
+        if s == max(t[1] for t in HYMBA_BASE_FLASH_TIMED):
+            rows["window" if window else "global"] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+                "bound_by": "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES
+                else "bytes", "shape": [b, 25, 5, s, 64, 128], "window": window, "sink": sink}
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
 
 
 def shape_times(torch, shp, seed, label):
@@ -1241,6 +1352,97 @@ def phase_ssm_decode_check(torch):
     return {"max_abs_err": serve_err, **row}
 
 
+def scan_inputs(torch, b, s, di, seed):
+    """The selective scan's inputs as the published Hymba hands them in:
+    x, raw dt and z bf16 views of one wider tensor (row stride 3 di + 8),
+    B and C bf16, and float32 dt_bias, A_log and D as the cell's
+    configuration draws them (dt in [0.001, 0.1] after the softplus,
+    A_log log-uniform in [log 1, log 16])."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = 16
+    wide = torch.randn((b, s, 3 * di + 8), generator=g, device="cuda").to(torch.bfloat16)
+    bm, cm = torch.randn((2, b, s, n), generator=g, device="cuda").to(torch.bfloat16)
+    dt = torch.exp(torch.rand(di, generator=g, device="cuda") * 4.6 - 6.9)
+    a_log = torch.log(torch.rand((di, n), generator=g, device="cuda") * 15 + 1)
+    d = 1 + 0.1 * torch.randn(di, generator=g, device="cuda")
+    return (wide[..., :di], wide[..., di:2 * di], torch.log(torch.expm1(dt)), a_log, bm, cm, d,
+            wide[..., 2 * di + 8:])
+
+
+def phase_selective_scan_check(torch):
+    """``selective_scan`` against ``selective_scan_ref`` on the card at
+    SCAN_SHAPES: y and the bf16 final state, written in place into a
+    cache-like (B, di, N) tensor, each within SCAN_TOL of the largest
+    value, the kernel launched once; at the ragged shape two scans with a
+    plausible fault must fail that test: dt read one position late (y),
+    and the state of the position before the last (the state). Then the
+    kernel's and the plain version's device times at SCAN_TIMED, beside
+    the byte bound (``perfbench/counts/selective_scan.py``) and the time
+    of the exponentials on the special-function units. Returns the row of
+    the cell's longest prefill."""
+    from perfbench.counts import selective_scan as scan_counts
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_ref
+
+    for i, (b, s, di) in enumerate(SCAN_SHAPES):
+        args = scan_inputs(torch, b, s, di, seed=i)
+        state = torch.empty((b, di, 16), dtype=torch.bfloat16, device="cuda")
+        before = runtime.launch_counts()["selective_scan"]
+        y = selective_scan(*args, state)
+        torch.cuda.synchronize()
+        if runtime.launch_counts()["selective_scan"] != before + 1:
+            fail(f"selective_scan (B, S, di)={b, s, di}: the kernel did not launch once")
+        y_ref, h_ref = selective_scan_ref(*args)
+        if y.shape != y_ref.shape or y.dtype != torch.bfloat16:
+            fail(f"selective_scan (B, S, di)={b, s, di}: y {tuple(y.shape)} {y.dtype}")
+        y_tol = SCAN_TOL * y_ref.float().abs().max().item()
+        h_tol = SCAN_TOL * h_ref.abs().max().item()
+        y_err = (y.float() - y_ref.float()).abs().max().item()
+        h_err = (state.float() - h_ref).abs().max().item()
+        ok = y_err <= y_tol and h_err <= h_tol
+        say(f"  selective_scan (B, S, di, N)={b, s, di, 16} (bf16, strided x, dt, z): y "
+            f"max_abs_err {y_err:.3g}{ulps_note(torch, y, y_ref)} (tol {y_tol:.3g}), final state "
+            f"{h_err:.3g} (tol {h_tol:.3g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"selective_scan disagrees with selective_scan_ref at (B, S, di)={b, s, di}")
+        if s % 16:  # the ragged shape: the tolerances tell a faulty scan apart
+            x, dt = args[0], args[1]
+            late = torch.cat([dt[:, :1], dt[:, :-1]], dim=1)
+            y_late = selective_scan_ref(x, late, *args[2:])[0]
+            h_short = selective_scan_ref(*(t[:, :-1] if t.dim() == 3 and t.shape[1] == s else t
+                                           for t in args))[1]
+            late_err = (y.float() - y_late.float()).abs().max().item()
+            short_err = (state.float() - h_short).abs().max().item()
+            say(f"  selective_scan faults at (B, S, di)={b, s, di}: dt one position late, y "
+                f"max_abs_err {late_err:.3g} (tol {y_tol:.3g}); the state one position short "
+                f"{short_err:.3g} (tol {h_tol:.3g})")
+            if not (late_err > y_tol and short_err > h_tol):
+                fail("selective_scan's tolerances do not tell a faulty scan from the kernel")
+        del args, state, y, y_ref, h_ref
+        torch.cuda.empty_cache()
+    row = None
+    for i, (b, s, di) in enumerate(SCAN_TIMED):
+        args = scan_inputs(torch, b, s, di, seed=50 + i)
+        state = torch.empty((b, di, 16), dtype=torch.bfloat16, device="cuda")
+        ms = device_ms(lambda: selective_scan(*args, state))
+        plain_ms = events_ms(lambda: selective_scan_ref(*args), reps=1)
+        nbytes, flops = scan_counts.nbytes(b, s, di, 16), scan_counts.flops(b, s, di, 16)
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        exp_ms = b * s * di * 16 / SFU_EXP2_PER_S * 1e3
+        say(f"  selective_scan (B, S, di, N)={b, s, di, 16} (bf16): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.2f} ms, library: none, bound {bound_ms:.5f} ms ({nbytes / 1e9:.3f} GB, "
+            f"{flops / 1e9:.1f} GFLOP at 67 TFLOP/s f32), kernel / bound {ms / bound_ms:.2f}; "
+            f"its {b * s * di * 16 / 1e9:.2f} G exponentials {exp_ms:.4f} ms on the SFUs; "
+            f"{card_line()}")
+        if row is None:
+            row = {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "shape": [b, s, di, 16]}
+        del args, state
+        torch.cuda.empty_cache()
+    return row
+
 def dcov_windows_inputs(torch, b, w, c, seed):
     """B (W, C) windows at CORAL's column scales, n_valid drawn per episode
     from {1, 2, 3, W-1, W}, rows past n_valid zero, and in every third
@@ -1531,6 +1733,13 @@ def launches_per_prefill(arch):
     return flash, cfg.n_layers if cfg.arch_type in ("ssm", "hybrid") else 0
 
 
+def scan_launches_per_prefill(arch):
+    """``selective_scan`` launches one prefill of ``arch`` makes: one per
+    layer of the published Hymba (its Mamba-1 heads), none elsewhere."""
+    cfg = full_config(arch)
+    return cfg.n_layers if cfg.arch_type == "hymba" else 0
+
+
 def ssm_decode_want(arch, captures, eager_steps=0):
     """``ssm_decode`` launches that ``captures`` CUDA graph captures of
     ``arch``'s decode step (each WARMUP_STEPS eager steps and the capture;
@@ -1582,7 +1791,7 @@ def flash_body(torch, arch):
         d, dv = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim, cfg.mla.v_head_dim
     else:
         hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-        dv = d
+        dv = getattr(cfg, "v_head_dim", d)  # the published Hymba's V is 128 wide
 
     def view(h, width):
         return torch.empty(1, 1, h, width, dtype=torch.bfloat16, device="cuda").transpose(1, 2)
@@ -1790,7 +1999,7 @@ def bf16_logit_readings(torch, ctx, params, seeds, worst):
     return reads, first
 
 
-def blocked_bhsd(q, k, v, *, causal=True, window=None, tile=128):
+def blocked_bhsd(q, k, v, *, causal=True, window=None, sink=0, tile=128):
     """``attention_ref``'s function on (B, H, S, D) inputs summed in another
     order: the port's plain online-softmax path (``attention._blocked``)
     over ``tile``-key tiles. A control for the full-width logits: how far the
@@ -1807,7 +2016,7 @@ def blocked_bhsd(q, k, v, *, causal=True, window=None, tile=128):
     q_pos = torch.arange(s, dtype=torch.int32, device=q.device).expand(b, s)
     kv_pos = torch.arange(sk, dtype=torch.int32, device=q.device).expand(b, sk)
     out = attention._blocked(qg, k.transpose(1, 2), v.transpose(1, 2), q_pos, kv_pos, causal,
-                             window, 1.0 / math.sqrt(d), tile, tile)
+                             window, 1.0 / math.sqrt(d), tile, tile, sink)
     return out.reshape(b, s, hq, v.shape[-1]).transpose(1, 2)
 
 
@@ -1930,9 +2139,9 @@ def flash_held_to_plain(torch, worst, windows):
     ``windows``."""
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention_bhsd
 
-    def held(q, k, v, *, causal=True, window=None):
-        out = flash_attention_bhsd(q, k, v, causal=causal, window=window)
-        ref = attention_ref(q, k, v, causal=causal, window=window).float()
+    def held(q, k, v, *, causal=True, window=None, sink=0):
+        out = flash_attention_bhsd(q, k, v, causal=causal, window=window, sink=sink)
+        ref = attention_ref(q, k, v, causal=causal, window=window, sink=sink).float()
         tol = max(ATOL["bfloat16"], FLASH_MODEL_REL * ref.abs().max().item())
         worst.append((out.float() - ref).abs().max().item() / tol)
         windows.append(window)
@@ -2132,6 +2341,10 @@ def serve_runs(torch, arch):
         fail(f"{arch}: {counts['ssm_decode']} ssm_decode launches in the serve() runs, want {want}: "
              "one a Mamba2 layer in every warm-up step and capture of the decode graphs")
     prefills = len(metrics) * SERVE["requests"] // SERVE["batch"]
+    want = scan_launches_per_prefill(arch) * prefills
+    if counts["selective_scan"] != want:
+        fail(f"{arch}: {counts['selective_scan']} selective_scan launches in the serve() runs, "
+             f"want {want}: one a layer and prefill")
     say(f"  {arch} launches on its main path: {counts} over {prefills} prefills, "
         f"peak memory {peak_gb:.2f} GB")
     return counts, prefills
@@ -2142,8 +2355,8 @@ def phase_serve(torch):
     from repro_torch.launch.serve import build_engine
     from repro_torch.serving import measure_concurrency_curve
 
-    totals = dict.fromkeys(("flash_attention", "ssd_scan", "ssm_decode"), 0)
-    for arch in (ARCH, SSM_ARCH, HYBRID_ARCH, MOE_ARCH, VLM_ARCH):
+    totals = dict.fromkeys(("flash_attention", "ssd_scan", "ssm_decode", "selective_scan"), 0)
+    for arch in (ARCH, SSM_ARCH, HYBRID_ARCH, HYMBA_BASE_ARCH, MOE_ARCH, VLM_ARCH):
         counts, prefills = serve_runs(torch, arch)
         check_bodies(arch, prefills, f"the {arch} serve() runs")
         for name in totals:
@@ -3694,7 +3907,8 @@ def main() -> None:
         return
     say("== phase 2: kernel check")
     kern = {"flash_attention": phase_flash_check(torch), "ssd_scan": phase_ssd_check(torch),
-            "dcov": phase_dcov_check(torch), "ssm_decode": phase_ssm_decode_check(torch)}
+            "dcov": phase_dcov_check(torch), "ssm_decode": phase_ssm_decode_check(torch),
+            "selective_scan": phase_selective_scan_check(torch)}
     say("== phase 3: slice check")
     phase_slice_check(torch, ARCH, 96)
     phase_slice_check(torch, SSM_ARCH, 93)
@@ -3739,6 +3953,8 @@ def main() -> None:
                  "src/repro/kernels/dcov/dcov.py:67"),
         # the JAX package's decode state step is plain jnp: it replaces no kernel
         "ssm_decode": ("src/repro_torch/kernels/ssm_decode/csrc/ssm_decode.cu", None),
+        # the JAX package has no Mamba-1 layer: the scan replaces no kernel
+        "selective_scan": ("src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu", None),
     }
     unlaunched = [name for name in sources if counts[name] == 0]
     if unlaunched:

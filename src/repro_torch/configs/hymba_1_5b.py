@@ -1,6 +1,13 @@
 """Hymba-1.5B — hybrid-head architecture: parallel attention + Mamba heads
 per layer, SWA everywhere except a few global-attention layers.
 [arXiv:2411.13676]
+
+This entry mirrors the JAX package's approximation, which the tests hold
+the port's ``hybrid`` path to: Mamba2 SSD heads, a ``sigmoid(mix_gate)``
+blend, an attention ``wo``, globals at {0, n/2, n-1}, no meta tokens and
+no K/V sharing. It is not the published model; the published one is
+``hymba_1_5b_base.py`` (``hymba-1.5b-base``, the registry's
+``PORT_ONLY``), which the benchmark runs.
 """
 from repro_torch.configs.base import ModelConfig, SSMConfig
 

@@ -27,9 +27,10 @@
 // the entry launches exactly that one or returns an error:
 //
 // * flash_fwd_wgmma — bf16 with (D, Dv) in {(64, 64), (128, 128),
-//   (192, 128)} and 16-byte aligned rows: the serving path (Qwen2.5-3B,
-//   Granite, InternLM2, Hymba, Moonlight-16B-A3B; DeepSeek-V2's MLA at
-//   D = qk_nope + qk_rope = 192, Dv = 128). What it does about what held
+//   (192, 128), (64, 128)} and 16-byte aligned rows: the serving path
+//   (Qwen2.5-3B, Granite, InternLM2, Hymba, Moonlight-16B-A3B; DeepSeek-V2's
+//   MLA at D = qk_nope + qk_rope = 192, Dv = 128; the published Hymba's
+//   Q and K of 64 with V of 128). What it does about what held
 //   the Ampere-style body back:
 //   1. Tensor cores: both products on wgmma. S = Q K^T is m64n128k16 with
 //      Q and K read K-major from shared memory; O += P V takes P (rounded
@@ -60,8 +61,14 @@
 //   6. Host cost: the entry does not switch devices; it encodes three
 //      tensor maps over the strided (B, H, S, D) views as given (the
 //      model's (B, S, H, D) memory is read in place) and launches.
-//   O is staged in the warpgroup's own Q rows and written with 16-byte
-//   stores.
+//   O is staged in the warpgroup's own Q rows (Q's region is max(D, Dv)
+//   wide) and written with 16-byte stores.
+//
+// A sink (every body): with a window, keys [0, sink) stay visible to every
+// query whatever the window (the published Hymba's meta tokens). The
+// wgmma body walks the tiles that hold them first, then the window's; a
+// tile with sink keys masks by c > lo || c < sink bound, every other tile
+// as before. The mma body walks every tile from 0 when a sink is given.
 // * flash_fwd_mma — bf16 with D == Dv in {16, 32} and aligned rows: four
 //   warps of mma.sync m16n8k16 over 64 x 64 tiles, cp.async double
 //   buffering (the first tensor-core body, kept for the widths the wgmma
@@ -102,6 +109,7 @@ struct Params {
   long long o_sb, o_sh, o_ss;
   int causal;
   int window;  // <= 0: no window
+  int sink;    // with a window: keys [0, sink) stay visible to every query
   float scale;
 };
 
@@ -163,7 +171,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_simt(Params p) {
     const int k0 = j * BK;
     // whole-tile skips, uniform over the block (the reference's `relevant`)
     if (p.causal && k0 > q_last) break;
-    if (p.window > 0 && k0 + BK - 1 <= q0 - p.window) continue;
+    if (p.window > 0 && k0 + BK - 1 <= q0 - p.window && k0 >= p.sink) continue;
 
     __syncthreads();  // the previous tile's reads of ks / vs / ps are done
     for (int i = tid; i < BK * d; i += NT) {
@@ -204,7 +212,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_simt(Params p) {
         const int kj = k0 + tx + jj * TX;
         bool ok = kj < p.sk;
         if (p.causal) ok = ok && kj <= qi;
-        if (p.window > 0) ok = ok && (qi - kj) < p.window;
+        if (p.window > 0) ok = ok && ((qi - kj) < p.window || kj < p.sink);
         s[i][jj] = ok ? s[i][jj] * p.scale : NEG_INF;
         mx = fmaxf(mx, s[i][jj]);
       }
@@ -345,7 +353,7 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_mma(Params p) {
   const int nk = (p.sk + BK - 1) / BK;
   const int j_end = p.causal ? min(nk, q_last / BK + 1) : nk;
   int j_begin = 0;
-  if (p.window > 0) {
+  if (p.window > 0 && p.sink <= 0) {  // with a sink every tile from 0 is walked (masked)
     const int x = q0 - p.window - BK + 1;  // tile j is needed iff j * BK > x
     j_begin = x < 0 ? 0 : x / BK + 1;
   }
@@ -407,7 +415,7 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_mma(Params p) {
         const int kj = k0 + 8 * n + 2 * t + (e % 2);
         bool ok = kj < p.sk;
         if (p.causal) ok = ok && kj <= qi;
-        if (p.window > 0) ok = ok && (qi - kj) < p.window;
+        if (p.window > 0) ok = ok && ((qi - kj) < p.window || kj < p.sink);
         s[n][e] = ok ? s[n][e] * p.scale : NEG_INF;
         mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
       }
@@ -479,7 +487,7 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_mma(Params p) {
 
 
 // ---------------------------------------------------------- wgmma body
-// bf16, (D, Dv) in {(64, 64), (128, 128), (192, 128)}. One CTA owns a
+// bf16, (D, Dv) in {(64, 64), (128, 128), (192, 128), (64, 128)}. One CTA owns a
 // 128-row query tile of one (batch, query head) and three warpgroups:
 //   WG 0, 1  consumers: each owns 64 query rows, runs S = Q K^T and
 //            O += P V on wgmma and the online softmax in registers;
@@ -510,15 +518,17 @@ template <int D, int DV>
 struct WsSmem {
   static constexpr uint32_t QK_TILE = (D / 64) * WS_BOX_BYTES;  // a Q or K tile
   static constexpr uint32_t V_TILE = (DV / 64) * WS_BOX_BYTES;
-  static constexpr int FIT = (WS_SMEM_MAX - 1024 - QK_TILE - 8) / (QK_TILE + V_TILE + 24);
+  // Q's region also stages O in the epilogue, so it is max(D, Dv) wide
+  static constexpr uint32_t Q_TILE = (D > DV ? D : DV) / 64 * WS_BOX_BYTES;
+  static constexpr int FIT = (WS_SMEM_MAX - 1024 - Q_TILE - 8) / (QK_TILE + V_TILE + 24);
   static constexpr int STAGES = FIT < 4 ? FIT : 4;  // K/V ring depth
   static_assert(STAGES >= 1, "one K/V stage must fit beside Q");
   static constexpr uint32_t Q = 0;
   __host__ __device__ static constexpr uint32_t K(int st) {
-    return QK_TILE + st * (QK_TILE + V_TILE);
+    return Q_TILE + st * (QK_TILE + V_TILE);
   }
   __host__ __device__ static constexpr uint32_t V(int st) { return K(st) + QK_TILE; }
-  static constexpr uint32_t BAR = QK_TILE + STAGES * (QK_TILE + V_TILE);
+  static constexpr uint32_t BAR = Q_TILE + STAGES * (QK_TILE + V_TILE);
   static constexpr uint32_t BYTES = BAR + 8 * (1 + 3 * STAGES);
   // Grid order. Heavy first over all heads (the last query tile of every
   // (batch, head), then the one before, ...) suits GQA, where a K/V tile
@@ -685,8 +695,11 @@ __device__ __forceinline__ void consume_tile(const Params& p, float (&o)[DV / 64
   // c = 8 nb + e % 2 known at compile time. Key kj is visible to row qi iff
   // kj < Sk, kj <= qi (causal) and qi - kj < window, i.e. lo < c < hi with
   // per-row bounds, so a masked tile pays two compares and a select.
+  // A tile that holds sink keys (kj < sink, visible whatever the window)
+  // takes a third bound, c < sink - k0 - 2 tq, beside the window's.
+  const bool in_sink = p.window > 0 && k0 < p.sink;
   const bool edge = k0 + WS_BK > p.sk || (p.causal && k0 + WS_BK - 1 > r_first) ||
-                    (p.window > 0 && r_first + 63 - k0 >= p.window);
+                    (p.window > 0 && r_first + 63 - k0 >= p.window && k0 + WS_BK > p.sink);
   if (edge) {
     int lo[2], hi[2];
 #pragma unroll
@@ -696,10 +709,19 @@ __device__ __forceinline__ void consume_tile(const Params& p, float (&o)[DV / 64
       if (p.causal) hi[r] = min(hi[r], rel + 1);
       lo[r] = p.window > 0 ? rel - p.window : -1;
     }
+    if (in_sink) {
+      const int sk_hi = p.sink - k0 - 2 * tq4;
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
-      const int c = 8 * (i / 4) + (i % 2), r = (i % 4) / 2;
-      s[i] = (c > lo[r] && c < hi[r]) ? s[i] : -INFINITY;
+      for (int i = 0; i < 64; ++i) {
+        const int c = 8 * (i / 4) + (i % 2), r = (i % 4) / 2;
+        s[i] = ((c > lo[r] || c < sk_hi) && c < hi[r]) ? s[i] : -INFINITY;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int c = 8 * (i / 4) + (i % 2), r = (i % 4) / 2;
+        s[i] = (c > lo[r] && c < hi[r]) ? s[i] : -INFINITY;
+      }
     }
   }
   float mx[2] = {-INFINITY, -INFINITY};
@@ -798,6 +820,15 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     const int x = q0 - p.window - WS_BK + 1;  // tile j is needed iff j * BK > x
     j_begin = x < 0 ? 0 : x / WS_BK + 1;
   }
+  // With a sink, the tiles [0, n_sink) that hold its keys come first, then
+  // the window's [j_begin, j_end); iteration it walks tile tile_of(it).
+  int n_sink = p.window > 0 && p.sink > 0 ? min((p.sink + WS_BK - 1) / WS_BK, j_end) : 0;
+  if (j_begin <= n_sink) {  // the two ranges meet: one range from tile 0
+    j_begin = 0;
+    n_sink = 0;
+  }
+  const int n_it = n_sink + max(j_end - j_begin, 0);
+  auto tile_of = [&](int it) { return it < n_sink ? it : j_begin + it - n_sink; };
 
   if (threadIdx.x == 0) {
     mbar_init(q_bar, 1);
@@ -820,8 +851,8 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       mbar_expect_tx(q_bar, L::QK_TILE);
       for (int cb = 0; cb < NQB; ++cb)
         tma_load(base + L::Q + cb * WS_BOX_BYTES, tq, cb * 64, q0, h, b, q_bar);
-      for (int j = j_begin; j < j_end; ++j) {
-        const int it = j - j_begin, st = it % L::STAGES;
+      for (int it = 0; it < n_it; ++it) {
+        const int j = tile_of(it), st = it % L::STAGES;
         mbar_wait(empty_bar(st), ((it / L::STAGES) & 1) ^ 1);
         mbar_expect_tx(k_full(st), L::QK_TILE);
         for (int cb = 0; cb < NQB; ++cb)
@@ -851,9 +882,9 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
 
     mbar_wait(q_bar, 0);
     const uint32_t q_rows = base + L::Q + wg * 64 * 128;
-    for (int j = j_begin; j < j_end; ++j) {
-      const int it = j - j_begin, st = it % L::STAGES;
-      const int k0 = j * WS_BK;
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it % L::STAGES;
+      const int k0 = tile_of(it) * WS_BK;
       const uint32_t parity = (it / L::STAGES) & 1;
       mbar_wait(k_full(st), parity);
 
@@ -1035,12 +1066,12 @@ bool vector_aligned(const Params& p) {
 // The body is chosen by the caller (flash_attention.py::body_for):
 // 0 simt (float32 or bfloat16, any D <= 256, Dv in {16, 32, 64, 128}),
 // 1 mma (bfloat16, D == Dv in {16, 32}, rows 16-byte aligned),
-// 2 wgmma (bfloat16, (D, Dv) in {(64, 64), (128, 128), (192, 128)}, rows
-//   16-byte aligned).
+// 2 wgmma (bfloat16, (D, Dv) in {(64, 64), (128, 128), (192, 128), (64, 128)},
+//   rows 16-byte aligned).
 // A body asked for a case it does not take returns cudaErrorInvalidValue;
 // nothing here picks another body. dtype: 0 float32, 1 bfloat16. Strides
 // are in elements; the last axis of every tensor is contiguous. window <= 0
-// means no sliding window. The kernel runs on the current device and the
+// means no sliding window; with one, keys [0, sink) are never hidden by it. The kernel runs on the current device and the
 // given stream. Returns 0 on success, else a code for
 // repro_cuda_error_string.
 extern "C" int repro_flash_attention_fwd(
@@ -1049,10 +1080,10 @@ extern "C" int repro_flash_attention_fwd(
     long long q_sb, long long q_sh, long long q_ss, long long k_sb,
     long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long o_sb, long long o_sh, long long o_ss,
-    int causal, int window, float scale, void* stream) {
+    int causal, int window, int sink, float scale, void* stream) {
   Params p{q,    k,    v,    o,    hq,   hkv,  sq,     sk,     d,
            q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,   v_sh,   v_ss,
-           o_sb, o_sh, o_ss, causal, window, scale};
+           o_sb, o_sh, o_ss, causal, window, sink, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool tensor_core = dtype == 1 && vector_aligned(p);  // the (D, Dv) pair decides
   switch (body) {
@@ -1068,6 +1099,7 @@ extern "C" int repro_flash_attention_fwd(
       if (tensor_core && d == 64 && dv == 64) return launch_wgmma<64, 64>(p, batch, s);
       if (tensor_core && d == 128 && dv == 128) return launch_wgmma<128, 128>(p, batch, s);
       if (tensor_core && d == 192 && dv == 128) return launch_wgmma<192, 128>(p, batch, s);
+      if (tensor_core && d == 64 && dv == 128) return launch_wgmma<64, 128>(p, batch, s);
       return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;

@@ -16,9 +16,10 @@ Dv=128) it is the memory side too, 335.5 MB, 100.2 µs. The kernel has
 three bodies, and :func:`body_for` names the one a call takes; the C
 entry launches exactly that one or fails:
 
-* ``"wgmma"`` — bf16, (D, Dv) in {(64, 64), (128, 128), (192, 128)},
-  rows 16-byte aligned (the serving path, and MLA's D = qk_nope + qk_rope
-  = 192 with Dv = 128). A 128-row query tile per CTA: one producer thread
+* ``"wgmma"`` — bf16, (D, Dv) in {(64, 64), (128, 128), (192, 128),
+  (64, 128)}, rows 16-byte aligned (the serving path, MLA's D = qk_nope +
+  qk_rope = 192 with Dv = 128, and the published Hymba's Q and K of 64
+  with V of 128). A 128-row query tile per CTA: one producer thread
   loads Q once and 128-key K/V tiles into a shared-memory ring as deep as
   227 KB allows (four stages at D = 64, three at 128, two at 192) by TMA,
   with mbarriers, while two consumer warpgroups of 64 rows run S = Q·Kᵀ
@@ -37,7 +38,11 @@ entry launches exactly that one or fails:
 * ``"simt"`` — everything else (float32, other (D, Dv) pairs, unaligned
   views): float32 FMAs on the CUDA cores.
 
-A query row that sees no key (a window with Sq ≥ Sk + window) gets
+``sink`` (with a window): keys [0, sink) stay visible to every query
+whatever the window, on every body (the published Hymba's meta tokens,
+which its window layers never hide).
+
+A query row that sees no key (a window with Sq ≥ Sk + window, no sink) gets
 ``attention_ref``'s answer on every body, the mean of V over the Sk keys:
 the rows are known from the shapes, and the wrapper writes them after the
 launch (:func:`first_blind_row`).
@@ -65,14 +70,15 @@ VALUE_HEAD_DIMS = (16, 32, 64, 128)  # instantiated in the CUDA source
 BODIES = ("simt", "mma", "wgmma")  # the C entry's body codes 0, 1, 2
 # (D, Dv) pairs each tensor-core body is instantiated for in the CUDA source
 _TENSOR_CORE_DIMS = {"mma": {(16, 16), (32, 32)},
-                     "wgmma": {(64, 64), (128, 128), (192, 128)}}
+                     "wgmma": {(64, 64), (128, 128), (192, 128), (64, 128)}}
 MAX_HEAD_DIM = 256  # keeps the shared-memory tiles under the 227 KB a block may use
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 4  # q, k, v, o
     + [ctypes.c_int] * 9  # dtype, body, B, Hq, Hkv, Sq, Sk, D, Dv
     + [ctypes.c_longlong] * 12  # (batch, head, seq) strides of q, k, v, o
-    + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    + [ctypes.c_int] * 3  # causal, window, sink
+    + [ctypes.c_float, ctypes.c_void_p]
 )
 
 
@@ -85,7 +91,7 @@ def _entry():
     return lib, fn
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window, sink: int = 0) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, H, S, D)")
     b, hq, _, d = q.shape
@@ -101,11 +107,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window) -> None:
                          f"(D <= {MAX_HEAD_DIM}, Dv in {VALUE_HEAD_DIMS})")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    if sink < 0:
+        raise ValueError(f"sink must be >= 0, got {sink}")
 
 
 def body_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window=None) -> str:
     """The body of the kernel that (B, H, S, D) inputs take: ``"wgmma"``
-    for bf16 with (D, Dv) in {(64, 64), (128, 128), (192, 128)}, ``"mma"``
+    for bf16 with (D, Dv) in {(64, 64), (128, 128), (192, 128), (64, 128)}, ``"mma"``
     for bf16 with (D, Dv) in {(16, 16), (32, 32)}, each only where every
     base pointer is 16-byte aligned and every stride is a positive
     multiple of 8 elements with the last axis contiguous (TMA boxes and
@@ -138,6 +146,7 @@ def flash_attention_bhsd(
     *,
     causal: bool = True,
     window: Optional[int] = None,
+    sink: int = 0,
 ) -> torch.Tensor:
     """Attention over (B, H, S, D) tensors; returns (B, Hq, Sq, Dv) in
     ``v.dtype``. CUDA tensors launch the kernel's body that
@@ -146,9 +155,9 @@ def flash_attention_bhsd(
     Raises with an input that requires grad under grad mode
     (``runtime.refuse_grad``)."""
     runtime.refuse_grad("flash_attention_bhsd", q, k, v)
-    _check(q, k, v, window)
+    _check(q, k, v, window, sink)
     if not runtime.on_card(q, k, v):
-        return attention_ref(q, k, v, causal=causal, window=window)
+        return attention_ref(q, k, v, causal=causal, window=window, sink=sink)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     body = body_for(q, k, v, window)
     b, hq, sq, d = q.shape
@@ -160,21 +169,21 @@ def flash_attention_bhsd(
         runtime.ptr(q), runtime.ptr(k), runtime.ptr(v), runtime.ptr(out),
         _DTYPE_CODE[q.dtype], BODIES.index(body), b, hq, hkv, sq, sk, d, dv,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        int(causal), 0 if window is None else int(window),
+        int(causal), 0 if window is None else int(window), int(sink),
         1.0 / math.sqrt(d), runtime.stream_handle(q.device),
     )
     runtime.check(lib, rc, f"flash_attention_bhsd ({body} body)")
-    blind = first_blind_row(sk, window)
+    blind = first_blind_row(sk, window, sink)
     if blind < sq:  # rows that see no key: attention_ref's mean of V over the Sk keys
         mean = v.float().mean(dim=2).repeat_interleave(hq // hkv, dim=1)  # (B, Hq, Dv)
         out[:, :, blind:] = mean[:, :, None, :].to(out.dtype)
     return out
 
 
-def first_blind_row(sk: int, window: Optional[int]) -> int:
+def first_blind_row(sk: int, window: Optional[int], sink: int = 0) -> int:
     """The first query position that sees no key, with or without the
     causal mask: row q's nearest key is min(q, Sk - 1), out of the window
-    iff q - (Sk - 1) >= window. ``attention_ref`` softmaxes such a row of
+    iff q - (Sk - 1) >= window; with a sink, key 0 is seen by every row. ``attention_ref`` softmaxes such a row of
     -1e30 into the mean of V over the Sk keys; the bodies, which skip or
     mask every tile of it, do not, so the wrapper writes those rows."""
-    return sys.maxsize if window is None else sk - 1 + window
+    return sys.maxsize if window is None or sink > 0 else sk - 1 + window

@@ -25,11 +25,13 @@ def flash_attention(
     *,
     causal: bool = True,
     window: Optional[int] = None,
+    sink: int = 0,
 ) -> torch.Tensor:
-    """Grouped-query flash attention; returns (B, Sq, Hkv, G, Dv)."""
+    """Grouped-query flash attention; returns (B, Sq, Hkv, G, Dv). With a
+    window, keys [0, sink) stay visible to every query."""
     b, sq, hkv, g, d = qg.shape
     q = qg.reshape(b, sq, hkv * g, d).transpose(1, 2)
     o = flash_attention_bhsd(
-        q, k.transpose(1, 2), v.transpose(1, 2), causal=causal, window=window
+        q, k.transpose(1, 2), v.transpose(1, 2), causal=causal, window=window, sink=sink
     )
     return o.transpose(1, 2).reshape(b, sq, hkv, g, v.shape[-1])

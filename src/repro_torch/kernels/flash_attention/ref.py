@@ -16,10 +16,11 @@ def attention_ref(
     *,
     causal: bool = True,
     window: Optional[int] = None,
+    sink: int = 0,
 ) -> torch.Tensor:
     """Masked softmax attention in float32, positions contiguous from 0;
-    query head h reads KV head h // (Hq // Hkv). Returns (B, Hq, Sq, Dv)
-    in ``v.dtype``."""
+    query head h reads KV head h // (Hq // Hkv); with a window, keys [0,
+    sink) are never hidden by it. Returns (B, Hq, Sq, Dv) in ``v.dtype``."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -31,7 +32,7 @@ def attention_ref(
     if causal:
         mask &= kpos <= qpos
     if window is not None:
-        mask &= (qpos - kpos) < window
+        mask &= ((qpos - kpos) < window) | (kpos < sink)
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())

@@ -54,6 +54,7 @@ SOURCES: Dict[str, Path] = {
     "ssd_scan": _KERNELS_DIR / "ssd_scan" / "csrc" / "ssd_scan.cu",
     "dcov": _KERNELS_DIR / "dcov" / "csrc" / "dcov.cu",
     "ssm_decode": _KERNELS_DIR / "ssm_decode" / "csrc" / "ssm_decode.cu",
+    "selective_scan": _KERNELS_DIR / "selective_scan" / "csrc" / "selective_scan.cu",
 }
 
 NVCC_FLAGS = (

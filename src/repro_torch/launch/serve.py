@@ -5,7 +5,10 @@ Serves the full configuration on the card through the hand-written
 kernels: prefill attention through the flash attention kernel for a dense
 decoder (``qwen2.5-3b``), the SSD chunked scan through its kernel for
 Mamba2 (``mamba2-2.7b``), both, side by side in every layer, for the
-hybrid Hymba (``hymba-1.5b``), flash attention beside the compute-all MoE
+hybrid Hymba (``hymba-1.5b``), flash attention with a window and a sink
+of 128 meta tokens beside the Mamba-1 selective scan for the published
+Hymba-1.5B (``hymba-1.5b-base``: a pool entry's slots hold the meta
+tokens too), flash attention beside the compute-all MoE
 FFN for Moonlight-16B-A3B (``moonshot-v1-16b-a3b``: 28.4 B parameters,
 56.8 GB in bf16, one card at full width and depth), and MLA's prefill
 (D = 192, Dv = 128) for DeepSeek-V2 (``deepseek-v2-236b``), which at
@@ -28,6 +31,8 @@ hard-codes it, because it runs on a CPU); the CPU tests pass
       --requests 16 --prompt-len 512 --new-tokens 32 --batch 4 --concurrency 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
       --requests 16 --prompt-len 512 --new-tokens 32 --batch 4 --concurrency 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b-base \
+      --requests 16 --prompt-len 512 --new-tokens 32 --batch 4 --concurrency 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b \
       --requests 16 --prompt-len 512 --new-tokens 32 --batch 4 --concurrency 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b --layers 2 \
@@ -46,7 +51,7 @@ import torch
 
 from repro_torch.configs.registry import get_config
 from repro_torch.configs.runtime import RunConfig
-from repro_torch.models.transformer import ApplyCtx, init_model_params
+from repro_torch.models.transformer import ApplyCtx, init_model_params, prefix_tokens
 from repro_torch.serving import Request, ServingEngine, ServingRuntime
 from repro_torch.serving.engine import capture_counts
 from repro_torch.training.data import multimodal_extras  # noqa: F401  (importable from here too)
@@ -107,8 +112,10 @@ def serve(
                          "encoder features: run it through ServingEngine.generate(prompt, n, "
                          "extras={'enc_feats': ...})")
     captures = sum(capture_counts().values())
-    engine = build_engine(arch, batch, prompt_len + new_tokens + 1, seed, reduced=reduced,
-                          layers=layers, device=device)
+    # a pool entry's slots hold the positions before every prompt (the
+    # published Hymba's meta tokens), the prompt and the decoded tokens
+    slots = prefix_tokens(get_config(arch)) + prompt_len + new_tokens + 1
+    engine = build_engine(arch, batch, slots, seed, reduced=reduced, layers=layers, device=device)
     cfg = engine.ctx.cfg
     runtime = ServingRuntime(engine, batch_size=batch, concurrency=concurrency)
     rng = np.random.default_rng(seed)
@@ -132,7 +139,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
                     help="a config of the registry: a dense decoder (e.g. qwen2.5-3b), "
-                         "Mamba2 (mamba2-2.7b), the hybrid Hymba (hymba-1.5b), an MoE "
+                         "Mamba2 (mamba2-2.7b), the hybrid Hymba (hymba-1.5b; the "
+                         "published one, hymba-1.5b-base), an MoE "
                          "model (moonshot-v1-16b-a3b, qwen3-moe-235b-a22b), MLA "
                          "(deepseek-v2-236b, with --layers) or M-RoPE (qwen2-vl-72b, "
                          "with --layers, text-only); whisper-medium, an encoder-decoder "

@@ -34,24 +34,25 @@ from repro_torch.sharding.specs import is_dtensor
 NEG_INF = -1e30
 
 
-def _mask(q_pos, kv_pos, causal: bool, window: Optional[int]) -> torch.Tensor:
-    """q_pos: (..., Sq), kv_pos: (..., Skv) -> bool (..., Sq, Skv)."""
+def _mask(q_pos, kv_pos, causal: bool, window: Optional[int], sink: int = 0) -> torch.Tensor:
+    """q_pos: (..., Sq), kv_pos: (..., Skv) -> bool (..., Sq, Skv). With a
+    window, keys at positions below ``sink`` are never hidden by it."""
     qp = q_pos[..., :, None]
     kp = kv_pos[..., None, :]
     m = kp >= 0  # negative kv positions mark invalid (unwritten ring slots)
     if causal:
         m = m & (kp <= qp)
     if window is not None:
-        m = m & ((qp - kp) < window)
+        m = m & (((qp - kp) < window) | (kp < sink))
     return m
 
 
-def _direct(q, k, v, q_pos, kv_pos, causal, window, scale):
+def _direct(q, k, v, q_pos, kv_pos, causal, window, scale, sink=0):
     # The reference multiplies bf16 operands with float32 accumulation
     # (preferred_element_type); widening the operands to float32 computes
     # the same products.
     scores = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
-    m = _mask(q_pos, kv_pos, causal, window)  # (B,Sq,Skv)
+    m = _mask(q_pos, kv_pos, causal, window, sink)  # (B,Sq,Skv)
     scores = torch.where(m[:, None, None, :, :], scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     return torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
@@ -71,7 +72,7 @@ def _pad_to_tiles(q, k, v, q_pos, kv_pos, bq, bk):
     return q, k, v, q_pos, kv_pos
 
 
-def _online_softmax(qi, qpi, k, v, kv_pos, tiles, bk, causal, window, scale):
+def _online_softmax(qi, qpi, k, v, kv_pos, tiles, bk, causal, window, scale, sink=0):
     """One query tile qi (B,bq,Hkv,G,D) against the key tiles ``tiles`` of
     (padded) k/v, by online softmax in float32; returns (B,bq,Hkv,G,Dv)."""
     b, bq, hkv, g, _ = qi.shape
@@ -83,7 +84,7 @@ def _online_softmax(qi, qpi, k, v, kv_pos, tiles, bk, causal, window, scale):
         ki = k[:, j * bk:(j + 1) * bk].float()
         vi = v[:, j * bk:(j + 1) * bk].float()
         s = torch.einsum("bqhgd,bkhd->bhgqk", qi, ki) * scale
-        m = _mask(qpi, kv_pos[:, j * bk:(j + 1) * bk], causal, window)
+        m = _mask(qpi, kv_pos[:, j * bk:(j + 1) * bk], causal, window, sink)
         s = torch.where(m[:, None, None, :, :], s, NEG_INF)
         mx_new = torch.maximum(mx, s.amax(dim=-1))
         corr = torch.exp(mx - mx_new)
@@ -95,7 +96,7 @@ def _online_softmax(qi, qpi, k, v, kv_pos, tiles, bk, causal, window, scale):
     return out.permute(0, 3, 1, 2, 4)
 
 
-def _blocked(q, k, v, q_pos, kv_pos, causal, window, scale, bq, bk):
+def _blocked(q, k, v, q_pos, kv_pos, causal, window, scale, bq, bk, sink=0):
     """Online-softmax attention over q/kv tiles (flash-style, plain torch)."""
     sq, skv = q.shape[1], k.shape[1]
     bq, bk = min(bq, sq), min(bk, skv)
@@ -103,7 +104,7 @@ def _blocked(q, k, v, q_pos, kv_pos, causal, window, scale, bq, bk):
     nq, nk = q.shape[1] // bq, k.shape[1] // bk
     out = torch.cat([
         _online_softmax(q[:, i * bq:(i + 1) * bq], q_pos[:, i * bq:(i + 1) * bq], k, v, kv_pos,
-                        range(nk), bk, causal, window, scale)
+                        range(nk), bk, causal, window, scale, sink)
         for i in range(nq)
     ], dim=1)
     return out[:, :sq].to(v.dtype)
@@ -140,9 +141,15 @@ def attention(
     causal: bool = True,
     window: Optional[int] = None,
     rcfg: RunConfig = RunConfig(),
+    sink: int = 0,
 ) -> torch.Tensor:
-    """Grouped-query attention. Returns (B, Sq, Hq, Dv) in ``v.dtype``."""
+    """Grouped-query attention. Returns (B, Sq, Hq, Dv) in ``v.dtype``.
+    With a window, keys at positions below ``sink`` stay visible to every
+    query (the published Hymba's meta tokens); the window's tile skipping
+    (``_blocked_swa``) is then not taken."""
     if is_dtensor(q):
+        if sink:
+            raise ValueError("attention with a sink runs on one device")
         return _sharded(q, k, v, q_pos, kv_pos, causal, window, rcfg)
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
@@ -154,10 +161,10 @@ def attention(
 
     if rcfg.use_kernels and sq > 1:
         out = fa_ops.flash_attention(
-            qg, k, v, q_pos, kv_pos, causal=causal, window=window
+            qg, k, v, q_pos, kv_pos, causal=causal, window=window, sink=sink
         )
     elif sq * k.shape[1] > rcfg.attn_blocked_threshold**2:
-        if causal and isinstance(window, int) and sq == k.shape[1] and window < sq:
+        if causal and isinstance(window, int) and sq == k.shape[1] and window < sq and not sink:
             out = _blocked_swa(
                 qg, k, v, q_pos, kv_pos, window, scale,
                 rcfg.attn_block_q, rcfg.attn_block_k,
@@ -165,10 +172,10 @@ def attention(
         else:
             out = _blocked(
                 qg, k, v, q_pos, kv_pos, causal, window, scale,
-                rcfg.attn_block_q, rcfg.attn_block_k,
+                rcfg.attn_block_q, rcfg.attn_block_k, sink,
             )
     else:
-        out = _direct(qg, k, v, q_pos, kv_pos, causal, window, scale)
+        out = _direct(qg, k, v, q_pos, kv_pos, causal, window, scale, sink)
     return out.reshape(b, sq, hq, v.shape[-1]).to(v.dtype)
 
 

@@ -1,5 +1,6 @@
 """Mamba2 block via SSD (state-space duality), per arXiv:2405.21060 (the
-counterpart of ``repro/models/ssm.py``).
+counterpart of ``repro/models/ssm.py``), and the Mamba-1 heads of the
+published Hymba (``mamba1_prefill`` / ``mamba1_decode``, at the end).
 
 Prefill uses the chunked dual form: intra-chunk attention-like (C Bᵀ ⊙ L)
 products and an inter-chunk state recurrence, either through the
@@ -18,7 +19,7 @@ float32 whatever the compute dtype.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,6 +28,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.runtime import RunConfig
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_ref
+from repro_torch.kernels.selective_scan import selective_scan, selective_scan_ref, selective_step_ref
 from repro_torch.kernels.ssm_decode import ssm_decode, ssm_decode_ref
 from repro_torch.models.layers import ParamSpec, rms_norm
 from repro_torch.sharding.specs import is_dtensor
@@ -206,3 +208,65 @@ def _sharded_step(state, xh, dt, dt_bias, A_log, Bm, Cm, D):
     y = ssm_decode(state.to_local(), local(xh, split), local(dt, split), local(dt_bias, heads),
                    local(A_log, heads), local(Bm, rows), local(Cm, rows), local(D, heads))
     return DTensor.from_local(y, mesh, split, run_check=False)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 (the published Hymba's SSM heads; models/hymba.py)
+# ---------------------------------------------------------------------------
+
+
+def _mamba1_coeffs(cfg: ModelConfig, p: dict, xc: torch.Tensor):
+    """dt (raw, before dt_bias and softplus), B and C from the convolved x:
+    ``x_proj`` to dt_rank + N + N, each part RMS-normed (Hymba's inner
+    norms), and dt through ``dt_proj``."""
+    n = cfg.ssm.d_state
+    dt, Bm, Cm = (xc @ p["x_proj"].to(xc.dtype)).split([cfg.dt_rank, n, n], dim=-1)
+    dt = rms_norm(dt, p["dt_norm"], cfg.norm_eps)
+    Bm = rms_norm(Bm, p["B_norm"], cfg.norm_eps)
+    Cm = rms_norm(Cm, p["C_norm"], cfg.norm_eps)
+    return dt @ p["dt_proj"].to(xc.dtype), Bm, Cm
+
+
+def mamba1_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor, z: torch.Tensor,
+                   rcfg: RunConfig, state: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The Mamba-1 branch over the whole sequence: x and the gate z (B, S,
+    di) from the layer's input projection; returns y (B, S, di) gated by
+    SiLU(z). The final state is written over ``state`` (the layer's
+    (B, di, N) slice of the bf16 cache) where one is given. With
+    ``rcfg.use_kernels`` the scan is ``selective_scan`` (the kernel on the
+    card), else its plain version."""
+    xc = _causal_conv(x, p["conv_w"].to(x.dtype), p["conv_b"].to(x.dtype))
+    dt, Bm, Cm = _mamba1_coeffs(cfg, p, xc)
+    args = (xc, dt, p["dt_bias"], p["A_log"], Bm, Cm, p["D"], z)
+    if rcfg.use_kernels:
+        return selective_scan(*args, state)
+    y, final = selective_scan_ref(*args)
+    if state is not None:
+        state.copy_(final)
+    return y
+
+
+def mamba1_conv_tail(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The last (d_conv - 1) conv inputs of x (B, S, di), front-padded with
+    zeros for a sequence shorter than that: the decode conv state (the
+    cache's ``copy_`` rounds it to the cache's dtype)."""
+    k = cfg.ssm.d_conv - 1
+    tail = x[:, -k:, :]
+    if tail.shape[1] < k:
+        tail = F.pad(tail, (0, 0, k - tail.shape[1], 0))
+    return tail
+
+
+def mamba1_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, z: torch.Tensor,
+                  cache: dict) -> torch.Tensor:
+    """One token of the Mamba-1 branch against a layer's cache (``ssm``
+    (B, di, N), ``conv`` (B, d_conv - 1, di)), both overwritten in place:
+    x and z are (B, 1, di); returns y (B, 1, di). Plain torch operations
+    (``selective_step_ref``), captured with the rest of the step."""
+    window = torch.cat([cache["conv"].to(x.dtype), x], dim=1)  # (B, d_conv, di)
+    conv = torch.einsum("bkc,kc->bc", window, p["conv_w"].to(x.dtype)) + p["conv_b"].to(x.dtype)
+    xc = F.silu(conv)
+    dt, Bm, Cm = _mamba1_coeffs(cfg, p, xc)
+    y = selective_step_ref(cache["ssm"], xc, dt, p["dt_bias"], p["A_log"], Bm, Cm, p["D"], z[:, 0])
+    cache["conv"].copy_(window[:, 1:])
+    return y[:, None]

@@ -70,8 +70,15 @@ and each layer through ``_maybe_remat`` (``RunConfig.remat``). It reads
 no kernel under grad: the wrappers raise there (``kernels/runtime.py``),
 and the training launcher runs the plain paths, as the reference's does.
 
-Every branch of the reference's model is ported. Hymba's meta tokens
-and cross-layer KV sharing are not in the reference, so not here either.
+Every branch of the reference's model is ported. The ``hybrid`` branch
+is the JAX package's Hymba, not the published one: Mamba2 SSD heads, a
+``sigmoid(mix_gate)`` blend, an attention ``wo``, globals at {0, n/2,
+n - 1}, no meta tokens, no K/V sharing. The published Hymba-1.5B
+(``configs/hymba_1_5b_base.py``, arch ``"hymba"``: Mamba-1 heads, 128 meta
+tokens, K/V caches shared across layers, a window whose sink keeps the
+meta tokens) lives in ``models/hymba.py``; ``param_specs``, ``prefill``,
+``decode_step`` and ``empty_cache`` hand a ``"hymba"`` model to it. It
+has no training path.
 """
 from __future__ import annotations
 
@@ -231,6 +238,10 @@ def _n_prologue(cfg: ModelConfig) -> int:
 
 def param_specs(cfg: ModelConfig) -> dict:
     """The model's ``ParamSpec`` tree (the reference's, key for key)."""
+    if cfg.arch_type == "hymba":
+        from repro_torch.models import hymba
+
+        return hymba.param_specs(cfg)
     d = cfg.d_model
     n_pro = _n_prologue(cfg)
     specs = {
@@ -261,9 +272,11 @@ def param_specs(cfg: ModelConfig) -> dict:
 
 def layer_windows(cfg: ModelConfig, n_layers: Optional[int] = None, offset: int = 0) -> list:
     """Per-layer attention window (None = global attention) of the
-    ``n_layers`` layers (all by default) from layer ``offset`` on."""
+    ``n_layers`` layers (all by default) from layer ``offset`` on. The
+    global layers are the configuration's ``global_layers`` where it lists
+    them (the published Hymba), else {0, n // 2, n - 1}."""
     w = []
-    globals_ = {0, cfg.n_layers // 2, cfg.n_layers - 1}
+    globals_ = set(getattr(cfg, "global_layers", ())) or {0, cfg.n_layers // 2, cfg.n_layers - 1}
     n = cfg.n_layers if n_layers is None else n_layers
     for i in range(offset, offset + n):
         if cfg.sliding_window is not None and i not in globals_:
@@ -667,6 +680,8 @@ def forward_train(ctx: ApplyCtx, params, batch) -> Tuple[torch.Tensor, torch.Ten
     per stack in layer order, then the prologue's and the main stack's
     added, as the reference sums them."""
     cfg = ctx.cfg
+    if cfg.arch_type == "hymba":
+        raise NotImplementedError("the published Hymba has no training path")
     tokens = batch["tokens"]
     b, s = tokens.shape
     dev = tokens.device
@@ -762,6 +777,10 @@ def prefill(ctx: ApplyCtx, params, batch, capacity: Optional[int] = None,
     is raised before anything is written.
     """
     cfg = ctx.cfg
+    if cfg.arch_type == "hymba":
+        from repro_torch.models import hymba
+
+        return hymba.prefill(ctx, params, batch["tokens"], capacity, out)
     tokens = batch["tokens"]
     b, s = tokens.shape
     dev = tokens.device
@@ -807,7 +826,14 @@ def empty_cache(cfg: ModelConfig, b: int, w: int, device=None,
     An encoder-decoder model's layers also hold the cross-attention K/V
     of ``enc_len`` encoder positions (``cfg.encoder_seq_len`` by
     default), unpadded, as the reference's ``abstract_cache``. Under
-    ``mesh`` (a prefill under a mesh) the tensors are DTensors."""
+    ``mesh`` (a prefill under a mesh) the tensors are DTensors. The
+    published Hymba's cache is ``models/hymba.py``'s (one device)."""
+    if cfg.arch_type == "hymba":
+        from repro_torch.models import hymba
+
+        if mesh is not None:
+            raise ValueError("the published Hymba runs on one device")
+        return hymba.empty_cache(cfg, b, w, device)
     n_pro = _n_prologue(cfg)
     enc_len = enc_len or cfg.encoder_seq_len
     cache = {"main": _empty_cache(cfg, cfg.n_layers - n_pro, b, w, device, enc_len, mesh)}
@@ -820,6 +846,21 @@ def empty_cache(cfg: ModelConfig, b: int, w: int, device=None,
     else:
         cache["length"] = torch.zeros((), dtype=torch.int32, device=device)
     return cache
+
+
+def prefix_tokens(cfg: ModelConfig) -> int:
+    """Positions a prefill puts before every prompt (the published Hymba's
+    meta tokens; 0 for every other model)."""
+    return getattr(cfg, "n_meta_tokens", 0)
+
+
+def kv_cache_count(cfg: ModelConfig) -> int:
+    """Distinct K/V (or MLA latent) cache entries a row keeps: one per
+    attention layer, one per K/V group in the published Hymba, none in an
+    attention-free model."""
+    if cfg.arch_type == "hymba":
+        return cfg.n_kv_caches
+    return 0 if cfg.arch_type == "ssm" else cfg.n_layers
 
 
 def abstract_cache(cfg: ModelConfig, batch: int, w: int, enc_len: Optional[int] = None) -> dict:
@@ -910,6 +951,10 @@ def decode_step(ctx: ApplyCtx, params, cache, tokens: torch.Tensor):
     place). ``length`` may also be a host int (a cache built by hand). The
     step reads no device value on the host."""
     cfg = ctx.cfg
+    if cfg.arch_type == "hymba":
+        from repro_torch.models import hymba
+
+        return hymba.decode_step(ctx, params, cache, tokens)
     b = tokens.shape[0]
     t = cache["length"]
     if not isinstance(t, torch.Tensor):

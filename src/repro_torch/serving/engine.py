@@ -38,6 +38,12 @@ its graph captures the cross-attention read too; ``enc_feats`` of
 another length do not fit an entry, and its prefill raises. The runtime
 passes no extras, as the reference's does not.
 
+The published Hymba (``models/hymba.py``) puts its meta tokens before
+every prompt: a pool entry's ``max_len`` slots hold them, the prompt and
+the decoded tokens (``prefix_tokens`` a row), and its cache keeps one K/V
+entry per group of layers that share one (``kv_caches``, 17 for 32
+layers), which the captured decode step reads as the eager one does.
+
 Weights are cast once, at load. The reference keeps float32 parameters
 and casts each one to the compute dtype where it is used
 (``ap["wq"].astype(dt)``); at full width that moves ~20 GB per decode
@@ -70,15 +76,23 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.transformer import ApplyCtx, decode_step, empty_cache, prefill
+from repro_torch.models.transformer import (
+    ApplyCtx,
+    decode_step,
+    empty_cache,
+    kv_cache_count,
+    prefill,
+    prefix_tokens,
+)
 from repro_torch.serving.tracing import trace_range
 
 # parameters the reference reads in float32 at use: the norm weights
 # (rms_norm widens them; MLA's kv_norm too; layer_norm its weights and
 # biases), Mamba2's dt_bias (added to the float32 dt) and A_log (cast to
 # float32 before exp), the hybrid mix_gate (before sigmoid), the MoE router
-# (float32 routing logits)
-_NORMS = ("ln1", "ln2", "ln_cross", "final_norm")
+# (float32 routing logits); the published Hymba's inner and branch norms
+_NORMS = ("ln1", "ln2", "ln_cross", "final_norm", "dt_norm", "B_norm", "C_norm", "attn_norm",
+          "ssm_norm")
 _FLOAT32_KEYS = (*_NORMS, *(n + "_b" for n in _NORMS), "q_norm", "k_norm", "kv_norm", "norm_w",
                  "dt_bias", "A_log", "mix_gate", "router")
 
@@ -184,6 +198,8 @@ class ServingEngine:
         self.params = cast_for_compute(params, ctx.rcfg.cdtype)
         self.batch = batch_size
         self.max_len = max_len
+        self.prefix_tokens = prefix_tokens(ctx.cfg)  # positions before every prompt
+        self.kv_caches = kv_cache_count(ctx.cfg)  # distinct K/V entries a row keeps
         on_card = self.device.type == "cuda"
         self.graphs = on_card if graphs is None else bool(graphs)
         if self.graphs and not on_card:
@@ -291,9 +307,9 @@ class ServingEngine:
             batch[name] = self.features(a)
         if entry is None:
             return self._prefill(self.params, batch)
-        s = batch["tokens"].shape[1]
+        s = batch["tokens"].shape[1] + self.prefix_tokens
         if s > self.max_len:
-            raise ValueError(f"a prompt of {s} tokens overflows a pool entry of "
+            raise ValueError(f"a prompt of {s} positions overflows a pool entry of "
                              f"{self.max_len} slots")
         return self._prefill(self.params, batch, out=self.pool[entry].cache)
 
@@ -344,7 +360,8 @@ class ServingEngine:
         draws from a ``torch.Generator`` seeded with ``seed``: the same
         distribution as the reference's ``jax.random.categorical``, not the
         same numbers."""
-        fits = prompt.shape[0] == self.batch and prompt.shape[1] <= self.max_len
+        fits = (prompt.shape[0] == self.batch
+                and prompt.shape[1] + self.prefix_tokens <= self.max_len)
         if self.graphs and not fits:
             raise ValueError(f"a prompt of shape {prompt.shape} does not fit a pool entry of "
                              f"({self.batch}, {self.max_len}), and graphs decode only those")

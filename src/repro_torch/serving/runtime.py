@@ -199,7 +199,8 @@ class _TenantRing:
             slot.cache, logits = self.engine.prefill(prompts, entry=slot.entry)
             slot.logits = self.engine.fetch_last(logits)
         slot.trace = GroupTrace(self.prefills, slot.entry, len(group), self.batch,
-                                prompts.shape[1], t, time.monotonic())
+                                prompts.shape[1], t, time.monotonic(),
+                                getattr(self.engine, "prefix_tokens", 0))
         for r in group:
             r.started = t
             r.group = slot.trace

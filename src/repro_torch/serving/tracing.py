@@ -7,8 +7,10 @@ tuple append per retire):
   and ``Request.group``, the :class:`GroupTrace` of the group that
   served it;
 - one :class:`GroupTrace` per group a ring starts: its pool entry, real
-  and padded rows, prompt length, the host interval of its prefill's
-  dispatch, and one tuple per retire (:data:`RETIRE_FIELDS`);
+  and padded rows, prompt length, the positions its prefill put before
+  each prompt (``prefix_tokens``: the published Hymba's meta tokens), the
+  host interval of its prefill's dispatch, and one tuple per retire
+  (:data:`RETIRE_FIELDS`);
 - ``ServingEngine.replays``, the CUDA graph replays the engine made.
 
 Every stamp is ``time.monotonic()``, the clock of the runtime's
@@ -25,7 +27,9 @@ argmax), ``.account`` (the per-row bookkeeping) and ``.dispatch`` (the
 next decode, or the release of the pool entry); ``serving.decode.upload``
 and ``serving.decode.replay`` (a graphed decode); ``serving.logits.copy``
 (the last position's logits started on their way to the host);
-``serving.idle`` (``run_for``'s sleep while nothing could progress).
+``serving.idle`` (``run_for``'s sleep while nothing could progress); and
+in the published Hymba's prefill, per layer, ``model.hybrid.attn`` and
+``model.hybrid.ssm`` around its two branches (``models/hymba.py``).
 """
 from __future__ import annotations
 
@@ -76,16 +80,17 @@ class GroupTrace:
     dispatch and its retires. ``batch - rows`` prefill rows were padding;
     the retires with ``live_next > 0`` each dispatched one decode."""
 
-    __slots__ = ("gid", "entry", "rows", "batch", "prompt_len", "t_prefill", "t_prefilled",
-                 "retires")
+    __slots__ = ("gid", "entry", "rows", "batch", "prompt_len", "prefix_tokens", "t_prefill",
+                 "t_prefilled", "retires")
 
     def __init__(self, gid: int, entry, rows: int, batch: int, prompt_len: int,
-                 t_prefill: float, t_prefilled: float):
+                 t_prefill: float, t_prefilled: float, prefix_tokens: int = 0):
         self.gid = gid  # the ring's sequence number of the group
         self.entry = entry  # the engine's pool entry
         self.rows = rows
         self.batch = batch
         self.prompt_len = prompt_len
+        self.prefix_tokens = prefix_tokens  # positions prefilled before each prompt
         self.t_prefill = t_prefill  # dispatch begins: pad, acquire, prefill,
         self.t_prefilled = t_prefilled  # and the logits' copy started
         self.retires: List[Tuple[float, float, float, float, float, int, int]] = []

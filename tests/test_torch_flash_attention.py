@@ -205,7 +205,7 @@ BODY_CASES = [
     ("mla-unaligned", lambda: _mla_views(2, 64, 8, pad=1), None, "simt"),
     ("float32", lambda: (_bhsd(1, 4, 64, 128, torch.float32), _bhsd(1, 2, 64, 128, torch.float32),
                          _bhsd(1, 2, 64, 128, torch.float32)), None, "simt"),
-    ("dv-not-d", lambda: (_bhsd(1, 4, 64, 64), _bhsd(1, 2, 64, 64), _bhsd(1, 2, 64, 128)),
+    ("dv-not-d", lambda: (_bhsd(1, 4, 64, 128), _bhsd(1, 2, 64, 128), _bhsd(1, 2, 64, 64)),
      None, "simt"),
     ("one-element-in", lambda: (_one_in(1, 4, 40, 128), _one_in(1, 2, 40, 128),
                                 _one_in(1, 2, 40, 128)), None, "simt"),
